@@ -1,0 +1,79 @@
+"""Build the CUDA C++ kernels with ``nvcc`` at first use and load them
+with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
+         <name>.cu
+
+(``-Xptxas -v`` only reports registers, shared memory and spills.)
+
+The library lands in ``build/repro_torch/`` at the root of the checkout,
+keyed by a hash of the source and the flags, so an edited source builds
+anew and an unchanged one is reused. A missing ``nvcc`` is an error.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                       "CUDA kernels of repro_torch are built from source")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def compile_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its hashed library exists.
+    Returns the library path; nvcc's output (the ``-Xptxas -v``
+    report) goes to ``<library>.log`` beside it."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent builder sees all or none
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(compile_library(name)))
+    return _LIBS[name]
