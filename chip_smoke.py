@@ -7,17 +7,25 @@ Needs one CUDA card, ``nvcc`` and ``triton``; imports nothing of JAX or
 of the JAX package. Phases, each printing JSON lines:
 
 1. device   — card name and power limit (nvidia-smi), torch/CUDA versions.
-2. build    — builds the CUDA kernel from ``src/repro_torch/kernels/csrc``
-              with nvcc and compiles the Triton kernel.
+2. build    — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
+              with nvcc (the port's library and two probe builds, in
+              parallel; ptxas registers and spills per kernel) and
+              compiles the Triton kernel.
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the main path's shapes and at small edge cases, with its
-              time, the plain version's, the library call's and the bound.
-4. reference — ``tiny`` (float32) on the card through the kernels against
-              the plain path on the CPU: model logits and decode tokens.
-5. serve    — ``ServingEngine`` in batch mode, llada-8b at full width and
+              time, the plain version's, the library call's and the bound;
+              at the timed attention shapes also the first port's simple
+              kernel, in turns with the new one.
+4. probe    — the bf16 attention kernel against its load path alone and
+              its math alone, at the timed shapes.
+5. reference — ``tiny`` (float32) on the card through the kernels against
+              the plain path on the CPU: model logits and decode tokens;
+              then llada-8b at full width, 2 layers, bf16, through the
+              kernels against ``attend_ref`` on the card.
+6. serve    — ``ServingEngine`` in batch mode, llada-8b at full width and
               depth (bf16, random weights from a seed), streaming decode
               of 4 prompts; launch counters read around this run only.
-6. profile  — the middle block of that decode: wall time without the
+7. profile  — the middle block of that decode: wall time without the
               profiler, device time by kernel under it, idle share.
 
 Then the kernels summary line, the nvidia-smi line and, last, the device
@@ -31,9 +39,11 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,6 +58,7 @@ from repro_torch.core.decoder import (DecodeConfig,  # noqa: E402
                                       DiffusionDecoder)
 from repro_torch.core.engine import ServingEngine  # noqa: E402
 from repro_torch.data.tokenizer import ByteTokenizer  # noqa: E402
+from repro_torch.kernels import block_attention as kba  # noqa: E402
 from repro_torch.kernels import build, confidence, ops, ref  # noqa: E402
 from repro_torch.models import apply_model, get_config, init_params  # noqa: E402
 from repro_torch.models.model import init_cache, params_to  # noqa: E402
@@ -74,7 +85,32 @@ def smi_line() -> str:
 def time_ms(fn, arg_sets, iters: int = 20) -> float:
     """Mean device time of ``fn(*args)`` over ``iters`` launches, cycling
     through ``arg_sets`` (sized so that together they exceed the 50 MB
-    L2: each launch finds its inputs cold, as in the decode loop)."""
+    L2: each launch finds its inputs cold, as in the decode loop). The
+    launches are captured in one CUDA graph and replayed, so the host's
+    cost per call (a wrapper's checks in Python) does not set the pace:
+    ``eager_ms`` times that."""
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def eager_ms(fn, arg_sets, iters: int = 20) -> float:
+    """Mean time per call of ``fn(*args)`` issued one by one from Python,
+    with events around the run: the pace of whichever is slower, the
+    host issuing the calls or the device running them."""
     for a in arg_sets:
         fn(*a)
     torch.cuda.synchronize()
@@ -137,6 +173,11 @@ def attention_bound(q, k, v, qp, kp, km, out, window):
 
 def check_attention(name, shape, dtype, *, softcap=0.0, window=0,
                     n_valid=None, q_start=0, masked_row=False, timed=False):
+    """The wrapper's kernel (bf16: the tensor-core kernel, float32: the
+    simple one) against the plain version on the same inputs. bf16 cases
+    also check the fused bf16 epilogue: the kernel's bf16 output is its
+    float32 output rounded to nearest even, bit for bit. Timed cases time
+    the first port's simple kernel on the same inputs, in turns."""
     B, Sq, Skv, H, Hkv, D = shape
     args = attention_inputs(B, Sq, Skv, H, Hkv, D, dtype, n_valid=n_valid,
                             q_start=q_start)
@@ -155,17 +196,50 @@ def check_attention(name, shape, dtype, *, softcap=0.0, window=0,
     ok = torch.allclose(out, want, atol=tol, rtol=tol)
     if masked_row:
         ok = ok and bool((out[-1] == 0).all())
-    rec = {"phase": "kernels", "kernel": "block_attention", "case": name,
+    route = "bf16_tensor_core" if dtype == torch.bfloat16 else "simple"
+    extra = {}
+    if dtype == torch.bfloat16:
+        out_bf = ops.block_attention(*args, out_dtype=torch.bfloat16, **kw)
+        extra["bf16_out_exact"] = bool(torch.equal(out_bf,
+                                                   out.to(torch.bfloat16)))
+        ok = ok and extra["bf16_out_exact"]
+        plan = kba.launch_plan(B, Sq, H, Hkv, D,
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+        extra["plan"] = {"ctas_per_head": plan.ctas_per_head,
+                         "warps": plan.warps, "threads": plan.threads,
+                         "stages": plan.stages,
+                         "smem_bytes": plan.smem_bytes,
+                         "ctas": plan.ctas_per_head * Hkv * B}
+    rec = {"phase": "kernels", "kernel": "block_attention", "route": route,
+           "case": name,
            "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hkv": Hkv,
                      "D": D}, "dtype": str(dtype).split(".")[-1],
            "softcap": softcap, "window": window,
-           "max_abs_err": err, "tol": tol, "ok": ok}
+           "max_abs_err": err, "tol": tol, "ok": ok, **extra}
     if timed:
         sets = [attention_inputs(B, Sq, Skv, H, Hkv, D, dtype,
                                  n_valid=n_valid, q_start=q_start, seed=s)
                 for s in range(n_copies(nbytes(*args, out)))]
-        rec["kernel_ms"] = time_ms(
-            lambda *a: ops.block_attention(*a, **kw), sets)
+        out_s = torch.empty_like(out)
+        kba.launch_simple(*args, out_s, **kw)
+        torch.cuda.synchronize()
+        rec["simple_max_abs_err"] = (out_s - want).abs().max().item()
+
+        def new(*a):
+            return ops.block_attention(*a, **kw)
+
+        def simple(*a):
+            kba.launch_simple(*a, out_s, **kw)
+
+        # in turns: new, simple, simple, new
+        t_new, t_simple = time_ms(new, sets), time_ms(simple, sets)
+        t_simple2, t_new2 = time_ms(simple, sets), time_ms(new, sets)
+        rec["kernel_ms"] = (t_new + t_new2) / 2
+        rec["simple_ms"] = (t_simple + t_simple2) / 2
+        rec["eager_ms"] = eager_ms(new, sets)
+        rec["kernel_ms_turns"] = [t_new, t_new2]
+        rec["simple_ms_turns"] = [t_simple, t_simple2]
         rec["plain_ms"] = time_ms(
             lambda *a: ref.block_attention_ref(*a, **kw), sets)
         lib = None
@@ -185,6 +259,39 @@ def check_attention(name, shape, dtype, *, softcap=0.0, window=0,
     if not ok:
         raise AssertionError(f"block_attention {name}: max err {err} > {tol}")
     return rec
+
+
+def phase_probe():
+    """Where the bf16 attention kernel's time goes: the full kernel, the
+    load path alone (probe 1: consumers skip the math) and the math
+    alone (probe 2: the producer skips the copies), in turns on the same
+    inputs at the three timed shapes. The probes' outputs are garbage
+    and are not checked."""
+    probes = {1: kba.load_probe(1), 2: kba.load_probe(2)}
+    T, Sq = PROMPT_LEN + GEN_LEN, BLOCK + WINDOW + 1
+    mid = PROMPT_LEN + (GEN_LEN // BLOCK // 2) * BLOCK
+    for name, shape, n_valid, q_start in (
+            ("llada8b_step", (4, Sq, T + Sq, 32, 32, 128), mid, mid),
+            ("llada8b_refresh", (4, mid + Sq, mid + Sq, 32, 32, 128),
+             mid + Sq, 0),
+            ("dream7b_step_gqa", (4, Sq, T + Sq, 28, 4, 128), mid, mid)):
+        B, Sq_, Skv, H, Hkv, D = shape
+        sets = [attention_inputs(B, Sq_, Skv, H, Hkv, D, torch.bfloat16,
+                                 n_valid=n_valid, q_start=q_start, seed=s)
+                for s in range(6)]
+        out = torch.empty((B, Sq_, H, D), device="cuda")
+        kw = dict(scale=1.0 / math.sqrt(D), softcap=0.0, window=0)
+
+        def timed(lib):
+            return time_ms(lambda *a: kba.launch(*a, out, lib=lib, **kw),
+                           sets)
+
+        full, load, math_ = timed(None), timed(probes[1]), timed(probes[2])
+        full2, load2, math2 = timed(None), timed(probes[1]), timed(probes[2])
+        emit({"phase": "probe", "kernel": "block_attention", "case": name,
+              "full_ms": (full + full2) / 2, "load_only_ms": (load + load2) / 2,
+              "math_only_ms": (math_ + math2) / 2,
+              "turns": [full, load, math_, full2, load2, math2]})
 
 
 def check_confidence(name, N, V, *, timed=False, ties=False):
@@ -247,6 +354,24 @@ def phase_kernels():
                     masked_row=True)
     check_attention("f32_ragged", (1, 129, 257, 8, 4, 64), f32)
     check_attention("bf16_ragged", (2, 33, 100, 4, 2, 128), bf16)
+    # the bf16 tensor-core kernel: every feature, edge and geometry it takes
+    for D in (128, 64):
+        for softcap in (0.0, 20.0):
+            for window in (0, 8):
+                check_attention(f"bf16_d{D}_sc{softcap:g}_w{window}",
+                                (2, 40, 120, 4, 2, D), bf16, softcap=softcap,
+                                window=window, q_start=30)
+        check_attention(f"bf16_d{D}_masked_row", (2, 16, 32, 2, 1, D), bf16,
+                        masked_row=True)
+        for sq in (1, 65, 129):      # Skv = 100, not a multiple of 32 keys
+            check_attention(f"bf16_d{D}_ragged_sq{sq}", (2, sq, 100, 4, 2, D),
+                            bf16)
+        for g in (1, 7):
+            check_attention(f"bf16_d{D}_gqa_g{g}", (2, 65, 201, 2 * g, 2, D),
+                            bf16, window=24, q_start=80)
+    # rows split over several CTAs, with a window that skips whole tiles
+    check_attention("bf16_split_window", (1, 600, 700, 8, 8, 128), bf16,
+                    window=40, softcap=20.0)
     conf = check_confidence("llada8b_head", 128, 126464, timed=True)
     check_confidence("dream7b_head", 128, 152064, timed=True)
     check_confidence("ragged_v", 128, 50257)
@@ -299,6 +424,78 @@ def phase_reference():
           "ok": ok})
     if not ok:
         raise AssertionError("tiny on the card disagrees with the CPU path")
+
+
+LLADA_REF_TOL = 2e-2
+
+
+def phase_reference_llada():
+    """llada-8b at full width, cut to 2 layers, bf16 with seeded random
+    weights: one refresh pass (encode of the 384-token buffer into the
+    cache) and one denoise step (129 query tokens over the cache valid
+    to 256, Skv = 513: the serve shapes) through the kernels, against the
+    same passes through ``attend_ref`` on the card.
+
+    Tolerance: ``attend_ref`` is the JAX package's bf16 reference path:
+    it rounds q*scale and the softmax probabilities to bf16 before its
+    products, where the kernel keeps f32 and rounds only its output. The
+    attention outputs so differ at bf16 resolution (2^-8 relative), and
+    through two layers and the LM head the logits may differ by a few
+    bf16 steps of their own scale: max |d logits| <= 2e-2 * max |logits|.
+    """
+    cfg = get_config("llada-8b", dtype="bfloat16", param_dtype="bfloat16",
+                     n_layers=2, reps=0)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 1), "cuda")
+    T = PROMPT_LEN + GEN_LEN
+    Sq = BLOCK + WINDOW + 1
+    mid = PROMPT_LEN + (GEN_LEN // BLOCK // 2) * BLOCK
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size - 2,
+                                         (N_PROMPTS, T)).astype(np.int32))
+    toks = toks.cuda()
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None].expand(
+        N_PROMPTS, T)
+    step_toks = toks[:, mid - Sq // 2:mid - Sq // 2 + Sq]
+    step_pos = (mid + torch.arange(Sq, dtype=torch.int32, device="cuda"))
+    step_pos = step_pos[None].expand(N_PROMPTS, Sq)
+    logits, launches = {}, {}
+    for uk in (True, False):
+        cache = init_cache(cfg, N_PROMPTS, T, "cuda")
+        ops.reset_launches()
+        refresh = apply_model(cfg, params, tokens=toks, positions=pos,
+                              cache=cache, use_kernels=uk)
+        step = apply_model(cfg, params, tokens=step_toks,
+                           positions=step_pos, mode="step", cache=cache,
+                           kv_valid=torch.full((N_PROMPTS,), mid,
+                                               dtype=torch.int32,
+                                               device="cuda"),
+                           use_kernels=uk)
+        torch.cuda.synchronize()
+        launches[uk] = ops.LAUNCHES["block_attention"]
+        logits[uk] = {"refresh": refresh.logits, "step": step.logits}
+    rec = {"phase": "reference", "arch": "llada-8b", "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": "bfloat16",
+           "shapes": {"refresh_S": T, "step_Sq": Sq, "step_Skv": T + Sq,
+                      "cache_valid": mid},
+           "kernel_launches": launches[True], "tol_rel_to_max": LLADA_REF_TOL}
+    ok = launches[True] == 2 * cfg.n_layers and launches[False] == 0
+    for name in ("refresh", "step"):
+        got, want = logits[True][name], logits[False][name]
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        rec[name] = {"logits_max_abs_err": err, "logits_max_abs": scale,
+                     "rel_to_max": err / scale, "argmax_agreement": agree,
+                     "finite": bool(torch.isfinite(got).all())}
+        ok = ok and rec[name]["finite"] and err <= LLADA_REF_TOL * scale
+    rec["ok"] = ok
+    emit(rec)
+    del params
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("llada-8b bf16 through the kernels disagrees "
+                             "with attend_ref on the card")
 
 
 def make_prompts(n, seed):
@@ -388,7 +585,7 @@ def phase_profile(cfg, params, dcfg):
             continue
         us = ev.self_device_time_total
         name = ev.key
-        if "block_attention" in name:
+        if "block_attention" in name or "attn_" in name:
             groups["block_attention"] += us
         elif "conf_kernel" in name:
             groups["confidence_argmax"] += us
@@ -413,6 +610,35 @@ def phase_profile(cfg, params, dcfg):
 
 # ------------------------------------------------------------------ main
 
+def ptxas_report(log: str):
+    """Per kernel instantiation: registers, spills, static shared memory,
+    from nvcc's ``-Xptxas -v`` output."""
+    funcs = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            short = re.search(r"(attn_\w+?_kernel)I(.*?)EEv", name)
+            funcs.append({"kernel": short.group(1) + "<" + short.group(2)
+                          + ">" if short else name, "registers": None,
+                          "spill_stores": 0, "spill_loads": 0,
+                          "smem_static": 0})
+            continue
+        if not funcs:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            funcs[-1]["spill_stores"] = int(m.group(1))
+            funcs[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            funcs[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            funcs[-1]["smem_static"] = int(sm.group(1)) if sm else 0
+    return funcs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -427,18 +653,25 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    lib = build.compile_library("block_attention")
+    # one nvcc per library, all started together: the port's kernels and
+    # the two probe builds of the attention kernel (probe phase)
+    with ThreadPoolExecutor(3) as pool:
+        lib, *_ = pool.map(lambda d: build.compile_library(
+            "block_attention", d), [(), ("ATTN_PROBE=1",), ("ATTN_PROBE=2",)])
     build.load("block_attention")
     t_nvcc = time.perf_counter() - t0
     confidence._kernel()
     import triton
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_report(lib.with_suffix(".log").read_text())
     emit({"phase": "build", "nvcc_s": t_nvcc, "library": os.path.relpath(
-        lib, ROOT), "ptxas": ptxas, "triton": triton.__version__})
+        lib, ROOT), "ptxas": ptxas,
+        "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas),
+        "triton": triton.__version__})
 
     step, conf = phase_kernels()
+    phase_probe()
     phase_reference()
+    phase_reference_llada()
     *model, serve = phase_serve()
     phase_profile(*model)
 

@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -44,23 +44,29 @@ def nvcc_path() -> str:
                        "CUDA kernels of repro_torch are built from source")
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Tuple[str, ...]) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def compile_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists.
-    Returns the library path; nvcc's output (the ``-Xptxas -v``
-    report) goes to ``<library>.log`` beside it."""
-    out = library_path(name)
+def compile_library(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``)
+    unless its hashed library exists. Returns the library path; nvcc's
+    output (the ``-Xptxas -v`` report) goes to ``<library>.log`` beside
+    it."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc_path(), *_flags(defines), "-o", tmp,
            str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(

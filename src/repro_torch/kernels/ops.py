@@ -28,28 +28,40 @@ def _require(cond: bool, what: str) -> None:
 
 
 def block_attention(q, k, v, q_pos, kv_pos, kv_mask, *, scale=None,
-                    softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+                    softcap: float = 0.0, window: int = 0,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); q_pos (B, Sq) / kv_pos
-    (B, Skv) int32; kv_mask (B, Skv) bool. Returns (B, Sq, H, D) float32;
-    rows with no valid key are zeros. ``scale`` defaults to 1/sqrt(D)."""
+    (B, Skv) int32; kv_mask (B, Skv) bool. Returns (B, Sq, H, D) in
+    ``out_dtype`` (float32, as the TPU kernel returns, or on the card
+    bfloat16: the float32 result rounded to nearest even, in the
+    kernel's epilogue; the CPU route casts to any dtype);
+    rows with no valid key are zeros. ``scale`` defaults to 1/sqrt(D).
+
+    On the card, bf16 q/k/v go to the tensor-core kernel (D in
+    ``BF16_D``) and float32 q/k/v to the simple kernel (D in
+    ``SIMPLE_D``); any other (dtype, D) raises."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return ref.block_attention_ref(q, k, v, q_pos, kv_pos, kv_mask,
                                        scale=scale, softcap=softcap,
-                                       window=window)
+                                       window=window).to(out_dtype)
     from repro_torch.kernels import block_attention as kernel
     _require(q.is_cuda, f"block_attention: unsupported device {q.device}")
+    _require(out_dtype in (torch.float32, torch.bfloat16),
+             f"block_attention: out_dtype {out_dtype} is not float32 or "
+             "bfloat16")
     B, Sq, H, D = q.shape
     _require(k.dim() == 4 and k.shape[0] == B and k.shape[3] == D
              and v.shape == k.shape, "block_attention: k/v shape")
     Skv, Hkv = k.shape[1], k.shape[2]
     _require(H % Hkv == 0, "block_attention: H % Hkv != 0")
-    _require(D in kernel.SUPPORTED_D, f"block_attention: head dim {D} "
-             f"not in {kernel.SUPPORTED_D}")
     _require(q.dtype in (torch.float32, torch.bfloat16)
              and k.dtype == q.dtype and v.dtype == q.dtype,
              "block_attention: q/k/v must share float32 or bfloat16")
+    dims = kernel.BF16_D if q.dtype == torch.bfloat16 else kernel.SIMPLE_D
+    _require(D in dims, f"block_attention: head dim {D} with {q.dtype} "
+             f"q/k/v: no kernel takes it (head dims {dims})")
     _require(q_pos.shape == (B, Sq) and kv_pos.shape == (B, Skv)
              and q_pos.dtype == torch.int32 and kv_pos.dtype == torch.int32,
              "block_attention: positions must be int32 (B, Sq)/(B, Skv)")
@@ -62,9 +74,11 @@ def block_attention(q, k, v, q_pos, kv_pos, kv_mask, *, scale=None,
              "block_attention: inputs must be contiguous")
     _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
              "block_attention: q/k/v must be 16-byte aligned")
-    out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
-    kernel.launch(q, k, v, q_pos, kv_pos, kv_mask, out, scale=scale,
-                  softcap=softcap, window=window)
+    out = torch.empty((B, Sq, H, D), dtype=out_dtype, device=q.device)
+    launch = kernel.launch if q.dtype == torch.bfloat16 \
+        else kernel.launch_simple
+    launch(q, k, v, q_pos, kv_pos, kv_mask, out, scale=scale,
+           softcap=softcap, window=window)
     LAUNCHES["block_attention"] += 1
     return out
 

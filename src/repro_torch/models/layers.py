@@ -221,7 +221,7 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
             (B, k.shape[1]), dtype=torch.bool, device=x.device)
         out = kops.block_attention(
             q, k, v, q_pos, kv_pos, km, scale=scale,
-            softcap=cfg.attn_softcap, window=window).to(q.dtype)
+            softcap=cfg.attn_softcap, window=window, out_dtype=q.dtype)
     else:
         out = attend_ref(q, k, v, scale=scale, attn_softcap=cfg.attn_softcap,
                          window=window, q_pos=q_pos, kv_pos=kv_pos,

@@ -51,3 +51,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.confidence_argmax(torch.zeros(2, 64, dtype=torch.float16,
                                           device=cuda))
     assert ops.LAUNCHES == before             # a refused call counts nothing
+
+
+def test_attention_wrapper_refuses_pairs_no_kernel_takes(cuda):
+    """bf16 goes to the tensor-core kernel (D 64/128), float32 to the
+    simple kernel (D 32/64/128); any other (dtype, D) raises, and so does
+    an output dtype other than float32 or bfloat16."""
+    before = dict(ops.LAUNCHES)
+    for D, dtype in ((32, torch.bfloat16), (16, torch.bfloat16),
+                     (256, torch.float32)):
+        args = _attn(1, 8, 16, 2, 1, D, dtype)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.block_attention(*args)
+    args = _attn(1, 8, 16, 2, 1, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="out_dtype"):
+        ops.block_attention(*args, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.block_attention(args[0], *[a.float() if a.is_floating_point()
+                                       else a for a in args[1:]])
+    assert ops.LAUNCHES == before

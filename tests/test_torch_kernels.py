@@ -10,6 +10,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import block_attention as kba
 from repro_torch.kernels import ops, ref
 
 # tiny shapes: intra-op threads only contend with the other test workers
@@ -162,3 +163,54 @@ def test_cpu_wrappers_do_not_count_launches():
     ops.block_attention(*t)
     ops.confidence_argmax(torch.randn(3, 50))
     assert ops.LAUNCHES == {"block_attention": 0, "confidence_argmax": 0}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_attention_out_dtype_bf16_is_the_rounded_f32_result(dtype):
+    """``out_dtype=bfloat16`` is the float32 result rounded to nearest
+    even, bit for bit: the cast ``apply_attention`` used to make."""
+    _, t = _both(_attn_inputs(2, 33, 100, 4, 2, 64), dtype)
+    kw = dict(softcap=20.0, window=16)
+    got = ops.block_attention(*t, out_dtype=torch.bfloat16, **kw)
+    want = ref.block_attention_ref(*t, scale=1 / np.sqrt(64), **kw)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
+
+
+# (B, Sq, H, Hkv, D): llada-8b step and refresh, dream-7b GQA step,
+# ragged Sq, D=64, and a GQA group wider than one CTA's rows
+PLAN_SHAPES = [(4, 129, 32, 32, 128), (4, 385, 32, 32, 128),
+               (4, 129, 28, 4, 128), (2, 1, 4, 2, 128), (2, 65, 4, 2, 128),
+               (2, 129, 8, 1, 64), (1, 4000, 8, 8, 128), (16, 33, 32, 8, 64)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_launch_plan_covers_every_query_row_once(shape):
+    B, Sq, H, Hkv, D = shape
+    plan = kba.launch_plan(B, Sq, H, Hkv, D)
+    assert plan.rows == H // Hkv * Sq
+    assert plan.tiles * kba.ROWS_PER_WARP >= plan.rows
+    assert (plan.tiles - 1) * kba.ROWS_PER_WARP < plan.rows
+    covered = np.zeros(plan.tiles * kba.ROWS_PER_WARP, np.int64)
+    for lo, hi in plan.tile_ranges():
+        assert 1 <= hi - lo <= plan.warps   # every CTA's tiles fit its warps
+        covered[lo * kba.ROWS_PER_WARP:hi * kba.ROWS_PER_WARP] += 1
+    assert (covered == 1).all()
+    assert 1 <= plan.warps <= kba.MAX_WARPS
+    assert plan.threads == (plan.warps + 1) * 32 <= 1024
+    assert plan.smem_bytes <= kba.SMEM_LIMIT
+    assert plan.grid == (plan.ctas_per_head, Hkv, B)
+    assert plan.stages == kba.STAGES
+
+
+def test_launch_plan_geometry_at_the_main_path_shapes():
+    """One CTA per (b, kv head) at the llada-8b step (128 CTAs, one
+    wave); the refresh splits its 385 rows over 3 CTAs; dream-7b's 7
+    packed heads (903 rows) over 8, so 128 CTAs fill the card."""
+    step = kba.launch_plan(4, 129, 32, 32, 128)
+    assert (step.ctas_per_head, step.warps, step.smem_bytes) == (1, 9, 109440)
+    refresh = kba.launch_plan(4, 385, 32, 32, 128)
+    assert (refresh.ctas_per_head, refresh.warps) == (3, 9)
+    gqa = kba.launch_plan(4, 129, 28, 4, 128)
+    assert (gqa.rows, gqa.ctas_per_head, gqa.warps) == (903, 8, 8)
+    assert kba.smem_bytes(128, kba.MAX_WARPS) == 118144

@@ -137,6 +137,37 @@ def test_apply_attention_with_cache(valid_kind, use_kernels):
     _close(gv, wv, 1e-4)
 
 
+def test_apply_attention_bf16_kernel_route_matches_jax():
+    """bf16 weights and activations on the kernel route: the wrapper's
+    fused bf16 output (``out_dtype=q.dtype``) gives what the JAX path's
+    ``.astype(q.dtype)`` gives, at the bf16 tolerance 2e-2."""
+    B, S, P = 2, 6, 12
+    bf = torch.bfloat16
+    jp = jax.tree.map(lambda a: a[1].astype(jnp.bfloat16),
+                      JP["scan"][0]["mixer"])
+    tp = {k: w.to(bf) for k, w in TP["layers"][1]["mixer"].items()}
+    x = RNG.standard_normal((B, S, CFG_T.d_model), np.float32)
+    ck = RNG.standard_normal((B, P, CFG_T.n_kv_heads, CFG_T.head_dim),
+                             np.float32)
+    cv = RNG.standard_normal(ck.shape, np.float32)
+    qp = np.tile(np.arange(20, 20 + S, dtype=np.int32), (B, 1))
+    kvp = np.concatenate([np.tile(np.arange(P, dtype=np.int32), (B, 1)), qp],
+                         1)
+    kv_valid = np.array([5, 12], np.int32)
+    want = jlayers.apply_attention(
+        CFG_J, jp, jnp.asarray(x, jnp.bfloat16), q_pos=jnp.asarray(qp),
+        kv_pos=jnp.asarray(kvp), kv_valid=jnp.asarray(kv_valid),
+        kv_cache=(jnp.asarray(ck, jnp.bfloat16),
+                  jnp.asarray(cv, jnp.bfloat16)), use_kernels=True)
+    got = layers.apply_attention(
+        CFG_T, tp, torch.tensor(x).to(bf), q_pos=torch.tensor(qp),
+        kv_pos=torch.tensor(kvp), kv_valid=torch.tensor(kv_valid),
+        kv_cache=(torch.tensor(ck).to(bf), torch.tensor(cv).to(bf)),
+        use_kernels=True)
+    assert got.dtype == bf
+    _close(got.float(), np.asarray(want, np.float32), 2e-2)
+
+
 @pytest.mark.parametrize("kind", ["swiglu", "gelu"])
 def test_apply_ffn(kind):
     d, f = 32, 48
