@@ -8,14 +8,17 @@ of the JAX package. Phases, each printing JSON lines:
 
 1. device   — card name and power limit (nvidia-smi), torch/CUDA versions.
 2. build    — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
-              with nvcc (the port's library and two probe builds, in
-              parallel; ptxas registers and spills per kernel) and
-              compiles the Triton kernel.
+              with nvcc (the port's two libraries and two probe builds of
+              the attention kernel, in parallel; ptxas registers and
+              spills per kernel) and compiles the first port's Triton
+              confidence kernel, kept only to be timed here.
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the main path's shapes and at small edge cases, with its
               time, the plain version's, the library call's and the bound;
-              at the timed attention shapes also the first port's simple
-              kernel, in turns with the new one.
+              at the timed shapes also the first port's kernel (simple
+              attention; Triton confidence on float32), in turns with the
+              new one; then the LM-head path of a denoise step as a unit,
+              against the route it replaced.
 4. probe    — the bf16 attention kernel against its load path alone and
               its math alone, at the timed shapes.
 5. reference — ``tiny`` (float32) on the card through the kernels against
@@ -54,6 +57,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.core import schedule as sched  # noqa: E402
 from repro_torch.core.decoder import (DecodeConfig,  # noqa: E402
                                       DiffusionDecoder)
 from repro_torch.core.engine import ServingEngine  # noqa: E402
@@ -294,41 +298,224 @@ def phase_probe():
               "turns": [full, load, math_, full2, load2, math2]})
 
 
-def check_confidence(name, N, V, *, timed=False, ties=False):
+def row_a0(x, row: int) -> int:
+    """Column of the first 16-byte boundary of ``x[row]``."""
+    addr = x.data_ptr() + row * x.stride(0) * x.element_size()
+    return (-addr % 16) // x.element_size()
+
+
+def plant_ties(x, mask_id: int) -> None:
+    """Equal maxima where the kernel's merges meet, one pattern per row in
+    turn: inside one 16-byte vector; across threads and warps; on both
+    sides of every split cut that ``launch_plan`` picks; the row's scalar
+    head, first body column and scalar tail; and a larger value at
+    ``mask_id``, which must not win. The first index of the (unbanned)
+    maximum must win."""
+    N, V = x.shape
+    plan = confidence.launch_plan(N, V, x.dtype, torch.cuda
+                                  .get_device_properties(0)
+                                  .multi_processor_count)
+    vec, top = plan.vec, 30.0                   # above every randn * 4 value
+    for r in range(N):
+        a0 = row_a0(x, r)
+        kind = r % 5
+        if kind == 0:
+            cols = [a0 + 3 * vec + 1, a0 + 3 * vec + vec - 1]
+        elif kind == 1:
+            cols = [a0 + vec * (confidence.THREADS + 5), a0 + vec * (96 + 5),
+                    a0 + vec * 5 + 2]
+        elif kind == 2:
+            cuts = [rg[0][0] for rg in plan.columns(V, a0)[1:] if rg]
+            cols = [c + d for c in cuts for d in (-1, 0)] or [V // 2, V - 1]
+        elif kind == 3:
+            cols = [0, a0, V - 1]
+        else:
+            cols = [7, V // 3]
+            if mask_id >= 0:
+                x[r, mask_id] = top + 2
+        x[r, [c for c in cols if c < V and c != mask_id]] = top
+
+
+def check_confidence(name, N, V, dtype, *, mask_id=-1, timed=False,
+                     ties=False):
+    """The CUDA kernel through ``ops.confidence_argmax`` against the
+    plain version on the same inputs (the same bf16 or float32 values,
+    the same ban): idx exact, conf within 1e-5. Timed cases also time
+    the plain version and, on float32 inputs, the first port's Triton
+    kernel (no ban; in turns with the new one)."""
 
     def make(seed):
         g = torch.Generator(device="cuda").manual_seed(seed)
-        return torch.randn((N, V), generator=g, device="cuda") * 4
+        x = (torch.randn((N, V), generator=g, device="cuda") * 4).to(dtype)
+        if ties:
+            plant_ties(x, mask_id)
+        return x
 
     x = make(0)
-    if ties:
-        # equal maxima within one 4096-chunk and across chunks: the first
-        # index must win (the TPU kernel's tie-break)
-        top = x.max() + 1
-        x[:, [5, 9, V - 3]] = top
-        x[1, [70, 4200]] = top + 1
-    conf, idx = ops.confidence_argmax(x)
-    c_ref, i_ref = ref.confidence_argmax_ref(x)
+    conf, idx = ops.confidence_argmax(x, mask_id=mask_id)
+    c_ref, i_ref = ref.confidence_argmax_ref(x, mask_id=mask_id)
     torch.cuda.synchronize()
     err = (conf - c_ref).abs().max().item()
     idx_ok = bool((idx == i_ref).all())
-    ok = idx_ok and err <= 1e-5
-    rec = {"phase": "kernels", "kernel": "confidence_argmax", "case": name,
-           "shape": {"N": N, "V": V}, "max_abs_err": err, "tol": 1e-5,
-           "idx_exact": idx_ok, "ok": ok}
+    again = ops.confidence_argmax(x, mask_id=mask_id)
+    same = bool(torch.equal(again[0], conf) and torch.equal(again[1], idx))
+    ok = idx_ok and err <= 1e-5 and same
+    plan = confidence.launch_plan(N, V, dtype, torch.cuda
+                                  .get_device_properties(0)
+                                  .multi_processor_count)
+    rec = {"phase": "kernels", "kernel": "confidence_argmax", "route": "cuda",
+           "case": name, "shape": {"N": N, "V": V},
+           "dtype": str(dtype).split(".")[-1], "mask_id": mask_id,
+           "plan": {"splits": plan.splits, "chunk_vectors": plan.chunk,
+                    "ctas": N * plan.splits},
+           "row0_a0": row_a0(x, 0), "max_abs_err": err, "tol": 1e-5,
+           "idx_exact": idx_ok, "repeat_identical": same, "ok": ok}
     if timed:
         sets = [(make(s),) for s in range(n_copies(nbytes(x)))]
-        rec["kernel_ms"] = time_ms(ops.confidence_argmax, sets)
-        rec["plain_ms"] = time_ms(ref.confidence_argmax_ref, sets)
+
+        def new(a):
+            return ops.confidence_argmax(a, mask_id=mask_id)
+
+        def plain(a):
+            return ref.confidence_argmax_ref(a, mask_id=mask_id)
+
+        def probe(mode):
+            lib = confidence.load_probe(mode)
+            return lambda a: confidence.launch(a, conf, idx, mask_id=mask_id,
+                                               lib=lib)
+
+        # the kernel against its loads alone and its arithmetic alone (the
+        # probes' outputs are garbage) and, on float32, the first port's
+        # Triton kernel (no ban; checked without one), on the same inputs.
+        # In turns: port, others, others reversed, port.
+        others = {"load_only": probe(1), "math_only": probe(2)}
+        if dtype == torch.float32:
+            c_t = torch.empty_like(conf)
+            i_t = torch.empty_like(idx)
+            confidence.launch_triton(x, c_t, i_t)
+            c_nb, i_nb = ref.confidence_argmax_ref(x)
+            torch.cuda.synchronize()
+            rec["triton_max_abs_err"] = (c_t - c_nb).abs().max().item()
+            rec["triton_idx_exact"] = bool((i_t == i_nb).all())
+            ok = ok and rec["triton_max_abs_err"] <= 1e-5 \
+                and rec["triton_idx_exact"]
+            others["triton"] = lambda a: confidence.launch_triton(a, c_t, i_t)
+        turns = {"port": [time_ms(new, sets)]}
+        for k, fn in others.items():
+            turns[k] = [time_ms(fn, sets)]
+        for k in reversed(list(others)):
+            turns[k].append(time_ms(others[k], sets))
+        turns["port"].append(time_ms(new, sets))
+        rec["kernel_ms_turns"] = turns["port"]
+        rec["kernel_ms"] = sum(turns["port"]) / 2
+        for k, t in turns.items():
+            if k != "port":
+                rec[f"{k}_ms"] = sum(t) / 2
+        rec["eager_ms"] = eager_ms(new, sets)
+        rec["plain_ms"] = time_ms(plain, sets)
         rec["library_ms"] = None     # no single PyTorch call computes it
         t_bytes = (nbytes(x) + N * 8) / HBM_BYTES_S
         t_ops = 5 * N * V / PEAK_OPS_S["float32"]   # max, sub, exp, add, cmp
         rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+        rec["ok"] = ok
     emit(rec)
     if not ok:
         raise AssertionError(f"confidence_argmax {name}: err {err}, "
-                             f"idx exact {idx_ok}")
+                             f"idx exact {idx_ok}, repeat identical {same}")
+    return rec
+
+
+def confidence_scaling(mask_id: int):
+    """Device time of the main path's form (bf16 + ban, V = 126464) as the
+    rows grow from 64 to 512: about 512 CTAs each time (launch_plan), so
+    each CTA's share of the bytes grows with N. A least-squares line
+    through (bytes, ms) gives the rate the kernel streams at (its slope)
+    and its cost that does not grow with the bytes (its intercept:
+    launch, ramp-up, the rows' last-CTA merges)."""
+    V, rows = 126464, []
+    for N in (64, 128, 256, 512):
+        def make(seed):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            return (torch.randn((N, V), generator=g, device="cuda")
+                    * 4).to(torch.bfloat16)
+        x = make(0)
+        sets = [(make(s),) for s in range(n_copies(nbytes(x)))]
+        ms = time_ms(lambda a: ops.confidence_argmax(a, mask_id=mask_id),
+                     sets)
+        plan = confidence.launch_plan(N, V, torch.bfloat16)
+        rows.append({"N": N, "bytes": nbytes(x), "ms": ms,
+                     "ctas": N * plan.splits})
+    b = np.array([r["bytes"] for r in rows], dtype=np.float64)
+    t = np.array([r["ms"] for r in rows], dtype=np.float64)
+    slope, intercept = np.polyfit(b, t, 1)
+    emit({"phase": "kernels", "kernel": "confidence_argmax",
+          "case": "scaling_bf16", "points": rows,
+          "fit_tb_s": 1e-9 / slope, "fit_fixed_ms": intercept})
+
+
+def check_head_path(mask_id: int, d: int = 4096, V: int = 126464):
+    """The head path of one llada-8b denoise step as a unit:
+    ``ops.head_confidence_argmax`` on hidden (4, 32, 4096) bf16 through
+    the head (4096, 126464) bf16 (GEMM, then the kernel on its bf16
+    output with the ban), against the previous route (GEMM, float32
+    cast, ban as an indexed store, Triton kernel) and the plain route,
+    on the same inputs. Both routes graph-timed in turns, with the GEMM
+    alone and the GEMM's own bound (the head's bytes) beside them."""
+    B, K = N_PROMPTS, BLOCK
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    hidden = torch.randn((B, K, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    head = (torch.randn((d, V), generator=g, device="cuda")
+            / math.sqrt(d)).to(torch.bfloat16)
+    h2 = hidden.reshape(-1, d)
+    c_prev = torch.empty(B * K, dtype=torch.float32, device="cuda")
+    i_prev = torch.empty(B * K, dtype=torch.int32, device="cuda")
+
+    def new():
+        return ops.head_confidence_argmax(hidden, head, mask_id=mask_id)
+
+    def previous():
+        logits = (h2 @ head).float()
+        logits[:, mask_id] = -1e30
+        confidence.launch_triton(logits, c_prev, i_prev)
+        return c_prev, i_prev
+
+    def gemm():
+        return h2 @ head
+
+    c_new, i_new = new()
+    previous()
+    c_pl, i_pl = sched.head_confidence_and_tokens(hidden, head,
+                                                  mask_id=mask_id)
+    torch.cuda.synchronize()
+    err = (c_new - c_pl).abs().max().item()
+    idx_ok = bool((i_new == i_pl).all())
+    prev_agree = bool((i_new.reshape(-1) == i_prev).all())
+    ok = idx_ok and err <= 1e-5 and prev_agree
+    t_new, t_prev = time_ms(new, [()]), time_ms(previous, [()])
+    t_prev2, t_new2 = time_ms(previous, [()]), time_ms(new, [()])
+    t_gemm = time_ms(gemm, [()])
+    t_bytes = (nbytes(hidden, head) + B * K * 8) / HBM_BYTES_S
+    t_ops = 2 * B * K * d * V / PEAK_OPS_S["bfloat16"]
+    rec = {"phase": "kernels", "kernel": "head_path", "case": "llada8b_step",
+           "shape": {"rows": B * K, "d": d, "V": V}, "mask_id": mask_id,
+           "max_abs_err": err, "tol": 1e-5, "idx_exact": idx_ok,
+           "previous_route_idx_agree": prev_agree,
+           "new_ms": (t_new + t_new2) / 2,
+           "previous_ms": (t_prev + t_prev2) / 2,
+           "new_ms_turns": [t_new, t_new2],
+           "previous_ms_turns": [t_prev, t_prev2], "gemm_ms": t_gemm,
+           "gemm_bound_ms": 1e3 * max(t_bytes, t_ops),
+           "gemm_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "ok": ok}
+    emit(rec)
+    del head
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"head path: err {err}, idx exact {idx_ok}, "
+                             f"previous route agrees {prev_agree}")
     return rec
 
 
@@ -372,10 +559,31 @@ def phase_kernels():
     # rows split over several CTAs, with a window that skips whole tiles
     check_attention("bf16_split_window", (1, 600, 700, 8, 8, 128), bf16,
                     window=40, softcap=20.0)
-    conf = check_confidence("llada8b_head", 128, 126464, timed=True)
-    check_confidence("dream7b_head", 128, 152064, timed=True)
-    check_confidence("ragged_v", 128, 50257)
-    check_confidence("ties", 4, 10000, ties=True)
+    llada_mask = get_config("llada-8b").mask_token_id
+    dream_mask = get_config("dream-7b").mask_token_id
+    for dtype in (bf16, f32):
+        tag = "bf16" if dtype == bf16 else "f32"
+        rec = check_confidence(f"llada8b_head_{tag}", 128, 126464, dtype,
+                               mask_id=llada_mask, timed=True)
+        if dtype == bf16:
+            conf = rec                  # the main path's form
+        check_confidence(f"dream7b_head_{tag}", 128, 152064, dtype,
+                         mask_id=dream_mask, timed=True)
+        check_confidence(f"llada8b_ties_{tag}", 128, 126464, dtype,
+                         mask_id=llada_mask, ties=True)
+        check_confidence(f"rows32_ties_{tag}", 32, 126464, dtype,
+                         mask_id=llada_mask, ties=True)
+        check_confidence(f"rows1_{tag}", 1, 126464, dtype,
+                         mask_id=llada_mask)
+        check_confidence(f"ragged_v_ties_{tag}", 128, 50257, dtype,
+                         mask_id=50256, ties=True)
+        check_confidence(f"ragged_v_mid_ban_{tag}", 128, 50257, dtype,
+                         mask_id=25000, ties=True)
+        check_confidence(f"small_unaligned_{tag}", 8, 1001, dtype,
+                         mask_id=2, ties=True)
+        check_confidence(f"no_ban_{tag}", 64, 4099, dtype, ties=True)
+    confidence_scaling(llada_mask)
+    check_head_path(llada_mask)     # llada-8b: d = 4096, V = 126464
     return step, conf
 
 
@@ -587,7 +795,7 @@ def phase_profile(cfg, params, dcfg):
         name = ev.key
         if "block_attention" in name or "attn_" in name:
             groups["block_attention"] += us
-        elif "conf_kernel" in name:
+        elif "conf_argmax" in name or "conf_kernel" in name:
             groups["confidence_argmax"] += us
         elif "gemm" in name or "nvjet" in name or "cutlass" in name:
             groups["matmul"] += us
@@ -618,7 +826,8 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = m.group(1)
-            short = re.search(r"(attn_\w+?_kernel)I(.*?)EEv", name)
+            short = re.search(r"((?:attn|conf)_\w+?_kernel)I(.*?)EEv",
+                              name)
             funcs.append({"kernel": short.group(1) + "<" + short.group(2)
                           + ">" if short else name, "registers": None,
                           "spill_stores": 0, "spill_loads": 0,
@@ -653,20 +862,27 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    # one nvcc per library, all started together: the port's kernels and
-    # the two probe builds of the attention kernel (probe phase)
-    with ThreadPoolExecutor(3) as pool:
-        lib, *_ = pool.map(lambda d: build.compile_library(
-            "block_attention", d), [(), ("ATTN_PROBE=1",), ("ATTN_PROBE=2",)])
+    # one nvcc per library, all started together: the port's two kernel
+    # libraries and the two probe builds of the attention kernel
+    jobs = [("block_attention", ()), ("confidence", ()),
+            ("block_attention", ("ATTN_PROBE=1",)),
+            ("block_attention", ("ATTN_PROBE=2",)),
+            ("confidence", ("CONF_PROBE=1",)),
+            ("confidence", ("CONF_PROBE=2",))]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(lambda j: build.compile_library(*j), jobs))
     build.load("block_attention")
+    build.load("confidence")
     t_nvcc = time.perf_counter() - t0
-    confidence._kernel()
+    confidence.triton_kernel()
     import triton
-    ptxas = ptxas_report(lib.with_suffix(".log").read_text())
-    emit({"phase": "build", "nvcc_s": t_nvcc, "library": os.path.relpath(
-        lib, ROOT), "ptxas": ptxas,
-        "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas),
-        "triton": triton.__version__})
+    ptxas = [f for lib in libs[:2]
+             for f in ptxas_report(lib.with_suffix(".log").read_text())]
+    emit({"phase": "build", "nvcc_s": t_nvcc,
+          "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:2]],
+          "ptxas": ptxas,
+          "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas),
+          "triton": triton.__version__})
 
     step, conf = phase_kernels()
     phase_probe()
@@ -683,8 +899,8 @@ def main() -> int:
          "max_abs_err": step["max_abs_err"], "ms": step["kernel_ms"],
          "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
          "bound_by": step["bound_by"], "library_ms": step["library_ms"]},
-        {"name": "confidence_argmax", "route": "triton",
-         "source": "src/repro_torch/kernels/confidence.py",
+        {"name": "confidence_argmax", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/confidence.cu",
          "replaces": "src/repro/kernels/confidence.py:70",
          "launches": serve["launches"]["confidence_argmax"],
          "max_abs_err": conf["max_abs_err"], "ms": conf["kernel_ms"],

@@ -26,14 +26,13 @@ def confidence_and_tokens(logits: torch.Tensor
 
 
 def chunked_head_reduce(hidden: torch.Tensor, head: torch.Tensor, reduce_fn,
-                        *, mask_id: int = -1, logit_softcap: float = 0.0,
-                        row_chunk: int = 1024
+                        *, row_chunk: int = 1024
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Project row chunks of the final hidden states through the LM head
-    (in the hidden dtype, then float32; softcap + [MASK] ban per chunk)
-    and hand each chunk's 2-D logits to ``reduce_fn`` -> (conf, tok), so
-    the full ``(..., V)`` logits never exist as one array. Shared by the
-    plain reducer below and the kernel route in ``kernels.ops``.
+    (in the hidden dtype) and hand each chunk's 2-D logits, as the
+    product gives them, to ``reduce_fn`` -> (conf, tok), so the full
+    ``(..., V)`` logits never exist as one array. Shared by the plain
+    reducer below and the kernel route in ``kernels.ops``.
 
     hidden: (..., d); head: (d, V).
     """
@@ -42,12 +41,7 @@ def chunked_head_reduce(hidden: torch.Tensor, head: torch.Tensor, reduce_fn,
     confs, toks = [], []
     for s in range(0, h2.shape[0], row_chunk):
         hc = h2[s:s + row_chunk]
-        logits = (hc @ head.to(hc.dtype)).float()
-        if logit_softcap:
-            logits = logit_softcap * torch.tanh(logits / logit_softcap)
-        if mask_id >= 0:
-            logits[:, mask_id] = -1e30
-        c, t = reduce_fn(logits)
+        c, t = reduce_fn(hc @ head.to(hc.dtype))
         confs.append(c)
         toks.append(t)
     conf = confs[0] if len(confs) == 1 else torch.cat(confs)
@@ -59,12 +53,20 @@ def head_confidence_and_tokens(hidden: torch.Tensor, head: torch.Tensor, *,
                                mask_id: int = -1, logit_softcap: float = 0.0,
                                row_chunk: int = 1024
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused-head path with the plain reducer: row chunking leaves each
-    row's reduction untouched, so per-row results match
+    """Fused-head path with the plain reducer: each chunk's logits in
+    float32, softcapped, [MASK] banned, then Eq. 4. Row chunking leaves
+    each row's reduction untouched, so per-row results match
     ``confidence_and_tokens`` over the monolithic logits."""
-    return chunked_head_reduce(hidden, head, confidence_and_tokens,
-                               mask_id=mask_id, logit_softcap=logit_softcap,
-                               row_chunk=row_chunk)
+
+    def reduce(logits):
+        logits = logits.float()
+        if logit_softcap:
+            logits = logit_softcap * torch.tanh(logits / logit_softcap)
+        if mask_id >= 0:
+            logits[:, mask_id] = -1e30
+        return confidence_and_tokens(logits)
+
+    return chunked_head_reduce(hidden, head, reduce, row_chunk=row_chunk)
 
 
 def dynamic_threshold(tau0: float, alpha: float, r_mask: torch.Tensor

@@ -92,29 +92,35 @@ def sliding_window_attention(q, k, v, q_pos, kv_pos, *, window: int,
                            softcap=softcap, window=window)
 
 
-def _confidence_2d(logits: torch.Tensor):
+def _confidence_2d(logits: torch.Tensor, mask_id: int):
+    N, V = logits.shape
+    mask_id = max(int(mask_id), -1)          # any negative id bans nothing
+    _require(mask_id < V, f"confidence_argmax: mask_id {mask_id} is not a "
+             f"column of V={V}")
     if logits.device.type == "cpu":
-        return ref.confidence_argmax_ref(logits)
+        return ref.confidence_argmax_ref(logits, mask_id=mask_id)
     from repro_torch.kernels import confidence as kernel
     _require(logits.is_cuda,
              f"confidence_argmax: unsupported device {logits.device}")
     _require(logits.dtype in (torch.float32, torch.bfloat16),
              "confidence_argmax: logits must be float32 or bfloat16")
     _require(logits.stride(1) == 1, "confidence_argmax: rows not contiguous")
-    N = logits.shape[0]
+    _require(N >= 1 and V >= 1, "confidence_argmax: empty logits")
     conf = torch.empty((N,), dtype=torch.float32, device=logits.device)
     idx = torch.empty((N,), dtype=torch.int32, device=logits.device)
-    kernel.launch(logits, conf, idx)
+    kernel.launch(logits, conf, idx, mask_id=mask_id)
     LAUNCHES["confidence_argmax"] += 1
     return conf, idx
 
 
-def confidence_argmax(logits: torch.Tensor):
-    """logits: (..., V) -> (conf (...,) float32, idx (...,) int32)."""
+def confidence_argmax(logits: torch.Tensor, *, mask_id: int = -1):
+    """logits: (..., V) float32 or bfloat16 -> (conf (...,) float32,
+    idx (...,) int32), reduced in float32. ``mask_id >= 0`` bans that
+    column (it counts as -1e30); a negative ``mask_id`` bans none."""
     if logits.dim() == 2:
-        return _confidence_2d(logits)
+        return _confidence_2d(logits, mask_id)
     shape = logits.shape[:-1]
-    conf, idx = _confidence_2d(logits.reshape(-1, logits.shape[-1]))
+    conf, idx = _confidence_2d(logits.reshape(-1, logits.shape[-1]), mask_id)
     return conf.reshape(shape), idx.reshape(shape)
 
 
@@ -123,10 +129,16 @@ def head_confidence_argmax(hidden, head, *, mask_id: int = -1,
                            row_chunk: int = 1024):
     """LM-head projection + confidence/argmax (Eq. 4) over row chunks, so
     the full ``(..., V)`` logits never exist as one array. hidden:
-    (..., d); head: (d, V). ``mask_id >= 0`` bans that token before the
-    reduction. The projection is a plain ``torch.matmul``; the reduction
-    is the kernel."""
+    (..., d); head: (d, V). ``mask_id >= 0`` bans that token. The
+    projection is a plain ``torch.matmul`` in the hidden dtype; its
+    output goes to the kernel as it is (bf16 on the main path), and the
+    kernel widens it and bans ``mask_id`` as it reads it. A softcap, which
+    the kernel does not take, is applied in float32 first."""
     from repro_torch.core.schedule import chunked_head_reduce
-    return chunked_head_reduce(hidden, head, confidence_argmax,
-                               mask_id=mask_id, logit_softcap=logit_softcap,
-                               row_chunk=row_chunk)
+
+    def reduce(logits):
+        if logit_softcap:
+            logits = ref.softcap_ref(logits.float(), logit_softcap)
+        return _confidence_2d(logits, mask_id)
+
+    return chunked_head_reduce(hidden, head, reduce, row_chunk=row_chunk)

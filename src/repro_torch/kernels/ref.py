@@ -43,12 +43,16 @@ def block_attention_ref(q, k, v, q_pos, kv_pos, kv_mask, *, scale: float,
     return out.reshape(B, Sq, H, D)
 
 
-def confidence_argmax_ref(logits: torch.Tensor):
-    """logits: (N, V) -> (conf (N,) f32, idx (N,) int32).
+def confidence_argmax_ref(logits: torch.Tensor, mask_id: int = -1):
+    """logits: (N, V) -> (conf (N,) f32, idx (N,) int32), in float32.
 
+    Column ``mask_id`` (if >= 0) is banned: set to -1e30 after the cast.
     conf = max softmax prob = exp(max - logsumexp); idx is the first
     index of the max."""
     x = logits.float()
+    if mask_id >= 0:
+        x = x.clone()
+        x[..., mask_id] = NEG_INF
     m = x.max(dim=-1).values
     conf = torch.exp(m - torch.logsumexp(x, dim=-1))
     idx = torch.argmax(x, dim=-1).to(torch.int32)

@@ -70,3 +70,37 @@ def test_attention_wrapper_refuses_pairs_no_kernel_takes(cuda):
         ops.block_attention(args[0], *[a.float() if a.is_floating_point()
                                        else a for a in args[1:]])
     assert ops.LAUNCHES == before
+
+
+def test_confidence_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """float16, a ban outside the row, a row that is not contiguous: each
+    raises before a launch, and a refused call counts none."""
+    before = dict(ops.LAUNCHES)
+    x = torch.randn((4, 1000), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.confidence_argmax(x.half(), mask_id=3)
+    with pytest.raises(ValueError, match="mask_id"):
+        ops.confidence_argmax(x, mask_id=1000)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.confidence_argmax(x[:, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.confidence_argmax(x.to(torch.bfloat16).t().contiguous().t())
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_confidence_kernel_matches_plain_on_strided_rows(cuda, dtype):
+    """Rows of a wider buffer (stride 1003, so no row but the first starts
+    on a 16-byte boundary) with a ban: the kernel against the plain
+    version, idx exact and conf within 1e-5; one launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    buf = (torch.randn((40, 1003), generator=g, device=cuda) * 4).to(dtype)
+    x = buf[:, :997]
+    x[5, 400] = 50.0                  # the banned column holds the max
+    before = ops.LAUNCHES["confidence_argmax"]
+    conf, idx = ops.confidence_argmax(x, mask_id=400)
+    c_ref, i_ref = ops.ref.confidence_argmax_ref(x, mask_id=400)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["confidence_argmax"] == before + 1
+    assert torch.equal(idx, i_ref) and idx[5] != 400
+    assert (conf - c_ref).abs().max().item() <= 1e-5
