@@ -7,11 +7,12 @@ Needs one CUDA card, ``nvcc`` and ``triton``; imports nothing of JAX or
 of the JAX package. Phases, each printing JSON lines:
 
 1. device   — card name and power limit (nvidia-smi), torch/CUDA versions.
-2. build    — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
-              with nvcc (the port's two libraries and two probe builds of
-              the attention kernel, in parallel; ptxas registers and
-              spills per kernel) and compiles the first port's Triton
-              confidence kernel, kept only to be timed here.
+2. build    — builds the CUDA sources of ``src/repro_torch/kernels/csrc``
+              with nvcc (the port's two kernel libraries, the CUDA-graph
+              block loop's library and two probe builds of each kernel,
+              in parallel; ptxas registers and spills per kernel) and
+              compiles the first port's Triton confidence kernel, kept
+              only to be timed here.
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the main path's shapes and at small edge cases, with its
               time, the plain version's, the library call's and the bound;
@@ -25,11 +26,21 @@ of the JAX package. Phases, each printing JSON lines:
               the plain path on the CPU: model logits and decode tokens;
               then llada-8b at full width, 2 layers, bf16, through the
               kernels against ``attend_ref`` on the card.
-6. serve    — ``ServingEngine`` in batch mode, llada-8b at full width and
+6. methods  — llada-8b at full width cut to 2 layers (bf16, random
+              weights), gen_len 64: every method and frozen_suffix on the
+              CUDA-graph block loop against the per-step host loop:
+              identical tokens and counters (a near-tie is printed, not
+              failed), one host sync per block.
+7. serve    — ``ServingEngine`` in batch mode, llada-8b at full width and
               depth (bf16, random weights from a seed), streaming decode
-              of 4 prompts; launch counters read around this run only.
-7. profile  — the middle block of that decode: wall time without the
-              profiler, device time by kernel under it, idle share.
+              of 4 prompts: an untimed run captures the block graphs, the
+              timed run replays them (launch counters read around it
+              only), and the host loop on the same prompts must give the
+              same tokens and counters.
+8. profile  — the middle block of that decode through its graph: wall
+              time without the profiler, device time by kernel under it,
+              idle share, and the blocking syncs inside the block; the
+              same block through the host loop for comparison.
 
 Then the kernels summary line, the nvidia-smi line and, last, the device
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -52,7 +63,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -712,6 +723,95 @@ def make_prompts(n, seed):
     return ["".join(rng.choice(alphabet, PROMPT_LEN)) for _ in range(n)]
 
 
+COUNTERS = ("nfe", "steps_per_block", "query_tokens_processed",
+            "kv_tokens_attended", "early_exits")
+NEAR_TIE = 1e-5
+
+
+def compare_runs(graph, host, K):
+    """Tokens and counters of a graph-loop run against a host-loop run.
+    A token difference is excused only as a near-tie (ROADMAP: a top-2
+    confidence gap or a |conf - tau| below 1e-5): in the first block
+    where the runs differ, two confidences the graph run committed in one
+    row lie within 1e-5 of each other."""
+    rec = {"tokens_identical": bool((graph.tokens == host.tokens).all()),
+           "counters_identical": all(getattr(graph, c) == getattr(host, c)
+                                     for c in COUNTERS),
+           "token_agreement": float((graph.tokens == host.tokens).mean())}
+    rec["near_tie"] = None
+    if not rec["tokens_identical"]:
+        diff = np.argwhere(graph.tokens != host.tokens)
+        blk = int(diff[:, 1].min()) // K
+        conf = graph.block_stats[blk].commit_conf
+        gaps = [float(np.diff(np.sort(row)).min()) for row in conf]
+        rec["near_tie"] = {"block": blk, "min_gap_by_row": gaps,
+                           "is_near_tie": min(gaps) < NEAR_TIE}
+        print(json.dumps({"phase": "near_tie", **rec["near_tie"]}),
+              flush=True)
+    rec["ok"] = rec["counters_identical"] and (
+        rec["tokens_identical"] or rec["near_tie"]["is_near_tie"])
+    return rec
+
+
+def phase_methods(prompts):
+    """Every method (and frozen_suffix) on llada-8b at full width, cut to
+    2 layers, bf16, gen_len 64: the graph loop against the host loop."""
+    cfg = get_config("llada-8b", dtype="bfloat16", param_dtype="bfloat16",
+                     n_layers=2, reps=0)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 3), "cuda")
+    ok = True
+    for method, kw in (("vanilla", {}), ("dkv", {}), ("prefix", {}),
+                       ("fast", {}), ("streaming", {}),
+                       ("streaming", {"frozen_suffix": True})):
+        dcfg = DecodeConfig(method=method, gen_len=64, block_size=BLOCK,
+                            window=WINDOW, use_kernels=True, **kw)
+        dec = DiffusionDecoder(cfg, params, dcfg, device="cuda")
+        t0 = time.perf_counter()
+        graph = dec.generate(prompts.copy())
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        again = dec.generate(prompts.copy())
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        hdec = DiffusionDecoder(cfg, params, dataclasses.replace(
+            dcfg, fused=False), device="cuda")
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        host = hdec.generate(prompts.copy())
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        n_blocks = len(graph.steps_per_block)
+        rec = {"phase": "methods", "arch": "llada-8b", "layers": 2,
+               "cut": "n_layers 32 -> 2", "method": method,
+               "frozen_suffix": bool(kw), "gen_len": 64, "nfe": graph.nfe,
+               "steps_per_block": graph.steps_per_block,
+               "graphs": dec.graph_cache_size(),
+               "capture_s": dec.capture_time, "first_run_s": first_s,
+               "graph_s": graph_s, "host_s": host_s,
+               "host_syncs": [graph.host_syncs, host.host_syncs],
+               "logit_syncs": [graph.logit_syncs, host.logit_syncs],
+               "launches": [launches, dict(ops.LAUNCHES)],
+               "repeat_identical": bool((graph.tokens == again.tokens).all()),
+               **compare_runs(again, host, BLOCK)}
+        rec["one_sync_per_block"] = (again.host_syncs
+                                     == n_blocks + (method == "dkv"))
+        rec["ok"] = (rec["ok"] and rec["one_sync_per_block"]
+                     and rec["repeat_identical"]
+                     and rec["launches"][0] == rec["launches"][1])
+        emit(rec)
+        ok = ok and rec["ok"]
+        del dec, hdec
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("methods phase: graph loop != host loop")
+
+
 def phase_serve():
 
     cfg = get_config("llada-8b", dtype="bfloat16", param_dtype="bfloat16")
@@ -724,6 +824,15 @@ def phase_serve():
                         window=WINDOW, use_kernels=True)
     eng = ServingEngine(cfg, params, dcfg, mode="batch", device="cuda")
     prompts = make_prompts(N_PROMPTS, SEED)
+    # untimed: the first run captures one graph per block
+    for p in prompts:
+        eng.submit(p, max_tokens=GEN_LEN)
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    dec = eng._decoder(GEN_LEN)
+    capture_s, graphs = dec.capture_time, dec.graph_cache_size()
     for p in prompts:
         eng.submit(p, max_tokens=GEN_LEN)
     torch.cuda.reset_peak_memory_stats()
@@ -733,7 +842,17 @@ def phase_serve():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = dict(ops.LAUNCHES)
-    res = eng.results[0]
+    res = eng.results[-1]
+    # the host loop on the same prompts
+    tokens = np.stack([eng.tok.encode(p) for p in prompts]).astype(np.int32)
+    hdec = DiffusionDecoder(cfg, params, dataclasses.replace(dcfg, fused=False),
+                            device="cuda")
+    ops.reset_launches()
+    t2 = time.perf_counter()
+    host = hdec.generate(tokens)
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t2
+    host_launches = dict(ops.LAUNCHES)
     confs = np.concatenate([s.commit_conf.ravel() for s in res.block_stats])
     n_blocks = len(res.steps_per_block)
     rec = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
@@ -743,53 +862,51 @@ def phase_serve():
            "nfe": res.nfe, "steps_per_block": res.steps_per_block,
            "tokens_generated": res.tokens_generated, "wall_s": wall,
            "tok_s": res.tokens_generated / wall,
-           "host_syncs": res.host_syncs, "init_s": t_init,
+           "host_syncs": res.host_syncs,
+           "host_syncs_per_block": res.host_syncs / n_blocks,
+           "graphs": graphs, "capture_s": capture_s, "warm_run_s": warm_s,
+           "graph_nodes": [p.graph.nodes() for p in dec._programs.values()],
+           "init_s": t_init,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches,
            "launches_per_block": {k: v / n_blocks for k, v in launches.items()},
+           "host_loop": {"wall_s": host_wall,
+                         "tok_s": host.tokens_generated / host_wall,
+                         "host_syncs": host.host_syncs,
+                         "launches": host_launches},
+           "vs_host_loop": compare_runs(res, host, BLOCK),
            "no_mask_left": bool((res.tokens != cfg.mask_token_id).all()),
            "conf_finite": bool(np.isfinite(confs).all()),
            "completion_lens": [len(c.tokens) for c in done]}
     rec["ok"] = (len(done) == N_PROMPTS and rec["no_mask_left"]
                  and rec["conf_finite"]
+                 and rec["host_syncs_per_block"] == 1.0
+                 and rec["vs_host_loop"]["ok"]
+                 and launches == host_launches
                  and all(c.tokens.shape == (GEN_LEN,) for c in done)
                  and all(v > 0 for v in launches.values()))
     emit(rec)
     if not rec["ok"]:
         raise AssertionError("serve phase failed its checks")
-    return cfg, params, dcfg, rec
+    return cfg, dec, hdec, tokens, rec
 
 
-def phase_profile(cfg, params, dcfg):
-    """Where a main-path block's time goes: the middle block of the same
-    llada-8b streaming decode, once timed without the profiler (host
-    clock to a synchronize) and once, from an identical copy of the
-    state, under torch.profiler for device time by kernel. Idle share =
-    1 - kernel time / unprofiled wall."""
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
 
-    dec = DiffusionDecoder(cfg, params, dcfg, device="cuda")
-    tok = ByteTokenizer(cfg.vocab_size)
-    prompts = np.stack([tok.encode(p) for p in make_prompts(N_PROMPTS, SEED)])
-    state = dec.prefill(prompts.astype(np.int32))
-    mid = GEN_LEN // BLOCK // 2
-    while state.block_idx < mid:
-        dec.decode_block(state)
-    twin = copy.deepcopy(state)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dec.decode_block(state)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dec.decode_block(twin)
-        torch.cuda.synchronize()
+
+def kernel_groups(prof, label):
+    """Device time by group and the top kernels from a profile. The
+    ``record_function(label)`` range also shows on the device timeline;
+    it is a range, not a kernel, and is left out."""
     groups = {"matmul": 0.0, "block_attention": 0.0,
-              "confidence_argmax": 0.0, "other": 0.0}
+              "confidence_argmax": 0.0, "graph_control": 0.0, "other": 0.0}
     kernels, host_ops = [], []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             host_ops.append((ev.self_cpu_time_total, ev.key, ev.count))
+            continue
+        if ev.key == label:
             continue
         us = ev.self_device_time_total
         name = ev.key
@@ -799,21 +916,84 @@ def phase_profile(cfg, params, dcfg):
             groups["confidence_argmax"] += us
         elif "gemm" in name or "nvjet" in name or "cutlass" in name:
             groups["matmul"] += us
+        elif "set_if_kernel" in name:
+            groups["graph_control"] += us
         else:
             groups["other"] += us
         kernels.append((us, name, ev.count))
     kernels.sort(reverse=True)
-    busy = sum(groups.values())
-    steps = state.steps_per_block[-1]
-    emit({"phase": "profile", "block": mid, "steps": steps,
-          "wall_us": wall_us, "wall_us_per_step": wall_us / steps,
-          "device_kernel_us": busy, "device_idle_share": 1 - busy / wall_us,
-          "device_us_by_group": groups,
-          "top": [{"name": k[:80], "device_us": us, "calls": c}
-                  for us, k, c in kernels[:10]],
-          "host_op_calls": sum(c for _, _, c in host_ops),
-          "host_top": [{"name": k[:60], "self_cpu_us": us, "calls": c}
-                       for us, k, c in sorted(host_ops, reverse=True)[:10]]})
+    return groups, kernels, host_ops
+
+
+def syncs_inside(prof, label):
+    """Blocking device-to-host waits (stream/device/event synchronize,
+    synchronous memcpy) issued inside the ``record_function(label)``
+    range."""
+    events = prof.events()
+    span = [e for e in events if e.name == label][0].time_range
+    return sorted(e.name for e in events if e.name in SYNC_CALLS
+                  and span.start <= e.time_range.start <= span.end)
+
+
+def phase_profile(cfg, dec, hdec, tokens):
+    """Where a main-path block's time goes: the middle block of the same
+    llada-8b streaming decode through its CUDA graph, once timed without
+    the profiler (host clock to a synchronize, and CUDA events around
+    it) and once, from an identical copy of the state, under
+    torch.profiler for device time by kernel and the blocking syncs
+    inside the block. Idle share = 1 - kernel time / unprofiled wall.
+    The same block through the host loop, timed and profiled the same
+    way, gives the per-kernel breakdown of the eager passes."""
+    state = dec.prefill(tokens.copy())
+    mid = GEN_LEN // BLOCK // 2
+    while state.block_idx < mid:
+        dec.decode_block(state)
+    twins = [copy.deepcopy(state) for _ in range(3)]
+    torch.cuda.synchronize()
+    rec = {"phase": "profile", "block": mid}
+    for loop, d, st, twin in (("graph", dec, state, twins[0]),
+                              ("host", hdec, twins[1], twins[2])):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        d.decode_block(st)
+        end.record()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("decode_block"):
+                d.decode_block(twin)
+            torch.cuda.synchronize()
+        groups, kernels, host_ops = kernel_groups(prof, "decode_block")
+        busy = sum(groups.values())
+        steps = st.steps_per_block[-1]
+        rec[loop] = {
+            "steps": steps, "wall_us": wall_us,
+            "wall_us_per_step": wall_us / steps,
+            "event_span_us": start.elapsed_time(end) * 1e3,
+            "device_kernel_us": busy,
+            "device_idle_share": 1 - busy / wall_us,
+            "device_us_by_group": groups,
+            "kernel_launches_traced": sum(c for _, _, c in kernels),
+            "blocking_syncs_in_block": syncs_inside(prof, "decode_block"),
+            "top": [{"name": k[:80], "device_us": us, "calls": c}
+                    for us, k, c in kernels[:10]],
+            "host_op_calls": sum(c for _, _, c in host_ops),
+            "host_top": [{"name": k[:60], "self_cpu_us": us, "calls": c}
+                         for us, k, c in sorted(host_ops, reverse=True)[:10]]}
+        del twin
+    same = bool((state.x == twins[1].x).all())
+    rec["graph_block_equals_host_block"] = same
+    rec["ok"] = same and len(rec["graph"]["blocking_syncs_in_block"]) == 1
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("profile phase: the graph block made "
+                             f"{rec['graph']['blocking_syncs_in_block']} "
+                             f"blocking syncs (want 1), same tokens as the "
+                             f"host loop: {same}")
 
 
 # ------------------------------------------------------------------ main
@@ -864,7 +1044,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc per library, all started together: the port's two kernel
     # libraries and the two probe builds of the attention kernel
-    jobs = [("block_attention", ()), ("confidence", ()),
+    jobs = [("block_attention", ()), ("confidence", ()), ("graph_loop", ()),
             ("block_attention", ("ATTN_PROBE=1",)),
             ("block_attention", ("ATTN_PROBE=2",)),
             ("confidence", ("CONF_PROBE=1",)),
@@ -873,13 +1053,14 @@ def main() -> int:
         libs = list(pool.map(lambda j: build.compile_library(*j), jobs))
     build.load("block_attention")
     build.load("confidence")
+    build.load("graph_loop")
     t_nvcc = time.perf_counter() - t0
     confidence.triton_kernel()
     import triton
-    ptxas = [f for lib in libs[:2]
+    ptxas = [f for lib in libs[:3]
              for f in ptxas_report(lib.with_suffix(".log").read_text())]
     emit({"phase": "build", "nvcc_s": t_nvcc,
-          "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:2]],
+          "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:3]],
           "ptxas": ptxas,
           "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas),
           "triton": triton.__version__})
@@ -888,6 +1069,9 @@ def main() -> int:
     phase_probe()
     phase_reference()
     phase_reference_llada()
+    tok = ByteTokenizer(get_config("llada-8b").vocab_size)
+    phase_methods(np.stack([tok.encode(p) for p in make_prompts(
+        N_PROMPTS, SEED)]).astype(np.int32))
     *model, serve = phase_serve()
     phase_profile(*model)
 

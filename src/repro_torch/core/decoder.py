@@ -1,10 +1,13 @@
 """Block-wise diffusion decoding — the PyTorch counterpart of
 ``repro.core.decoder``.
 
-Methods (paper Tables 1/2/8) ported so far:
+Five methods (paper Tables 1/2/8):
 
   vanilla   — no cache; full-sequence forward each denoise step; fixed
               schedule (top-`K/M` most-confident masked tokens per step).
+  dkv       — delayed KV cache (Ma et al. 2025): a token's K/V is frozen
+              into a position-indexed cache one step after it decodes;
+              masked tokens recompute theirs each step. Vanilla schedule.
   prefix    — Fast-dLLM's prefix cache: prompt + finished blocks cached;
               the block + FULL suffix recomputed each step. Vanilla
               schedule.
@@ -14,19 +17,42 @@ Methods (paper Tables 1/2/8) ported so far:
               w + trailing position token) + dynamic threshold tau(t)
               (Eq. 10) + EOS early exit.
 
-``dkv``, ``frozen_suffix``, ``prefix_cache``, executor placement,
-``take_rows``/``merge_rows`` and the host loop (``fused=False``, the JAX
-package's validation oracle) raise ``NotImplementedError`` naming their
-ROADMAP item.
+``frozen_suffix`` (parallel methods) freezes the pruned-suffix KV at the
+block refresh and lets the steps query only the block. ``prefix_cache``
+(ROADMAP A7), executor placement (A11) and ``take_rows``/``merge_rows``
+(A6) raise ``NotImplementedError`` naming their item.
 
-The per-block loop is the semantics of the JAX package's fused loop
-(``_fused_fn``) on device tensors: block refresh, denoise steps over the
-query region, Eq. 4 confidence, Eq. 10 threshold, Eq. 9 selection,
-straggler finalize and EOS early exit all stay on the device. The host
-reads the loop condition once per step (one scalar) and fetches the
-block's results once at its end; each such read counts in
-``host_syncs``. (A fixed-trip CUDA-graph loop with one sync per block
-is ROADMAP A5.)
+Two loops per block, as in the JAX package:
+
+  device loop (``fused=True``, the default) — the semantics of the JAX
+      package's ``_fused_fn``. The block is a program over static device
+      buffers (``_BlockBuffers``): a prologue (counters reset, block
+      refresh, loop condition), one step body (a denoise step, then the
+      loop condition ``pred`` again) and an epilogue (straggler
+      finalize, EOS early exit). Step counter, commit counts, histogram,
+      commit confidences, the dkv valid-size trace, fill and hit counts
+      all live on the device. On the card the program is one CUDA graph
+      per (B, T, Sq, block start) (``core.graph_loop``): the bodies sit
+      in ``steps_cap - 1`` conditional IF nodes (``steps_cap`` for vanilla
+      and dkv, which have no refresh) gated by ``pred``, so a block is one
+      copy in, one replay and one fetch: one host sync. On the CPU the
+      same body runs under ``if bool(pred)``, a host tensor, so the
+      count is the same there.
+  host loop (``fused=False``) — the validation oracle: every step
+      fetches (conf, toks) (parallel methods) or the (B, K, V) block
+      logits (fixed-schedule methods) and selection, the Eq. 10
+      threshold, the commit, the tally, the straggler fill and early exit
+      run on the host. Never the default and never a fallback.
+
+Cache binding rule (the graphs bake in buffer addresses): the decoder owns
+one KV buffer per (B, T), the *bound* buffer, and every graph of that
+shape reads and writes it. For every method but dkv the block refresh
+rewrites every cache slot the steps read, so ``prefill`` hands each state
+the bound buffer, and a state whose cache is another buffer (a deep copy)
+adopts the bound one at its next block. A dkv cache carries state across
+blocks, so a dkv state owns its buffer: the device loop copies it into
+the bound buffer before the replay and back after. No state ever
+replays a graph on a buffer other than the one that holds its cache.
 
 On the card, attention and the parallel methods' confidence run through
 the kernels (``use_kernels=True``); a CUDA decoder without them raises.
@@ -35,11 +61,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import graph_loop
 from repro_torch.core import schedule as sched
 from repro_torch.core.suffix import suffix_query_region
 from repro_torch.device import resolve_device
@@ -81,9 +108,10 @@ class DecodeConfig:
     use_kernels: bool = True       # attention/confidence through the kernels
                                    # (their plain versions on CPU tensors);
                                    # False is the CPU tests' plain route
-    fused: bool = True             # device-resident loop; False (the host
-                                   # loop) is ROADMAP A4
-    frozen_suffix: bool = False    # ROADMAP A5.2
+    fused: bool = True             # device loop (one host sync per block);
+                                   # False = the host loop (per-step syncs)
+    frozen_suffix: bool = False    # parallel methods: freeze the suffix KV
+                                   # at the refresh; steps query the block
     prefix_cache: bool = False     # ROADMAP A7
 
     def __post_init__(self):
@@ -100,14 +128,16 @@ class DecodeConfig:
     def parallel(self) -> bool:
         return self.method in ("fast", "streaming")
 
+    @property
+    def frozen(self) -> bool:
+        return self.frozen_suffix and self.parallel
+
+    @property
+    def has_refresh(self) -> bool:
+        return self.method not in ("vanilla", "dkv")
+
 
 def _check_ported(dcfg: DecodeConfig) -> None:
-    if dcfg.method == "dkv":
-        raise NotImplementedError("dkv decoding is ROADMAP A5.1")
-    if not dcfg.fused:
-        raise NotImplementedError("the host loop (fused=False) is ROADMAP A4")
-    if dcfg.frozen_suffix:
-        raise NotImplementedError("frozen_suffix is ROADMAP A5.2")
     if dcfg.prefix_cache:
         raise NotImplementedError("prefix_cache is ROADMAP A7")
 
@@ -125,12 +155,15 @@ class DecodeState:
     n_blocks: int
     block_idx: int = 0                # next block to decode
     cache: Any = None
+    valid_mask: Optional[np.ndarray] = None    # dkv only: (B, T) bool
+    cached_mask: Optional[np.ndarray] = None   # dkv only: (B, T) bool
     nfe: int = 0
     q_tokens: int = 0
     kv_tokens: int = 0
     steps_per_block: list = dataclasses.field(default_factory=list)
     early_exits: int = 0
-    host_syncs: int = 0               # blocking device->host reads
+    host_syncs: int = 0               # blocking device->host fetch points
+    logit_syncs: int = 0              # of those, full (B, K, V) logit copies
     prefill_time: float = 0.0
     decode_time: float = 0.0
     block_stats: list = dataclasses.field(default_factory=list)
@@ -156,11 +189,257 @@ class GenerateResult:
     early_exits: int
     prefill_time: float = 0.0
     host_syncs: int = 0
+    logit_syncs: int = 0
     block_stats: list = dataclasses.field(default_factory=list)
 
     @property
     def tokens_per_nfe(self) -> float:
         return self.tokens_generated / max(self.nfe, 1)
+
+
+class _BlockBuffers:
+    """The static buffers of one (B, T): the block's inputs (tokens,
+    commit mask, done rows, dkv masks), its device-side outputs, the
+    loop condition and the bound KV buffer. On the card, host mirrors in
+    pinned memory carry the copy in and the one fetch out."""
+
+    INPUTS = ("x", "committed", "done", "valid_mask", "cached_mask")
+    OUTPUTS = INPUTS + ("step", "counts", "hist", "cconf", "vsums",
+                        "fill_n", "n_hit")
+
+    def __init__(self, dec: "DiffusionDecoder", B: int, T: int):
+        d, dev = dec.dcfg, dec.device
+        K, cap = d.block_size, dec.steps_cap
+        i32, f32, b8 = torch.int32, torch.float32, torch.bool
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.x, self.committed = z((B, T), i32), z((B, T), b8)
+        self.done = z((B,), b8)
+        self.valid_mask, self.cached_mask = z((B, T), b8), z((B, T), b8)
+        self.fvalid = z((B, T), b8)           # frozen_suffix's key validity
+        self.step, self.pred = z((), i32), z((), b8)
+        self.counts, self.vsums = z((cap,), i32), z((cap,), i32)
+        self.hist = z((CONF_BUCKETS,), i32)
+        self.cconf, self.lconf = z((B, K), f32), z((B, K), f32)
+        self.toks = z((B, K), i32)
+        self.fill_n, self.n_hit = z((), i32), z((), i32)
+        self.cache = None if d.method == "vanilla" else init_cache(
+            dec.cfg, B, T, dev)
+        self.pinned = dev.type == "cuda"
+        self.host = {n: torch.empty(getattr(self, n).shape,
+                                    dtype=getattr(self, n).dtype,
+                                    pin_memory=self.pinned)
+                     for n in self.OUTPUTS}
+        # dkv: the masks and the KV are state carried across blocks
+        self.carries = dec.cache_carries_state
+
+    def load(self, state: DecodeState) -> None:
+        """Copy a state's host arrays in (asynchronously from pinned
+        memory on the card) and, for dkv, its KV into the bound buffer."""
+        names = self.INPUTS if self.carries else self.INPUTS[:3]
+        for n in names:
+            src = self.host[n]
+            src.numpy()[...] = getattr(state, n)
+            getattr(self, n).copy_(src, non_blocking=self.pinned)
+        if self.carries and state.cache is not self.cache:
+            for (bk, bv), (sk, sv) in zip(self.cache, state.cache):
+                bk.copy_(sk)
+                bv.copy_(sv)
+
+    def fetch(self, state: DecodeState) -> Dict[str, np.ndarray]:
+        """The block's one fetch: every output to host memory, then a
+        single wait (the only one of the block on the card). A dkv state's
+        cache is copied back out of the bound buffer first."""
+        if self.carries and state.cache is not self.cache:
+            for (bk, bv), (sk, sv) in zip(self.cache, state.cache):
+                sk.copy_(bk)
+                sv.copy_(bv)
+        names = self.OUTPUTS if self.carries else tuple(
+            n for n in self.OUTPUTS if n not in ("valid_mask", "cached_mask"))
+        for n in names:
+            self.host[n].copy_(getattr(self, n), non_blocking=self.pinned)
+        if self.pinned:
+            torch.cuda.current_stream(self.x.device).synchronize()
+        return {n: self.host[n].numpy().copy() for n in names}
+
+
+class _BlockProgram:
+    """One block's device program for a fixed (B, T, Sq, block start):
+    prologue, step body, epilogue over a ``_BlockBuffers``; on the card
+    also its captured graph. The body is the JAX package's while-loop
+    body (``decoder.py:_fused_fn``), line for line."""
+
+    def __init__(self, dec: "DiffusionDecoder", bufs: _BlockBuffers,
+                 qpos: np.ndarray, bstart: int):
+        d, dev = dec.dcfg, dec.device
+        B, T = bufs.x.shape
+        K = d.block_size
+        self.dec, self.b = dec, bufs
+        self.B, self.K = B, K
+        self.bstart = bstart
+        self.blk = slice(bstart, bstart + K)
+        self.qpos_b = dec._upload(np.broadcast_to(qpos[None], (B, len(qpos)))
+                                  .astype(np.int32))
+        self.valid_len = torch.full((B,), bstart, dtype=torch.int32,
+                                    device=dev)
+        arange = torch.arange(T, dtype=torch.int32, device=dev)
+        self.pos_T = arange[None].expand(B, T)
+        self.prefix_pos = arange[None, :bstart].expand(B, bstart)
+        self.prefix_valid = (arange < bstart)[None].expand(B, T)
+        self.bpos = (bstart + torch.arange(K, dtype=torch.int32, device=dev)
+                     )[None].expand(B, K)
+        self.n_iter = dec.steps_cap - 1 if d.has_refresh else dec.steps_cap
+        self.graph = None
+
+    # -------------------------------------------------- pieces of a step
+
+    def _model(self, toks, pos, mode, **kw):
+        dec = self.dec
+        return apply_model(dec.cfg, dec.params, tokens=toks, positions=pos,
+                           mode=mode, use_kernels=dec.dcfg.use_kernels, **kw)
+
+    def _conf_toks(self, out):
+        if self.dec.dcfg.parallel:
+            return self.dec._conf_from_hidden(out)
+        return self.dec._conf_from_logits(out)
+
+    def _commit(self, conf, toks) -> None:
+        """Eq. 9 / fixed-rate selection, token write and tally for the
+        step on the device counter (all rows select; only the loop
+        condition and the tally exclude early-exited rows)."""
+        d, b, blk = self.dec.dcfg, self.b, self.blk
+        blk_committed = b.committed[:, blk]
+        blk_masked = ~blk_committed
+        if d.parallel:
+            if d.method == "streaming":
+                r_mask = blk_masked.float().mean(dim=1)
+                tau = sched.dynamic_threshold(d.tau0, d.alpha, r_mask)
+            else:
+                tau = torch.full((self.B,), d.tau0, dtype=torch.float32,
+                                 device=conf.device)
+            commit = sched.select_tokens(conf, blk_masked, tau)
+        else:
+            commit = sched.fixed_rate_select(conf, blk_masked,
+                                             self.dec.n_commit)
+        b.x[:, blk] = torch.where(commit, toks, b.x[:, blk])
+        b.committed[:, blk] = blk_committed | commit
+        act = (commit & ~b.done[:, None]).to(torch.int32)
+        step = b.step.long().reshape(1)
+        b.counts.index_add_(0, step, act.sum().to(torch.int32).reshape(1))
+        b_idx = (conf * CONF_BUCKETS).to(torch.int32).clamp(
+            0, CONF_BUCKETS - 1)
+        b.hist.index_add_(0, b_idx.reshape(-1).long(), act.reshape(-1))
+        b.cconf.copy_(torch.where(commit, conf, b.cconf))
+        b.lconf.copy_(conf)
+        b.toks.copy_(toks)
+        b.step.add_(1)
+
+    def _open(self) -> None:
+        """The loop condition, written to ``pred`` on the device."""
+        b = self.b
+        open_rows = (~b.committed[:, self.blk]) & ~b.done[:, None]
+        b.pred.copy_((b.step < self.dec.steps_cap) & open_rows.any())
+
+    # ---------------------------------------------------- the program
+
+    def prologue(self) -> None:
+        d, b = self.dec.dcfg, self.b
+        for t in (b.step, b.counts, b.hist, b.cconf, b.lconf, b.toks,
+                  b.vsums, b.fill_n, b.n_hit):
+            t.zero_()
+        if d.has_refresh:
+            self._refresh()
+        self._open()
+
+    def _refresh(self) -> None:
+        """Block-start refresh (paper §3.3): one pass over [prefix ||
+        query region] that produces the block's confidences and rewrites
+        the cache (with frozen_suffix position-indexed, suffix included)."""
+        d, b, K = self.dec.dcfg, self.b, self.K
+        prefix_len = self.bstart
+        full_pos = torch.cat([self.prefix_pos, self.qpos_b], dim=1)
+        full_toks = torch.gather(b.x, 1, full_pos.long())
+        if d.frozen:
+            out = self._model(full_toks, full_pos, "append", cache=b.cache,
+                              kv_valid=torch.zeros((self.B,), dtype=torch.int32,
+                                                   device=b.x.device),
+                              append_at=full_pos, cache_upto=prefix_len,
+                              skip_head=True)
+            b.fvalid.copy_(self.prefix_valid)
+            b.fvalid.scatter_(1, self.qpos_b[:, K:].long(), True)
+        else:
+            out = self._model(full_toks, full_pos, "encode", cache=b.cache,
+                              cache_upto=prefix_len, skip_head=d.parallel)
+        self._commit(*self._conf_toks(out.logits[:, prefix_len:prefix_len
+                                                 + K]))
+
+    def body(self) -> None:
+        """One denoise step, then the loop condition."""
+        d, b, K = self.dec.dcfg, self.b, self.K
+        if d.method == "vanilla":
+            out = self._model(b.x, self.pos_T, "encode")
+            conf, toks = self.dec._conf_from_logits(out.logits[:, self.blk])
+        elif d.method == "dkv":
+            q_toks = torch.gather(b.x, 1, self.qpos_b.long())
+            mix = torch.gather(b.cached_mask, 1, self.qpos_b.long())
+            out = self._model(q_toks, self.qpos_b, "append", cache=b.cache,
+                              kv_valid=b.valid_mask, append_at=self.qpos_b,
+                              self_kv_mix=mix)
+            conf, toks = self.dec._conf_from_logits(out.logits[:, :K])
+            # tokens committed earlier (whose fresh KV this step was
+            # decoded-input based) are now frozen
+            newly = b.committed & ~b.cached_mask
+            b.cached_mask |= newly
+            b.valid_mask |= newly
+            b.vsums.index_copy_(0, b.step.long().reshape(1),
+                                (b.valid_mask.sum() // self.B)
+                                .to(torch.int32).reshape(1))
+        elif d.frozen:
+            out = self._model(b.x[:, self.blk], self.bpos, "step",
+                              cache=b.cache, kv_valid=b.fvalid,
+                              skip_head=True)
+            conf, toks = self._conf_toks(out.logits)
+        else:
+            q_toks = torch.gather(b.x, 1, self.qpos_b.long())
+            out = self._model(q_toks, self.qpos_b, "step", cache=b.cache,
+                              kv_valid=self.valid_len, skip_head=d.parallel)
+            conf, toks = self._conf_toks(out.logits[:, :K])
+        self._commit(conf, toks)
+        self._open()
+
+    def epilogue(self) -> None:
+        """Straggler finalize (steps cap reached): commit the last step's
+        argmax, but never over rows that early-exited in a prior block
+        (their tail is EOS-truncated territory); then early exit."""
+        d, b, blk = self.dec.dcfg, self.b, self.blk
+        live = ~b.done[:, None]
+        fill = (~b.committed[:, blk]) & live & (b.step > 0)
+        b.fill_n.copy_(fill.sum())
+        b.cconf.copy_(torch.where(fill, b.lconf, b.cconf))
+        blk_x = torch.where(fill, b.toks, b.x[:, blk])
+        b.x[:, blk] = blk_x
+        b.committed[:, blk] = True
+        # Early exit (paper §3.3): a block that decoded an EOS makes all
+        # *subsequent* blocks skippable for that row.
+        if d.early_exit:
+            hit = (blk_x == self.dec.cfg.eos_token_id).any(dim=1) & ~b.done
+            b.n_hit.copy_(hit.sum())
+            b.done |= hit
+
+    def run(self) -> None:
+        """Run the block: replay the graph on the card, or run the same
+        parts with the loop condition read from a host tensor."""
+        if self.graph is not None:
+            self.graph.replay()
+            return
+        self.prologue()
+        for _ in range(self.n_iter):
+            if not bool(self.b.pred):
+                break
+            self.body()
+        self.epilogue()
 
 
 class DiffusionDecoder:
@@ -182,6 +461,12 @@ class DiffusionDecoder:
         self.cfg = cfg
         self.dcfg = dcfg
         self.params = params
+        self.steps_cap = dcfg.steps_per_block or dcfg.block_size
+        self.n_commit = max(1, dcfg.block_size // self.steps_cap)
+        self._buffers: Dict[tuple, _BlockBuffers] = {}
+        self._programs: Dict[tuple, _BlockProgram] = {}
+        self._pool = None
+        self.capture_time = 0.0      # seconds spent warming up + capturing
 
     # ------------------------------------------------------ shared pieces
 
@@ -208,13 +493,41 @@ class DiffusionDecoder:
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host -> device copy (never aliases the host array)."""
-        return torch.tensor(arr, device=self.device)
+        return torch.tensor(np.ascontiguousarray(arr), device=self.device)
 
     # ------------------------------------------------------ resumable API
 
+    @property
+    def batch_invariant(self) -> bool:
+        """True when per-row outputs do not depend on how rows are
+        batched. Holds for every method except dkv, whose step-level KV
+        freezing accumulates ulp-level drift under batch reshaping (as in
+        the JAX package)."""
+        return self.dcfg.method != "dkv"
+
+    @property
+    def cache_carries_state(self) -> bool:
+        """True when the KV buffer holds state a block refresh does not
+        rewrite: dkv's position-indexed cache (with its masks). Such a
+        state owns its buffer; any other shares the bound one."""
+        return self.dcfg.method == "dkv"
+
+    def graph_cache_size(self) -> int:
+        """Block programs built so far, one per (B, T, Sq, block start):
+        on the card, the number of captured CUDA graphs. A second
+        generation at the same shapes adds none."""
+        return len(self._programs)
+
+    def _block_buffers(self, B: int, T: int) -> _BlockBuffers:
+        if (B, T) not in self._buffers:
+            self._buffers[(B, T)] = _BlockBuffers(self, B, T)
+        return self._buffers[(B, T)]
+
     def prefill(self, prompt: np.ndarray) -> DecodeState:
-        """Admit a batch of prompts and allocate their KV buffer. The
-        returned state sits at block 0 ready for ``decode_block``."""
+        """Admit a batch of prompts. The returned state sits at block 0
+        ready for ``decode_block``; its cache is the bound buffer of its
+        shape, except for dkv, which gets a buffer of its own filled by
+        one full-sequence pass (only the prompt KV is valid)."""
         cfg, d = self.cfg, self.dcfg
         B, P = prompt.shape
         T = P + d.gen_len
@@ -225,8 +538,29 @@ class DiffusionDecoder:
         state = DecodeState(x=x, committed=committed,
                             done=np.zeros((B,), bool), prompt_len=P,
                             n_blocks=d.gen_len // d.block_size)
-        if d.method != "vanilla":
-            state.cache = init_cache(cfg, B, T, self.device)
+        if d.method == "vanilla":
+            return state
+        if not self.cache_carries_state:
+            state.cache = self._block_buffers(B, T).cache
+            return state
+        tp0 = time.perf_counter()
+        state.cache = init_cache(cfg, B, T, self.device)
+        pos = torch.arange(T, dtype=torch.int32, device=self.device)[None]
+        with torch.no_grad():
+            apply_model(cfg, self.params, tokens=self._upload(x),
+                        positions=pos.expand(B, T), mode="encode",
+                        cache=state.cache, skip_head=True,
+                        use_kernels=d.use_kernels)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        state.prefill_time = time.perf_counter() - tp0
+        state.nfe += 1
+        state.host_syncs += 1
+        state.q_tokens += B * T
+        state.kv_tokens += B * T * T
+        state.valid_mask = np.zeros((B, T), bool)
+        state.valid_mask[:, :P] = True
+        state.cached_mask = state.valid_mask.copy()
         return state
 
     def take_rows(self, state, rows, cache=None, alloc_cache=True):
@@ -253,6 +587,32 @@ class DiffusionDecoder:
             qpos = qpos[:-1]
         return region, qpos
 
+    def _account(self, state: DecodeState, steps: int, Sq: int,
+                 prefix_len: int, vsums=None) -> None:
+        """NFE and the query-token / kv-token counters of one block, as
+        the JAX package counts them."""
+        d = self.dcfg
+        B, T, K = state.batch, state.x.shape[1], d.block_size
+        state.steps_per_block.append(steps)
+        state.nfe += steps
+        if d.method == "vanilla":
+            state.q_tokens += steps * B * T
+            state.kv_tokens += steps * B * T * T
+        elif d.method == "dkv":
+            state.q_tokens += steps * B * Sq
+            for vs in vsums[:steps]:
+                state.kv_tokens += B * Sq * (int(vs) + Sq)
+        elif steps > 0:
+            ref_q = prefix_len + Sq
+            state.q_tokens += B * ref_q
+            state.kv_tokens += B * ref_q * (prefix_len + Sq)
+            if d.frozen:
+                state.q_tokens += (steps - 1) * B * K
+                state.kv_tokens += (steps - 1) * B * K * (prefix_len + Sq + K)
+            else:
+                state.q_tokens += (steps - 1) * B * Sq
+                state.kv_tokens += (steps - 1) * B * Sq * (prefix_len + Sq)
+
     # ------------------------------------------------------ block step
 
     @torch.no_grad()
@@ -262,172 +622,242 @@ class DiffusionDecoder:
         No-op on a finished state."""
         if state.finished:
             return state
-        cfg, d = self.cfg, self.dcfg
-        t_block = time.perf_counter()
-        dev = self.device
-        B, P = state.batch, state.prompt_len
-        K = d.block_size
-        T = P + d.gen_len
-        steps_cap = d.steps_per_block or K
-        n_commit = max(1, K // steps_cap)
-        parallel = d.parallel
+        if self.dcfg.fused:
+            return self._decode_block_fused(state)
+        return self._decode_block_host(state)
 
+    def _program(self, bufs: _BlockBuffers, qpos, bstart) -> _BlockProgram:
+        B, T = bufs.x.shape
+        key = (B, T, len(qpos), bstart)
+        if key not in self._programs:
+            prog = _BlockProgram(self, bufs, qpos, bstart)
+            if self.device.type == "cuda":
+                self._capture(prog)
+            self._programs[key] = prog
+        return self._programs[key]
+
+    def _capture(self, prog: _BlockProgram) -> None:
+        """Warm the program up eagerly on a side stream (libraries, the
+        attention kernel's shared-memory attribute, the confidence
+        kernel's counters), then capture it as one graph. The warm-up
+        writes only the static buffers and slots of the bound cache that
+        a block rewrites before reading; ``load`` refills the rest."""
+        graph_loop.require_support()
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            prog.prologue()
+            prog.body()
+            prog.epilogue()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        prog.graph = graph_loop.BlockGraph(prog.prologue, prog.body,
+                                           prog.epilogue, prog.b.pred,
+                                           prog.n_iter, self._pool)
+        self.capture_time += time.perf_counter() - t0
+
+    def _decode_block_fused(self, state: DecodeState) -> DecodeState:
+        d = self.dcfg
+        t_block = time.perf_counter()
+        B = state.batch
+        T = state.x.shape[1]
         region, qpos = self._query_region(state)
         Sq = len(qpos)
-        bstart = region.block_start
-        prefix_len = bstart
-        blk = slice(bstart, bstart + K)
-
-        x = self._upload(state.x)
-        committed = self._upload(state.committed)
-        done = self._upload(state.done)
-        live = ~done[:, None]
+        bufs = self._block_buffers(B, T)
+        prog = self._program(bufs, qpos, region.block_start)
+        if not self.cache_carries_state and bufs.cache is not None:
+            state.cache = bufs.cache          # the binding rule (docstring)
         live_rows = int((~state.done).sum())
-        qpos_b = self._upload(np.broadcast_to(qpos[None], (B, Sq)))
-        counts = torch.zeros((steps_cap,), dtype=torch.int32, device=dev)
-        hist = torch.zeros((CONF_BUCKETS,), dtype=torch.int32, device=dev)
-        cconf = torch.zeros((B, K), dtype=torch.float32, device=dev)
-        lconf = cconf
-        toks = torch.zeros((B, K), dtype=torch.int32, device=dev)
+        bufs.load(state)
+        prog.run()
+        out = bufs.fetch(state)
 
-        def commit_tokens(conf, toks):
-            """Eq. 9 / fixed-rate selection + token write for one step
-            (all rows participate; only the loop condition excludes
-            early-exited rows)."""
-            blk_committed = committed[:, blk]
-            blk_masked = ~blk_committed
-            if parallel:
-                if d.method == "streaming":
-                    r_mask = blk_masked.float().mean(dim=1)
-                    tau = sched.dynamic_threshold(d.tau0, d.alpha, r_mask)
-                else:
-                    tau = torch.full((B,), d.tau0, dtype=torch.float32,
-                                     device=dev)
-                commit = sched.select_tokens(conf, blk_masked, tau)
-            else:
-                commit = sched.fixed_rate_select(conf, blk_masked, n_commit)
-            x[:, blk] = torch.where(commit, toks, x[:, blk])
-            committed[:, blk] = blk_committed | commit
-            return commit
-
-        def tally(step, commit, conf):
-            """Telemetry: commits per device step and a histogram of the
-            committed tokens' confidence (live rows only)."""
-            act = (commit & live).to(torch.int32)
-            counts[step] += act.sum()
-            b_idx = (conf * CONF_BUCKETS).to(torch.int32).clamp(
-                0, CONF_BUCKETS - 1)
-            hist.index_add_(0, b_idx.reshape(-1).long(), act.reshape(-1))
-
-        def loop_open(step):
-            """The loop condition, read on the host as one scalar."""
-            if step >= steps_cap:
-                return False
-            state.host_syncs += 1
-            return bool(((~committed[:, blk]) & live).any())
-
-        def model(toks_in, pos, mode, **kw):
-            return apply_model(cfg, self.params, tokens=toks_in,
-                               positions=pos, mode=mode,
-                               use_kernels=d.use_kernels, **kw).logits
-
-        def conf_toks(out):
-            if parallel:
-                return self._conf_from_hidden(out)
-            return self._conf_from_logits(out)
-
-        if d.method == "vanilla":
-            pos_T = torch.arange(T, dtype=torch.int32, device=dev)[None] \
-                .expand(B, T)
-            step = 0
-            while loop_open(step):
-                logits = model(x, pos_T, "encode")
-                conf, toks = self._conf_from_logits(logits[:, blk])
-                commit = commit_tokens(conf, toks)
-                tally(step, commit, conf)
-                cconf = torch.where(commit, conf, cconf)
-                lconf = conf
-                step += 1
-        else:
-            # block-start refresh (paper §3.3): one pass over [prefix ||
-            # query region] that produces the block's confidences and
-            # rewrites the cache; the steps then attend to the prefix KV
-            pref_pos = torch.arange(prefix_len, dtype=torch.int32,
-                                    device=dev)[None].expand(B, prefix_len)
-            full_pos = torch.cat([pref_pos, qpos_b], dim=1)
-            full_toks = torch.gather(x, 1, full_pos.long())
-            out = model(full_toks, full_pos, "encode", cache=state.cache,
-                        cache_upto=prefix_len, skip_head=parallel)
-            valid = torch.full((B,), prefix_len, dtype=torch.int32,
-                               device=dev)
-            conf, toks = conf_toks(out[:, prefix_len:prefix_len + K])
-            commit = commit_tokens(conf, toks)
-            tally(0, commit, conf)
-            cconf = torch.where(commit, conf, cconf)
-            lconf = conf
-            step = 1
-            while loop_open(step):
-                q_toks = torch.gather(x, 1, qpos_b.long())
-                out = model(q_toks, qpos_b, "step", cache=state.cache,
-                            kv_valid=valid, skip_head=parallel)
-                conf, toks = conf_toks(out[:, :K])
-                commit = commit_tokens(conf, toks)
-                tally(step, commit, conf)
-                cconf = torch.where(commit, conf, cconf)
-                lconf = conf
-                step += 1
-        steps = step
-
-        # straggler finalize (steps cap reached): commit the last step's
-        # argmax — but never overwrite rows that early-exited in a prior
-        # block (their tail is EOS-truncated territory)
-        blk_x = x[:, blk]
-        fill = (~committed[:, blk]) & live & (steps > 0)
-        fill_n = fill.to(torch.int32).sum()
-        cconf = torch.where(fill, lconf, cconf)
-        blk_x = torch.where(fill, toks, blk_x)
-        x[:, blk] = blk_x
-        committed[:, blk] = True
-        # Early exit (paper §3.3): a block that decoded an EOS makes all
-        # *subsequent* blocks skippable for that row.
-        if d.early_exit:
-            hit = (blk_x == cfg.eos_token_id).any(dim=1) & ~done
-            n_hit = hit.to(torch.int32).sum()
-            done = done | hit
-        else:
-            n_hit = torch.zeros((), dtype=torch.int32, device=dev)
-
-        # the block's one results fetch
-        state.x = x.cpu().numpy()
-        state.committed = committed.cpu().numpy()
-        state.done = done.cpu().numpy()
-        n_hit, fill_n = int(n_hit), int(fill_n)
-        counts = counts.cpu().numpy()
-        hist = hist.cpu().numpy()
+        state.x, state.committed, state.done = (out["x"], out["committed"],
+                                                out["done"])
+        if self.cache_carries_state:
+            state.valid_mask = out["valid_mask"]
+            state.cached_mask = out["cached_mask"]
+        steps, n_hit = int(out["step"]), int(out["n_hit"])
+        if prog.graph is not None:
+            prog.graph.add_launches(steps - 1 if d.has_refresh else steps)
         state.host_syncs += 1
         state.early_exits += n_hit
-
-        state.steps_per_block.append(steps)
-        state.nfe += steps
-        if d.method == "vanilla":
-            state.q_tokens += steps * B * T
-            state.kv_tokens += steps * B * T * T
-        elif steps > 0:
-            ref_q = prefix_len + Sq
-            state.q_tokens += B * ref_q
-            state.kv_tokens += B * ref_q * (prefix_len + Sq)
-            state.q_tokens += (steps - 1) * B * Sq
-            state.kv_tokens += (steps - 1) * B * Sq * (prefix_len + Sq)
+        self._account(state, steps, Sq, region.block_start, out["vsums"])
         state.block_idx = region.block_idx + 1
         wall = time.perf_counter() - t_block
         state.block_stats.append(BlockStats(
             method=d.method, block_idx=region.block_idx, batch=B,
-            live_rows=live_rows, steps=steps, steps_cap=steps_cap,
-            committed_per_step=[int(v) for v in counts[:steps]],
-            straggler_fill=fill_n,
-            conf_hist=[int(v) for v in hist],
+            live_rows=live_rows, steps=steps, steps_cap=self.steps_cap,
+            committed_per_step=[int(v) for v in out["counts"][:steps]],
+            straggler_fill=int(out["fill_n"]),
+            conf_hist=[int(v) for v in out["hist"]],
             window=Sq, early_exits=n_hit, wall_s=wall,
-            commit_conf=cconf.cpu().numpy()))
+            commit_conf=out["cconf"]))
+        state.decode_time += wall
+        return state
+
+    # ------------------------------------------------------- host loop
+
+    def _decode_block_host(self, state: DecodeState) -> DecodeState:
+        """The per-step host loop (the JAX package's
+        ``_decode_block_host``): the device runs each pass, every step
+        fetches its confidences (or block logits) and selection, commit,
+        tally, straggler fill and early exit run on the host. The
+        validation oracle of the device loop."""
+        cfg, d = self.cfg, self.dcfg
+        t_block = time.perf_counter()
+        B, P = state.batch, state.prompt_len
+        K = d.block_size
+        T = state.x.shape[1]
+        dev = self.device
+        x, committed, done = state.x, state.committed, state.done
+        valid_mask, cached_mask = state.valid_mask, state.cached_mask
+        cache = state.cache
+        rows = np.arange(B)[:, None]
+
+        region, qpos = self._query_region(state)
+        Sq = len(qpos)
+        qpos_b = np.broadcast_to(qpos[None], (B, Sq))
+        qpos_d = self._upload(qpos_b)
+        bstart, bend = region.block_start, region.block_start + K
+        prefix_len = bstart
+        valid = None
+        step = 0
+        toks = last_conf = None
+        vsums = []
+        live = ~done[:, None]
+        live_rows = int((~done).sum())
+        committed_per_step: list = []
+        conf_hist = np.zeros((CONF_BUCKETS,), np.int64)
+        cconf = np.zeros((B, K), np.float32)
+
+        def model(toks_np, pos, mode, **kw):
+            return apply_model(cfg, self.params, tokens=self._upload(toks_np),
+                               positions=pos, mode=mode,
+                               use_kernels=d.use_kernels, **kw).logits
+
+        with torch.no_grad():
+            while step < self.steps_cap:
+                blk_masked = ~committed[:, bstart:bend]
+                if not (blk_masked & live).any():
+                    break
+                step += 1
+                out = None                    # logits or hidden states
+                if d.method == "vanilla":
+                    out = model(x, self._upload(np.broadcast_to(
+                        np.arange(T, dtype=np.int32)[None], (B, T))),
+                        "encode")[:, bstart:bend]
+                elif d.method == "dkv":
+                    out = model(x[rows, qpos_b], qpos_d, "append",
+                                cache=cache,
+                                kv_valid=self._upload(valid_mask),
+                                append_at=qpos_d,
+                                self_kv_mix=self._upload(
+                                    cached_mask[rows, qpos_b]))[:, :K]
+                    newly = committed & ~cached_mask
+                    cached_mask |= newly
+                    valid_mask |= newly
+                    vsums.append(int(valid_mask.sum()) // B)
+                elif step == 1:
+                    full_pos = np.broadcast_to(np.concatenate(
+                        [np.arange(prefix_len, dtype=np.int32), qpos])[None],
+                        (B, prefix_len + Sq))
+                    pos_d = self._upload(full_pos)
+                    if d.frozen:
+                        out = model(x[rows, full_pos], pos_d, "append",
+                                    cache=cache,
+                                    kv_valid=torch.zeros((B,), dtype=torch.int32,
+                                                         device=dev),
+                                    append_at=pos_d, cache_upto=prefix_len,
+                                    skip_head=True)
+                        vb = np.zeros((B, T), bool)
+                        vb[:, :prefix_len] = True
+                        vb[:, qpos[K:]] = True
+                        valid = self._upload(vb)
+                    else:
+                        out = model(x[rows, full_pos], pos_d, "encode",
+                                    cache=cache, cache_upto=prefix_len,
+                                    skip_head=d.parallel)
+                        valid = torch.full((B,), prefix_len,
+                                           dtype=torch.int32, device=dev)
+                    out = out[:, prefix_len:prefix_len + K]
+                elif d.frozen:
+                    out = model(x[:, bstart:bend], self._upload(
+                        np.broadcast_to(np.arange(bstart, bend,
+                                                  dtype=np.int32)[None],
+                                        (B, K))), "step", cache=cache,
+                        kv_valid=valid, skip_head=True)
+                else:
+                    out = model(x[rows, qpos_b], qpos_d, "step", cache=cache,
+                                kv_valid=valid,
+                                skip_head=d.parallel)[:, :K]
+
+                if d.parallel:
+                    # only (B, K) conf + tokens cross to the host
+                    conf_d, toks_d = self._conf_from_hidden(out)
+                    conf, toks = conf_d.cpu(), toks_d.cpu()
+                    state.host_syncs += 1
+                else:
+                    # the full (B, K, V) block logits cross to the host
+                    blk = out.float().cpu()
+                    state.host_syncs += 1
+                    state.logit_syncs += 1
+                    blk[..., cfg.mask_token_id] = -1e30
+                    conf, toks = sched.confidence_and_tokens(blk)
+
+                masked_t = torch.from_numpy(blk_masked)
+                if d.parallel:
+                    if d.method == "streaming":
+                        tau = sched.dynamic_threshold(
+                            d.tau0, d.alpha, masked_t.float().mean(dim=1))
+                    else:
+                        tau = torch.full((B,), d.tau0, dtype=torch.float32)
+                    commit = sched.select_tokens(conf, masked_t, tau)
+                else:
+                    commit = sched.fixed_rate_select(conf, masked_t,
+                                                     self.n_commit)
+                commit, conf, toks = (commit.numpy(), conf.numpy(),
+                                      toks.numpy())
+                sel = np.where(commit)
+                x[sel[0], bstart + sel[1]] = toks[sel]
+                cconf[sel] = conf[sel]
+                last_conf = conf
+                committed[:, bstart:bend] |= commit
+                act = commit & live
+                committed_per_step.append(int(act.sum()))
+                b_idx = np.clip((conf * CONF_BUCKETS).astype(np.int32),
+                                0, CONF_BUCKETS - 1)
+                np.add.at(conf_hist, b_idx[act], 1)
+
+        # finalize block: commit any stragglers (steps cap reached) —
+        # rows that early-exited in a prior block keep their tail
+        blk_masked = ~committed[:, bstart:bend] & live
+        straggler_fill = int(blk_masked.sum()) if step > 0 else 0
+        if blk_masked.any() and toks is not None:
+            x[:, bstart:bend] = np.where(blk_masked, toks, x[:, bstart:bend])
+            cconf = np.where(blk_masked, last_conf, cconf)
+        committed[:, bstart:bend] = True
+        hits_blk = 0
+        if d.early_exit:
+            hit = (x[:, bstart:bend] == cfg.eos_token_id).any(axis=1) & ~done
+            hits_blk = int(hit.sum())
+            state.early_exits += hits_blk
+            done |= hit
+
+        self._account(state, step, Sq, prefix_len, vsums)
+        state.block_idx = region.block_idx + 1
+        wall = time.perf_counter() - t_block
+        state.block_stats.append(BlockStats(
+            method=d.method, block_idx=region.block_idx, batch=B,
+            live_rows=live_rows, steps=step, steps_cap=self.steps_cap,
+            committed_per_step=committed_per_step,
+            straggler_fill=straggler_fill,
+            conf_hist=[int(v) for v in conf_hist],
+            window=Sq, early_exits=hits_blk, wall_s=wall,
+            commit_conf=cconf))
         state.decode_time += wall
         return state
 
@@ -447,7 +877,7 @@ class DiffusionDecoder:
                               wall, state.q_tokens, state.kv_tokens,
                               tokens_generated, state.early_exits,
                               state.prefill_time, state.host_syncs,
-                              list(state.block_stats))
+                              state.logit_syncs, list(state.block_stats))
 
     def generate(self, prompt: np.ndarray) -> GenerateResult:
         """Monolithic generation: prefill + every block to completion

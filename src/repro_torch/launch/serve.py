@@ -4,10 +4,13 @@ on ``init_params`` weights (what the JAX CLI serves with
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \\
         --method streaming --mode batch --n 4 --gen-len 256 --window 96
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny \\
+        --device cpu --dtype float32 --method dkv --host-loop
 
 Runs on CUDA unless ``--device cpu``; on CUDA attention and confidence
-go through the kernels. ``--ckpt`` and training wait for ROADMAP A12,
-``--mode continuous`` for ROADMAP A6.
+go through the kernels, and each block is one CUDA graph replay
+(``--host-loop``: the per-step host loop instead). ``--ckpt`` and
+training wait for ROADMAP A12, ``--mode continuous`` for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -40,8 +43,7 @@ def make_prompts(n: int, seed: int):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tiny")
-    ap.add_argument("--method", default="streaming",
-                    choices=[m for m in METHODS if m != "dkv"])
+    ap.add_argument("--method", default="streaming", choices=METHODS)
     ap.add_argument("--mode", default="batch", choices=["batch"])
     ap.add_argument("--n", type=int, default=4)
     ap.add_argument("--gen-len", type=int, default=32)
@@ -53,6 +55,9 @@ def main(argv=None):
     ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
                     default=True, help="attention/confidence through the "
                     "kernels (required on CUDA)")
+    ap.add_argument("--host-loop", action="store_true",
+                    help="per-step host loop (validation oracle) instead "
+                    "of the device loop")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -66,7 +71,8 @@ def main(argv=None):
     d = DecodeConfig(method=args.method, gen_len=args.gen_len,
                      block_size=cfg.block_size, window=args.window,
                      tau0=args.tau0, alpha=args.alpha,
-                     use_kernels=args.use_kernels)
+                     use_kernels=args.use_kernels,
+                     fused=not args.host_loop)
     eng = ServingEngine(cfg, params, d, mode=args.mode, device=device)
     for prompt in make_prompts(args.n, args.seed):
         eng.submit(prompt, max_tokens=args.gen_len)
@@ -85,6 +91,7 @@ def main(argv=None):
         "served": len(done), "init_s": t1 - t0, "serve_s": t2 - t1,
         "tok_s": eng.throughput, "nfe": nfe,
         "steps_per_block": float(np.mean(steps)) if steps else 0.0,
+        "host_syncs": sum(r.host_syncs for r in eng.results),
         "launches": dict(kops.LAUNCHES)}
     print(json.dumps(summary))
     return summary

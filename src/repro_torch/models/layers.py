@@ -42,16 +42,39 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """Split-half rotary embedding. x: (B, S, H, D); positions: (B, S)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
+    """Split-half rotary angles for ``positions`` (B, S): ``(cos, sin)``,
+    each (B, S, 1, head_dim / 2) float32. One table serves every layer
+    of a pass (``apply_model`` builds it once)."""
+    freqs = rope_freqs(head_dim, theta, positions.device)       # (D/2,)
     ang = positions.float()[..., None] * freqs                  # (B, S, D/2)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def rope_rotate(x: torch.Tensor, table) -> torch.Tensor:
+    """Apply a ``rope_table`` to x: (B, S, H, D)."""
+    cos, sin = table
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """Split-half rotary embedding. x: (B, S, H, D); positions: (B, S)."""
+    return rope_rotate(x, rope_table(positions, x.shape[-1], theta))
+
+
+def attention_kv_mask(kv_valid, P: int, Sq: int):
+    """Validity of [cache (P) || self (Sq)] keys, (B, P + Sq) bool, from
+    ``kv_valid``: a (B,) used length of the cache or a (B, P) bool mask;
+    the self region is always valid."""
+    if kv_valid.dim() == 2:
+        pad = torch.ones((kv_valid.shape[0], Sq), dtype=torch.bool,
+                         device=kv_valid.device)
+        return torch.cat([kv_valid, pad], dim=1)
+    idx = torch.arange(P + Sq, device=kv_valid.device)[None, :]
+    return (idx < kv_valid.reshape(-1, 1)) | (idx >= P)
 
 
 # ---------------------------------------------------------------- init
@@ -174,6 +197,7 @@ def attend_ref(q, k, v, *, scale, attn_softcap=0.0, window=0,
 
 def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
                     kv_valid=None, window=0, return_kv=False,
+                    self_kv_override=None, rope=None, kv_mask=None,
                     use_kernels=False):
     """GQA attention over [kv_cache || self].
 
@@ -181,6 +205,13 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
     positions implicit in kv_pos (length P + Sq when cache present, else
     Sq). kv_valid applies to the cache region only, either a (B,) used
     length or a (B, P) bool mask; the self region is always valid.
+    ``self_kv_override = (mix (B, Sq) bool, gk, gv)``: frozen K/V (dKV
+    cache) replace the fresh ones where ``mix`` holds, after RoPE and
+    before the cache concatenation.
+    Per-pass inputs a caller may build once for every layer: ``rope``, the
+    ``rope_table`` of ``q_pos`` (which is also the self keys' position),
+    and ``kv_mask``, the ``attention_kv_mask`` of ``kv_valid`` (or, on the
+    kernel route with no cache validity, all ones).
     ``use_kernels`` routes the attend to ``kernels.ops.block_attention``
     (the CUDA kernel on the card, its plain version on the CPU) instead
     of ``attend_ref``.
@@ -196,24 +227,24 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if kv_pos is None:
         kv_pos = q_pos
-    self_kv_pos = kv_pos[:, -Sq_self:]
-    q = apply_rope(q, q_pos, cfg.rope_theta)
-    k = apply_rope(k, self_kv_pos, cfg.rope_theta)
+    if rope is None:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, kv_pos[:, -Sq_self:], cfg.rope_theta)
+    else:
+        q = rope_rotate(q, rope)
+        k = rope_rotate(k, rope)
+    if self_kv_override is not None:
+        mix, gk, gv = self_kv_override
+        m = mix[:, :, None, None]
+        k = torch.where(m, gk.to(k.dtype), k)
+        v = torch.where(m, gv.to(v.dtype), v)
     new_kv = (k, v)
-    kv_mask = None
     if kv_cache is not None:
         ck, cv = kv_cache
-        P = ck.shape[1]
         k = torch.cat([ck.to(k.dtype), k], dim=1)
         v = torch.cat([cv.to(v.dtype), v], dim=1)
-        if kv_valid is not None:
-            if kv_valid.dim() == 2:
-                pad = torch.ones((B, Sq_self), dtype=torch.bool,
-                                 device=x.device)
-                kv_mask = torch.cat([kv_valid, pad], dim=1)
-            else:
-                idx = torch.arange(P + Sq_self, device=x.device)[None, :]
-                kv_mask = (idx < kv_valid.reshape(-1, 1)) | (idx >= P)
+        if kv_mask is None and kv_valid is not None:
+            kv_mask = attention_kv_mask(kv_valid, ck.shape[1], Sq_self)
     scale = cfg.attn_scale or (1.0 / math.sqrt(cfg.head_dim))
     if use_kernels:
         from repro_torch.kernels import ops as kops

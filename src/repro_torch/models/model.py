@@ -15,7 +15,9 @@ Three execution modes:
   step    — one denoise iteration: a query region attends over
             [cache buffer || self]; cache unchanged.
   append  — like step, but writes the query tokens' KV into the cache
-            at ``kv_valid`` offsets or at ``append_at`` slots.
+            at ``kv_valid`` offsets or at ``append_at`` slots
+            (``self_kv_mix``: the dKV cache's frozen K/V stand in for
+            the fresh ones where it holds).
 
 Unlike the JAX package, the cache buffers are updated in place (one KV
 buffer per decode state instead of one per call); the returned cache is
@@ -31,8 +33,9 @@ from repro_torch.models.config import (ATTN, ATTN_LOCAL, NONE, LayerSpec,
                                        ModelConfig)
 from repro_torch.models.heads import plan_heads
 from repro_torch.models.layers import (apply_attention, apply_ffn,
-                                       dense_init, init_attention, init_ffn,
-                                       rms_norm, softcap)
+                                       attention_kv_mask, dense_init,
+                                       init_attention, init_ffn, rms_norm,
+                                       rope_table, softcap)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -144,15 +147,20 @@ def _write_kv_at(buf, new, idx) -> None:
 
 
 def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
-                mode, append_at=None, use_kernels=False):
-    """Returns (y, cache); the cache is written in place."""
+                mode, append_at=None, self_kv_mix=None, kv_pos=None,
+                rope=None, kv_mask=None, use_kernels=False):
+    """Returns (y, cache); the cache is written in place. ``kv_pos``,
+    ``rope`` and ``kv_mask`` are the pass's key positions, RoPE table and
+    key validity, built once by ``apply_model`` for every layer.
+    ``self_kv_mix`` (B, Sq) bool (dKV cache): where it holds, the query
+    token's K/V is the cache's at its position instead of a fresh one."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.local_window if spec.mixer == ATTN_LOCAL else 0
     B = x.shape[0]
     if mode == "encode":
         out, kv = apply_attention(cfg, p["mixer"], h, q_pos=q_pos,
-                                  window=window, return_kv=True,
-                                  use_kernels=use_kernels)
+                                  window=window, return_kv=True, rope=rope,
+                                  kv_mask=kv_mask, use_kernels=use_kernels)
         if cache is not None:
             S = x.shape[1]
             if S > cache[0].shape[1]:
@@ -161,14 +169,19 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
             cache[0][:, :S] = kv[0].to(cache[0].dtype)
             cache[1][:, :S] = kv[1].to(cache[1].dtype)
     else:
-        P_len = cache[0].shape[1]     # cache slot i holds position i
-        cache_pos = torch.arange(P_len, dtype=torch.int32,
-                                 device=x.device)[None].expand(B, P_len)
-        kv_pos = torch.cat([cache_pos, q_pos], dim=1)
+        if kv_pos is None:
+            kv_pos = cache_kv_positions(cache[0].shape[1], q_pos)
+        override = None
+        if self_kv_mix is not None:
+            rows = torch.arange(B, device=x.device)[:, None]
+            qi = q_pos.long()
+            override = (self_kv_mix, cache[0][rows, qi], cache[1][rows, qi])
         out, kv = apply_attention(cfg, p["mixer"], h, q_pos=q_pos,
                                   kv_pos=kv_pos, kv_cache=cache,
                                   kv_valid=kv_valid, window=window,
-                                  return_kv=True, use_kernels=use_kernels)
+                                  return_kv=True,
+                                  self_kv_override=override, rope=rope,
+                                  kv_mask=kv_mask, use_kernels=use_kernels)
         if mode == "append":
             for buf, new in zip(cache, kv):
                 if append_at is not None:
@@ -182,17 +195,29 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
     return x, cache
 
 
+def cache_kv_positions(P_len: int, q_pos):
+    """Positions of [cache || self] keys: cache slot i holds position i."""
+    B = q_pos.shape[0]
+    cache_pos = torch.arange(P_len, dtype=torch.int32,
+                             device=q_pos.device)[None].expand(B, P_len)
+    return torch.cat([cache_pos, q_pos], dim=1)
+
+
 # ------------------------------------------------------------- forward
 
 def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
                 mode: str = "encode", cache=None, kv_valid=None,
-                append_at=None,
+                append_at=None, self_kv_mix=None,
                 cache_upto: Optional[int] = None, skip_head: bool = False,
                 use_kernels: bool = False) -> ModelOutput:
     """tokens: (B, S) int; positions: (B, S). ``use_kernels`` routes the
     attention of every layer through ``kernels.ops.block_attention``.
+    ``self_kv_mix`` (B, S) bool: the dKV cache's frozen tokens (their K/V
+    is gathered from the cache at their position in every layer).
     ``cache_upto`` (the block-refresh prefix boundary) only matters to
-    recurrent layers, which the port does not have yet."""
+    recurrent layers, which the port does not have yet. The key
+    positions, the RoPE table and the key validity are built once per
+    pass, not per layer."""
     if mode not in ("encode", "step", "append"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode != "encode" and cache is None:
@@ -212,12 +237,23 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
     if kv_valid.dim() < 2:
         kv_valid = kv_valid.to(torch.int32).expand(B)
 
+    rope = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    kv_pos = kv_mask = None
+    if mode == "encode":
+        if use_kernels:
+            kv_mask = torch.ones((B, S), dtype=torch.bool, device=dev)
+    else:
+        P_len = cache[0][0].shape[1]
+        kv_pos = cache_kv_positions(P_len, positions)
+        kv_mask = attention_kv_mask(kv_valid, P_len, S)
     layout = cfg.effective_layout()
     for i, spec in enumerate(layout):
         x, _ = apply_layer(cfg, params["layers"][i], spec, x, q_pos=positions,
                            cache=cache[i] if cache is not None else None,
                            kv_valid=kv_valid, mode=mode,
-                           append_at=append_at, use_kernels=use_kernels)
+                           append_at=append_at, self_kv_mix=self_kv_mix,
+                           kv_pos=kv_pos, rope=rope, kv_mask=kv_mask,
+                           use_kernels=use_kernels)
 
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     if skip_head:

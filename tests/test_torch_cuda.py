@@ -1,8 +1,11 @@
-"""The port's kernel wrappers on the card: what they refuse to launch.
-Each kernel against its plain version, and ``tiny`` through the kernels
-against the CPU path, are checked by ``chip_smoke.py`` on the card.
-Needs a CUDA card; skips without one. Imports no JAX, so it runs where
-JAX is absent:
+"""The port on the card: what the kernel wrappers refuse to launch, the
+confidence kernel on strided rows, and the CUDA-graph block loop on
+``tiny`` (against the host loop for every method, two states
+interleaved, no new capture at known shapes, launch counts under
+replay). Each kernel against its plain version at the main path's
+shapes, and llada-8b through the graphs, are checked by
+``chip_smoke.py``. Needs a CUDA card; skips without one. Imports no JAX,
+so it runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
@@ -104,3 +107,161 @@ def test_confidence_kernel_matches_plain_on_strided_rows(cuda, dtype):
     assert ops.LAUNCHES["confidence_argmax"] == before + 1
     assert torch.equal(idx, i_ref) and idx[5] != 400
     assert (conf - c_ref).abs().max().item() <= 1e-5
+
+
+# ------------------------------------------------ the CUDA-graph block loop
+
+_BASE = dict(gen_len=16, block_size=8, window=4, tau0=0.5)
+
+
+@pytest.fixture
+def tiny_cuda(cuda):
+    """``tiny`` (float32) with seeded random weights on the card, and
+    prompts."""
+    import numpy as np
+
+    from repro_torch.models import get_config, init_params
+    cfg = get_config("tiny")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(3),
+                         cuda)
+    prompt = np.random.default_rng(0).integers(0, 200, (2, 10)).astype(
+        np.int32)
+    return cfg, params, prompt
+
+
+def _decoder(tiny, **kw):
+    from repro_torch.core.decoder import DecodeConfig, DiffusionDecoder
+    cfg, params, _ = tiny
+    return DiffusionDecoder(cfg, params, DecodeConfig(**{**_BASE, **kw}),
+                            device="cuda")
+
+
+COUNTERS = ("nfe", "steps_per_block", "query_tokens_processed",
+            "kv_tokens_attended", "early_exits")
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("vanilla", {}), ("dkv", {}), ("prefix", {}), ("fast", {}),
+    ("streaming", {}),
+    ("streaming", dict(frozen_suffix=True, gen_len=32, window=8))],
+    ids=["vanilla", "dkv", "prefix", "fast", "streaming", "frozen_suffix"])
+def test_graph_loop_matches_host_loop(tiny_cuda, method, kw):
+    """Each block one graph replay: tokens and counters equal the
+    per-step host loop's, with one host sync per block (plus dkv's
+    prefill pass)."""
+    prompt = tiny_cuda[2]
+    graph = _decoder(tiny_cuda, method=method, **kw)
+    res = graph.generate(prompt.copy())
+    host = _decoder(tiny_cuda, method=method, fused=False,
+                    **kw).generate(prompt.copy())
+    assert (res.tokens == host.tokens).all()
+    for name in COUNTERS:
+        assert getattr(res, name) == getattr(host, name), name
+    n_blocks = len(res.steps_per_block)
+    assert res.host_syncs == n_blocks + (method == "dkv")
+    assert res.logit_syncs == 0
+    assert graph.graph_cache_size() == n_blocks
+
+
+@pytest.mark.parametrize("method", ["streaming", "dkv"])
+def test_interleaved_states_keep_their_caches(tiny_cuda, method):
+    """Two states with distinct prompts, decoded block by block in turns
+    on one decoder (one set of graphs), give the tokens each gives
+    alone: the binding rule keeps each state's cache its own."""
+    import numpy as np
+    prompt = tiny_cuda[2]
+    other = np.random.default_rng(7).integers(0, 200, prompt.shape).astype(
+        np.int32)
+    alone = [_decoder(tiny_cuda, method=method).generate(p.copy())
+             for p in (prompt, other)]
+    dec = _decoder(tiny_cuda, method=method)
+    states = [dec.prefill(p.copy()) for p in (prompt, other)]
+    if method == "dkv":
+        assert states[0].cache is not states[1].cache
+    while not all(s.finished for s in states):
+        for s in states:
+            dec.decode_block(s)
+    for s, ref in zip(states, alone):
+        out = dec.finalize(s)
+        assert (out.tokens == ref.tokens).all()
+        assert out.nfe == ref.nfe
+
+
+def test_second_generate_captures_no_graph(tiny_cuda):
+    import numpy as np
+    dec = _decoder(tiny_cuda, method="streaming")
+    dec.generate(tiny_cuda[2].copy())
+    size = dec.graph_cache_size()
+    assert size == _BASE["gen_len"] // _BASE["block_size"]
+    other = np.random.default_rng(9).integers(0, 200, (2, 10)).astype(
+        np.int32)
+    dec.generate(other)
+    assert dec.graph_cache_size() == size
+
+
+def test_replayed_block_counts_the_launches_of_an_eager_block(tiny_cuda):
+    """``ops.LAUNCHES`` after a replayed block equals the host loop's on
+    the same block: replays add the captured parts' launches times the
+    bodies the device ran."""
+    import copy
+    prompt = tiny_cuda[2]
+    graph = _decoder(tiny_cuda, method="streaming")
+    host = _decoder(tiny_cuda, method="streaming", fused=False)
+    warm = graph.prefill(prompt.copy())
+    graph.decode_block(warm)                # captures block 0's graph
+    st_g, st_h = graph.prefill(prompt.copy()), host.prefill(prompt.copy())
+    counts = []
+    for dec, st in ((graph, st_g), (host, st_h)):
+        ops.reset_launches()
+        dec.decode_block(st)
+        torch.cuda.synchronize()
+        counts.append(dict(ops.LAUNCHES))
+    assert counts[0] == counts[1]
+    assert counts[0]["block_attention"] > 0
+    assert counts[0]["confidence_argmax"] == st_g.steps_per_block[0]
+    assert (st_g.x == st_h.x).all()
+    twin = copy.deepcopy(st_g)              # another buffer: adopts the bound
+    graph.decode_block(twin)
+    graph.decode_block(st_g)
+    assert (twin.x == st_g.x).all()
+
+
+def test_graph_loop_with_embed_scale(tiny_cuda):
+    """``embed_scale`` multiplies by a 0-dim CPU tensor inside the
+    captured passes; the graph loop still equals the host loop."""
+    import dataclasses
+
+    from repro_torch.core.decoder import DecodeConfig, DiffusionDecoder
+    cfg, params, prompt = tiny_cuda
+    cfg = dataclasses.replace(cfg, embed_scale=True)
+    res = [DiffusionDecoder(cfg, params, DecodeConfig(fused=fused, **_BASE),
+                            device="cuda").generate(prompt.copy())
+           for fused in (True, False)]
+    assert (res[0].tokens == res[1].tokens).all()
+    assert res[0].nfe == res[1].nfe
+    assert res[0].host_syncs == len(res[0].steps_per_block)
+
+
+@pytest.mark.parametrize("method", ["vanilla", "dkv", "prefix", "fast",
+                                    "streaming"])
+def test_graph_if_nodes_skip_after_the_loop_closes(tiny_cuda, method):
+    """Five of the first block's eight tokens already committed and a
+    threshold no confidence reaches: one commit per step, so the loop
+    closes after 3 steps and the graph's remaining IF nodes skip their
+    bodies. Tokens, steps and launch counts equal the host loop's."""
+    prompt = tiny_cuda[2]
+    out = []
+    for fused in (True, False):
+        dec = _decoder(tiny_cuda, method=method, tau0=1.01, alpha=0.0,
+                       fused=fused)
+        dec.decode_block(dec.prefill(prompt.copy()))   # captures block 0
+        st = dec.prefill(prompt.copy())
+        st.committed[:, st.prompt_len:st.prompt_len + 5] = True
+        ops.reset_launches()
+        dec.decode_block(st)
+        torch.cuda.synchronize()
+        out.append((st, dict(ops.LAUNCHES)))
+    (graph, g_launch), (host, h_launch) = out
+    assert graph.steps_per_block == host.steps_per_block == [3]
+    assert (graph.x == host.x).all()
+    assert g_launch == h_launch

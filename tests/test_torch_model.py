@@ -376,3 +376,47 @@ def test_head_confidence_and_tokens_row_chunks():
                                                jnp.asarray(head), **kw)
     _close(c, cj, 1e-5)
     assert t.tolist() == _np(tj).tolist()
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernel_route"])
+@pytest.mark.parametrize("mode", ["encode", "step", "append", "dkv"])
+def test_per_pass_inputs_are_bit_identical_to_per_layer(mode, use_kernels):
+    """``apply_model`` builds the RoPE table, the key positions and the
+    key validity once per pass; layer by layer, ``apply_layer`` without
+    them builds each itself. Same logits and cache, bit for bit."""
+    from repro_torch.models.model import apply_layer
+    from repro_torch.models.layers import rms_norm
+    cfg = get_config("tiny")
+    params = init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    B, S, T = 2, 9, 30
+    g = torch.Generator().manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    pos = (torch.arange(S, dtype=torch.int32) + 12)[None].expand(B, S)
+    base = init_cache(cfg, B, T, "cpu")
+    for k, v in base:
+        k.normal_(generator=g)
+        v.normal_(generator=g)
+    kw = dict(mode=mode, kv_valid=torch.tensor([7, 12], dtype=torch.int32))
+    if mode == "encode":
+        kw = dict(mode="encode")
+    elif mode == "dkv":
+        valid = torch.rand((B, T), generator=g) < 0.5
+        kw = dict(mode="append", kv_valid=valid, append_at=pos,
+                  self_kv_mix=torch.rand((B, S), generator=g) < 0.5)
+    caches = [[(k.clone(), v.clone()) for k, v in base] for _ in range(2)]
+    out = apply_model(cfg, params, tokens=toks, positions=pos,
+                      cache=caches[0], use_kernels=use_kernels, **kw)
+    x = params["embed"][toks.long()]
+    kv_valid = kw.get("kv_valid", torch.zeros((B,), dtype=torch.int32))
+    for i, spec in enumerate(cfg.effective_layout()):
+        x, _ = apply_layer(cfg, params["layers"][i], spec, x, q_pos=pos,
+                           cache=caches[1][i], kv_valid=kv_valid,
+                           mode=kw["mode"], append_at=kw.get("append_at"),
+                           self_kv_mix=kw.get("self_kv_mix"),
+                           use_kernels=use_kernels)
+    x = rms_norm(x, params["out_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    assert torch.equal(out.logits, (x @ head.to(x.dtype)).float())
+    for (a, b), (c, d) in zip(*caches):
+        assert torch.equal(a, c) and torch.equal(b, d)
