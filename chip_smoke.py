@@ -3,46 +3,56 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, ``nvcc`` and ``triton``; imports nothing of JAX or
-of the JAX package. Phases, each printing JSON lines:
+Needs one CUDA card and ``nvcc``; imports nothing of JAX or of the JAX
+package. Phases, each printing JSON lines:
 
 1. device   — card name and power limit (nvidia-smi), torch/CUDA versions.
 2. build    — builds the CUDA sources of ``src/repro_torch/kernels/csrc``
               with nvcc (the port's two kernel libraries, the CUDA-graph
               block loop's library and two probe builds of each kernel,
-              in parallel; ptxas registers and spills per kernel) and
-              compiles the first port's Triton confidence kernel, kept
-              only to be timed here.
+              in parallel; ptxas registers and spills per kernel).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the main path's shapes and at small edge cases, with its
               time, the plain version's, the library call's and the bound;
-              at the timed shapes also the first port's kernel (simple
-              attention; Triton confidence on float32), in turns with the
-              new one; then the LM-head path of a denoise step as a unit,
-              against the route it replaced.
+              at the timed shapes also the first port's simple attention
+              kernel, in turns with the new one; the confidence kernel as
+              its rows grow from 32 to 512; then the LM-head path of a
+              denoise step as a unit, against the plain route.
 4. probe    — the bf16 attention kernel against its load path alone and
               its math alone, at the timed shapes.
 5. reference — ``tiny`` (float32) on the card through the kernels against
               the plain path on the CPU: model logits and decode tokens;
               then llada-8b at full width, 2 layers, bf16, through the
               kernels against ``attend_ref`` on the card.
-6. methods  — llada-8b at full width cut to 2 layers (bf16, random
+6. invariance — the same row at B = 1..4, llada-8b at full width cut to
+              2 layers, bf16: bit for bit after every attention and FFN,
+              in the head logits and the confidence kernel's outputs, and
+              in whole decodes; it fails nothing: it shows the fault
+              (ROADMAP C 1) for which the continuous phase runs every
+              gang at one size.
+7. methods  — llada-8b at full width cut to 2 layers (bf16, random
               weights), gen_len 64: every method and frozen_suffix on the
               CUDA-graph block loop against the per-step host loop:
-              identical tokens and counters (a near-tie is printed, not
-              failed), one host sync per block.
-7. serve    — ``ServingEngine`` in batch mode, llada-8b at full width and
+              identical tokens and counters (a near-tie at the flipped
+              position is printed and excused), one host sync per block.
+8. serve    — ``ServingEngine`` in batch mode, llada-8b at full width and
               depth (bf16, random weights from a seed), streaming decode
               of 4 prompts: an untimed run captures the block graphs, the
               timed run replays them (launch counters read around it
               only), and the host loop on the same prompts must give the
               same tokens and counters.
-8. profile  — the middle block of that decode through its graph: wall
+9. profile  — the middle block of that decode through its graph: wall
               time without the profiler, device time by kernel under it,
               idle share, and the blocking syncs inside the block; the
               same block through the host loop for comparison.
+10. continuous — ``ContinuousEngine`` at llada-8b full width and depth on
+              the serve phase's weights: prewarm, then a scripted mix of
+              arrivals, a preempt and a cancel, timed; against the same
+              script through the host loop and against batch mode, gangs
+              at one size (``phase_continuous``, ``continuous_script``).
 
-Then the kernels summary line, the nvidia-smi line and, last, the device
+Then the kernels summary line (launches counted
+on the continuous phase's timed run), the nvidia-smi line and, last, the device
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no result.
 """
@@ -352,8 +362,7 @@ def check_confidence(name, N, V, dtype, *, mask_id=-1, timed=False,
     """The CUDA kernel through ``ops.confidence_argmax`` against the
     plain version on the same inputs (the same bf16 or float32 values,
     the same ban): idx exact, conf within 1e-5. Timed cases also time
-    the plain version and, on float32 inputs, the first port's Triton
-    kernel (no ban; in turns with the new one)."""
+    the plain version and the kernel's two probe builds."""
 
     def make(seed):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -396,21 +405,9 @@ def check_confidence(name, N, V, dtype, *, mask_id=-1, timed=False,
                                                lib=lib)
 
         # the kernel against its loads alone and its arithmetic alone (the
-        # probes' outputs are garbage) and, on float32, the first port's
-        # Triton kernel (no ban; checked without one), on the same inputs.
-        # In turns: port, others, others reversed, port.
+        # probes' outputs are garbage), on the same inputs. In turns:
+        # port, others, others reversed, port.
         others = {"load_only": probe(1), "math_only": probe(2)}
-        if dtype == torch.float32:
-            c_t = torch.empty_like(conf)
-            i_t = torch.empty_like(idx)
-            confidence.launch_triton(x, c_t, i_t)
-            c_nb, i_nb = ref.confidence_argmax_ref(x)
-            torch.cuda.synchronize()
-            rec["triton_max_abs_err"] = (c_t - c_nb).abs().max().item()
-            rec["triton_idx_exact"] = bool((i_t == i_nb).all())
-            ok = ok and rec["triton_max_abs_err"] <= 1e-5 \
-                and rec["triton_idx_exact"]
-            others["triton"] = lambda a: confidence.launch_triton(a, c_t, i_t)
         turns = {"port": [time_ms(new, sets)]}
         for k, fn in others.items():
             turns[k] = [time_ms(fn, sets)]
@@ -440,13 +437,14 @@ def check_confidence(name, N, V, dtype, *, mask_id=-1, timed=False,
 
 def confidence_scaling(mask_id: int):
     """Device time of the main path's form (bf16 + ban, V = 126464) as the
-    rows grow from 64 to 512: about 512 CTAs each time (launch_plan), so
-    each CTA's share of the bytes grows with N. A least-squares line
-    through (bytes, ms) gives the rate the kernel streams at (its slope)
-    and its cost that does not grow with the bytes (its intercept:
-    launch, ramp-up, the rows' last-CTA merges)."""
+    rows grow from 32 (a gang of one request) to 512. The split count
+    does not depend on N (launch_plan), so the grid grows with N: 128
+    CTAs at N = 32, 512 at N = 128. A least-squares line through
+    (bytes, ms) gives the rate the kernel streams at (its slope) and its
+    cost that does not grow with the bytes (its intercept: launch,
+    ramp-up, the rows' last-CTA merges)."""
     V, rows = 126464, []
-    for N in (64, 128, 256, 512):
+    for N in (32, 64, 128, 256, 512):
         def make(seed):
             g = torch.Generator(device="cuda").manual_seed(seed)
             return (torch.randn((N, V), generator=g, device="cuda")
@@ -470,10 +468,10 @@ def check_head_path(mask_id: int, d: int = 4096, V: int = 126464):
     """The head path of one llada-8b denoise step as a unit:
     ``ops.head_confidence_argmax`` on hidden (4, 32, 4096) bf16 through
     the head (4096, 126464) bf16 (GEMM, then the kernel on its bf16
-    output with the ban), against the previous route (GEMM, float32
-    cast, ban as an indexed store, Triton kernel) and the plain route,
-    on the same inputs. Both routes graph-timed in turns, with the GEMM
-    alone and the GEMM's own bound (the head's bytes) beside them."""
+    output with the ban), against the plain route (GEMM, float32 cast,
+    ban, Eq. 4 in PyTorch) on the same inputs. Both routes graph-timed
+    in turns, with the GEMM alone and the GEMM's own bound (the head's
+    bytes) beside them."""
     B, K = N_PROMPTS, BLOCK
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     hidden = torch.randn((B, K, d), generator=g, device="cuda").to(
@@ -481,43 +479,35 @@ def check_head_path(mask_id: int, d: int = 4096, V: int = 126464):
     head = (torch.randn((d, V), generator=g, device="cuda")
             / math.sqrt(d)).to(torch.bfloat16)
     h2 = hidden.reshape(-1, d)
-    c_prev = torch.empty(B * K, dtype=torch.float32, device="cuda")
-    i_prev = torch.empty(B * K, dtype=torch.int32, device="cuda")
 
     def new():
         return ops.head_confidence_argmax(hidden, head, mask_id=mask_id)
 
-    def previous():
-        logits = (h2 @ head).float()
-        logits[:, mask_id] = -1e30
-        confidence.launch_triton(logits, c_prev, i_prev)
-        return c_prev, i_prev
+    def plain():
+        return sched.head_confidence_and_tokens(hidden, head,
+                                                mask_id=mask_id)
 
     def gemm():
         return h2 @ head
 
     c_new, i_new = new()
-    previous()
-    c_pl, i_pl = sched.head_confidence_and_tokens(hidden, head,
-                                                  mask_id=mask_id)
+    c_pl, i_pl = plain()
     torch.cuda.synchronize()
     err = (c_new - c_pl).abs().max().item()
     idx_ok = bool((i_new == i_pl).all())
-    prev_agree = bool((i_new.reshape(-1) == i_prev).all())
-    ok = idx_ok and err <= 1e-5 and prev_agree
-    t_new, t_prev = time_ms(new, [()]), time_ms(previous, [()])
-    t_prev2, t_new2 = time_ms(previous, [()]), time_ms(new, [()])
+    ok = idx_ok and err <= 1e-5
+    t_new, t_prev = time_ms(new, [()]), time_ms(plain, [()])
+    t_prev2, t_new2 = time_ms(plain, [()]), time_ms(new, [()])
     t_gemm = time_ms(gemm, [()])
     t_bytes = (nbytes(hidden, head) + B * K * 8) / HBM_BYTES_S
     t_ops = 2 * B * K * d * V / PEAK_OPS_S["bfloat16"]
     rec = {"phase": "kernels", "kernel": "head_path", "case": "llada8b_step",
            "shape": {"rows": B * K, "d": d, "V": V}, "mask_id": mask_id,
            "max_abs_err": err, "tol": 1e-5, "idx_exact": idx_ok,
-           "previous_route_idx_agree": prev_agree,
            "new_ms": (t_new + t_new2) / 2,
-           "previous_ms": (t_prev + t_prev2) / 2,
+           "plain_ms": (t_prev + t_prev2) / 2,
            "new_ms_turns": [t_new, t_new2],
-           "previous_ms_turns": [t_prev, t_prev2], "gemm_ms": t_gemm,
+           "plain_ms_turns": [t_prev, t_prev2], "gemm_ms": t_gemm,
            "gemm_bound_ms": 1e3 * max(t_bytes, t_ops),
            "gemm_bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "ok": ok}
@@ -525,8 +515,7 @@ def check_head_path(mask_id: int, d: int = 4096, V: int = 126464):
     del head
     torch.cuda.empty_cache()
     if not ok:
-        raise AssertionError(f"head path: err {err}, idx exact {idx_ok}, "
-                             f"previous route agrees {prev_agree}")
+        raise AssertionError(f"head path: err {err}, idx exact {idx_ok}")
     return rec
 
 
@@ -717,6 +706,125 @@ def phase_reference_llada():
                              "with attend_ref on the card")
 
 
+def phase_invariance(prompts):
+    """Batch invariance on the card: the same row 0 at B = 1, 2, 3, 4
+    (rows 1.. are other prompts), llada-8b at full width cut to 2 layers,
+    bf16, through the kernels. For a refresh pass (encode of the whole
+    384-token buffer) and a denoise step (Sq = 129 over the cache valid
+    to a middle block start) it compares row 0 bit for bit against B = 1
+    after every attention, after every FFN, in the head logits of the
+    block (the bf16 GEMM output) and in the confidence kernel's conf/idx
+    on them. Then the confidence kernel alone: the same 32 rows of
+    logits reduced as N = 32 and inside N = 128. Last, whole decodes
+    (streaming, gen_len 64) of the same prompt at B = 1..4 through the
+    graph loop: row 0's tokens and commit confidences. It raises
+    nothing: it shows the fault (ROADMAP C 1) for which the scheduler
+    runs every gang at one size on the card."""
+    from repro_torch.models import model as model_mod
+    cfg = get_config("llada-8b", dtype="bfloat16", param_dtype="bfloat16",
+                     n_layers=2, reps=0)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 4), "cuda")
+    T, Sq = PROMPT_LEN + GEN_LEN, BLOCK + WINDOW + 1
+    mid = PROMPT_LEN + (GEN_LEN // BLOCK // 2) * BLOCK
+    rng = np.random.default_rng(SEED + 4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size - 2, (4, T))
+                            .astype(np.int32)).cuda()
+    qpos = (mid + torch.arange(Sq, dtype=torch.int32, device="cuda"))
+    head = params["lm_head"]
+    mask_id = cfg.mask_token_id
+    seen = []
+    orig = (model_mod.apply_attention, model_mod.apply_ffn)
+
+    def rec_attn(*a, **kw):
+        out = orig[0](*a, **kw)
+        seen.append(("attn", (out[0] if isinstance(out, tuple) else out)[0]))
+        return out
+
+    def rec_ffn(*a, **kw):
+        out = orig[1](*a, **kw)
+        seen.append(("ffn", out[0]))
+        return out
+
+    def one_pass(B, kind):
+        seen.clear()
+        pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+        cache = init_cache(cfg, B, T, "cuda")
+        out = apply_model(cfg, params, tokens=toks[:B], positions=pos.expand(
+            B, T), cache=cache, skip_head=True, use_kernels=True)
+        blk = slice(mid, mid + BLOCK)
+        if kind == "step":
+            seen.clear()
+            out = apply_model(cfg, params, tokens=toks[:B, T - Sq:],
+                              positions=qpos[None].expand(B, Sq),
+                              mode="step", cache=cache,
+                              kv_valid=torch.full((B,), mid, dtype=torch.int32,
+                                                  device="cuda"),
+                              skip_head=True, use_kernels=True)
+            blk = slice(0, BLOCK)
+        hid = out.logits[:, blk].reshape(-1, cfg.d_model)
+        logits = hid @ head
+        conf, idx = ops.confidence_argmax(logits, mask_id=mask_id)
+        rows = {f"{n}{i // 2}": t.clone() for i, (n, t) in enumerate(seen)}
+        rows["head_logits"] = logits[:BLOCK].clone()
+        rows["conf"], rows["idx"] = conf[:BLOCK].clone(), idx[:BLOCK].clone()
+        return rows
+
+    model_mod.apply_attention, model_mod.apply_ffn = rec_attn, rec_ffn
+    rec = {"phase": "invariance", "arch": "llada-8b", "layers": 2,
+           "cut": "n_layers 32 -> 2"}
+    try:
+        with torch.no_grad():
+            for kind in ("refresh", "step"):
+                ref_rows = one_pass(1, kind)
+                res = {}
+                for B in (2, 3, 4):
+                    got = one_pass(B, kind)
+                    res[B] = {k: (bool(torch.equal(got[k], v)),
+                                  (got[k].float() - v.float()).abs().max()
+                                  .item()) for k, v in ref_rows.items()}
+                rec[kind] = {k: {"bit_equal_at_B": [res[B][k][0]
+                                                    for B in (2, 3, 4)],
+                                 "max_abs_diff": max(res[B][k][1]
+                                                     for B in (2, 3, 4))}
+                             for k in ref_rows}
+    finally:
+        model_mod.apply_attention, model_mod.apply_ffn = orig
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x = (torch.randn((128, 126464), generator=g, device="cuda") * 4).to(
+        torch.bfloat16)
+    c128, i128 = ops.confidence_argmax(x, mask_id=mask_id)
+    c32, i32 = ops.confidence_argmax(x[:32].contiguous(), mask_id=mask_id)
+    c1, _ = ops.confidence_argmax(x[:1].contiguous(), mask_id=mask_id)
+    rec["confidence_kernel"] = {
+        "splits": {N: confidence.launch_plan(N, 126464, torch.bfloat16)
+                   .splits for N in (1, 32, 128)},
+        "conf_bit_equal_32_vs_128": bool(torch.equal(c32, c128[:32])),
+        "conf_bit_equal_1_vs_128": bool(torch.equal(c1, c128[:1])),
+        "idx_equal_32_vs_128": bool(torch.equal(i32, i128[:32])),
+        "conf_max_abs_diff": (c32 - c128[:32]).abs().max().item()}
+    dcfg = DecodeConfig(method="streaming", gen_len=64, block_size=BLOCK,
+                        window=WINDOW, use_kernels=True)
+    dec = DiffusionDecoder(cfg, params, dcfg, device="cuda")
+    runs = {}
+    for B in (1, 2, 3, 4):
+        r = dec.generate(prompts[:B].copy())
+        runs[B] = (r.tokens[0], np.concatenate(
+            [s.commit_conf[0] for s in r.block_stats]))
+    rec["decode_row0"] = {
+        "tokens_equal_at_B": [bool((runs[B][0] == runs[1][0]).all())
+                              for B in (2, 3, 4)],
+        "commit_conf_bit_equal_at_B": [bool((runs[B][1] == runs[1][1]).all())
+                                       for B in (2, 3, 4)]}
+    rec["batch_invariant"] = (all(rec["decode_row0"]["tokens_equal_at_B"])
+                              and all(rec["decode_row0"]
+                                      ["commit_conf_bit_equal_at_B"]))
+    emit(rec)
+    del dec, params
+    torch.cuda.empty_cache()
+    return rec
+
+
 def make_prompts(n, seed):
     rng = np.random.default_rng(seed)
     alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz .,0123456789"))
@@ -731,9 +839,12 @@ NEAR_TIE = 1e-5
 def compare_runs(graph, host, K):
     """Tokens and counters of a graph-loop run against a host-loop run.
     A token difference is excused only as a near-tie (ROADMAP: a top-2
-    confidence gap or a |conf - tau| below 1e-5): in the first block
-    where the runs differ, two confidences the graph run committed in one
-    row lie within 1e-5 of each other."""
+    confidence gap or a |conf - tau| below 1e-5) at the decision that
+    flipped: at the first position where the runs differ, the graph
+    run's commit confidence lies within 1e-5 of another commit
+    confidence of that row and block (the ranking that picked it). The
+    dynamic tau of that step is not in the result, so a flip at the
+    threshold is not excused."""
     rec = {"tokens_identical": bool((graph.tokens == host.tokens).all()),
            "counters_identical": all(getattr(graph, c) == getattr(host, c)
                                      for c in COUNTERS),
@@ -741,11 +852,13 @@ def compare_runs(graph, host, K):
     rec["near_tie"] = None
     if not rec["tokens_identical"]:
         diff = np.argwhere(graph.tokens != host.tokens)
-        blk = int(diff[:, 1].min()) // K
-        conf = graph.block_stats[blk].commit_conf
-        gaps = [float(np.diff(np.sort(row)).min()) for row in conf]
-        rec["near_tie"] = {"block": blk, "min_gap_by_row": gaps,
-                           "is_near_tie": min(gaps) < NEAR_TIE}
+        row, pos = (int(v) for v in diff[np.argmin(diff[:, 1])])
+        blk = pos // K
+        conf = graph.block_stats[blk].commit_conf[row]
+        at = conf[pos % K]
+        gap = float(np.abs(np.delete(conf, pos % K) - at).min())
+        rec["near_tie"] = {"row": row, "position": pos, "block": blk,
+                           "gap": gap, "is_near_tie": gap < NEAR_TIE}
         print(json.dumps({"phase": "near_tie", **rec["near_tie"]}),
               flush=True)
     rec["ok"] = rec["counters_identical"] and (
@@ -889,6 +1002,288 @@ def phase_serve():
     if not rec["ok"]:
         raise AssertionError("serve phase failed its checks")
     return cfg, dec, hdec, tokens, rec
+
+
+# ------------------------------------------------------------ continuous
+
+MAX_SLOTS, MAX_GANG = 8, 4
+SHORT = 96                     # the second gen_len bucket (3 blocks)
+# the script's requests: name -> (prompt index, max_tokens)
+SCRIPT = {"A0": (0, GEN_LEN), "A1": (1, GEN_LEN), "A2": (2, GEN_LEN),
+          "A3": (3, GEN_LEN), "B0": (4, SHORT), "B1": (5, SHORT),
+          "C0": (6, GEN_LEN), "C1": (7, GEN_LEN)}
+
+
+def continuous_script(eng, prompts):
+    """The continuous phase's submission script, one tick at a time.
+    Tick 0: A0-A3 (256 tokens) and B0, B1 (96 tokens, a second bucket and
+    decoder) are submitted; admission makes gang G1 = A0-A3 and gang
+    G2 = B0, B1 (+ pads). After tick 1: preempt A1 (extracted at tick
+    2's block boundary, at block 3). G2 ends at tick 2; its freed slots
+    take A1 back at once (backfill), as its own gang at block 3. After
+    tick 2: submit C0, C1 (256 tokens; they wait). Tick 3: A1's gang and
+    G1 sit at the same (bucket, block 3) and merge (cross-gang merge);
+    the freed slots admit C0, C1 (backfill), so two live gangs of one
+    (B, T) run at different blocks (3 and 0). After tick 3: cancel A2
+    (released at tick 4's block boundary). Returns (trace, completions,
+    uids): the trace holds (batch, total length, next block, lane uids)
+    of every gang after every tick."""
+    uids = {}
+
+    def submit(name):
+        i, mt = SCRIPT[name]
+        uids[name] = eng.submit(prompts[i], max_tokens=mt)
+
+    for name in ("A0", "A1", "A2", "A3", "B0", "B1"):
+        submit(name)
+    trace, comps, tick = [], [], 0
+    while not eng.scheduler.idle:
+        comps += eng.step()
+        trace.append([(g.batch, g.state.total_len, g.state.block_idx,
+                       tuple(r.uid if r is not None else 0
+                             for r in g.requests))
+                      for g in eng.scheduler.gangs])
+        if tick == 1:
+            eng.preempt(uids["A1"])
+        elif tick == 2:
+            submit("C0")
+            submit("C1")
+        elif tick == 3:
+            got = eng.cancel(uids["A2"])
+            if got is not None:
+                comps.append(got)
+        tick += 1
+    return trace, comps, uids
+
+
+def phase_continuous(cfg, params, invariance):
+    """``ContinuousEngine`` at llada-8b full width and depth (the serve
+    phase's weights), streaming, gen_len 256 / block 32 / window 96,
+    ``max_slots=8, max_gang=4``, driven by ``continuous_script``.
+
+    Gang size: a row's bits change with the batch size on the card
+    (ROADMAP C 1; the invariance phase's finding is printed beside), so
+    no decoder there is batch-invariant and the scheduler runs every
+    gang at one size by default, ``batch_multiple = max_gang = 4`` (pad
+    lanes replicate a row): every pass sees one GEMM row count, and a
+    gang never compacts to a smaller batch. The phase uses that default
+    and checks it.
+
+    First ``prewarm`` captures every (bucket, gang size, block) graph,
+    then the script runs timed. Checks: no capture after prewarm; one
+    host sync per gang block; no [MASK] in a completion and finite
+    commit confidences; the cancelled request's partial completion; the
+    preempted request resumed at the block it left; the same script
+    through the host loop (``fused=False``) gives the same tokens, NFE,
+    blocks, completion order and gangs tick by tick; every uncancelled
+    request equals, token for token, a batch-mode decode of its prompt
+    at the gang size the phase ran at (pads replicate a prompt): at one
+    size no near-tie is excused. Device idle share over the timed run is
+    one minus the CUDA-event span of every ``decode_block`` call over
+    the run's wall; host time of a graph replay is timed around the
+    launch call, without the profiler."""
+    from repro_torch.core import graph_loop
+    from repro_torch.serving import ContinuousEngine
+    from repro_torch.serving.metrics import percentile
+    dcfg = DecodeConfig(method="streaming", gen_len=GEN_LEN, block_size=BLOCK,
+                        window=WINDOW, use_kernels=True)
+    prompts = make_prompts(8, SEED + 7)
+    tok = ByteTokenizer(cfg.vocab_size)
+
+    def engine(d):
+        return ContinuousEngine(cfg, params, d, max_slots=MAX_SLOTS,
+                                max_gang=MAX_GANG, device="cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine(dcfg)
+    mode = {"batch_multiple": eng.scheduler.batch_multiple,
+            "decoder_batch_invariant": eng.scheduler.decoder_for(
+                GEN_LEN).batch_invariant,
+            "invariance_phase_found_invariant": invariance,
+            "why": "a row's bits change with the batch size on the card "
+                   "(cuBLAS GEMMs per row count, ROADMAP C 1), so the "
+                   "scheduler runs every gang at one size"}
+    print(json.dumps({"phase": "continuous_mode", **mode}), flush=True)
+    t0 = time.perf_counter()
+    warm = eng.prewarm([(PROMPT_LEN, GEN_LEN), (PROMPT_LEN, SHORT)])
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    capture_s = sum(d.capture_time for d in eng.scheduler._decoders.values())
+
+    # the timed run: events around every decode_block, host time of
+    # every replay call; launch counters read around this run only
+    spans, replay_s = [], []
+    decode_block = DiffusionDecoder.decode_block
+    replay = graph_loop.BlockGraph.replay
+
+    def timed_block(self, state):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = decode_block(self, state)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    def timed_replay(self):
+        t = time.perf_counter()
+        replay(self)
+        replay_s.append(time.perf_counter() - t)
+
+    DiffusionDecoder.decode_block = timed_block
+    graph_loop.BlockGraph.replay = timed_replay
+    try:
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        trace, comps, uids = continuous_script(eng, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(ops.LAUNCHES)
+    finally:
+        DiffusionDecoder.decode_block = decode_block
+        graph_loop.BlockGraph.replay = replay
+    busy = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    snap = eng.metrics.snapshot()
+    lat = [r.latency_s for r in eng.metrics.requests]
+    ttfb = [r.ttfb_s for r in eng.metrics.requests]
+    by_uid = {c.uid: c for c in comps}
+    name_of = {u: n for n, u in uids.items()}
+
+    # the same script through the host loop
+    heng = engine(dataclasses.replace(dcfg, fused=False))
+    t2 = time.perf_counter()
+    htrace, hcomps, _ = continuous_script(heng, prompts)
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t2
+
+    def summary(cs):
+        return [(c.uid, c.tokens.tolist(), c.nfe, c.n_blocks, c.cancelled)
+                for c in cs]
+
+    vs_host = {"trace_identical": trace == htrace,
+               "completion_order_identical": [c.uid for c in comps]
+               == [c.uid for c in hcomps],
+               "requests_identical": summary(comps) == summary(hcomps)}
+
+    # batch mode on the same prompts, at the gang size the phase ran at:
+    # each bucket's requests in batches of MAX_GANG, the last one padded
+    # with repeats of its prompts
+    beng = ServingEngine(cfg, params, dcfg, max_batch=MAX_GANG, mode="batch",
+                         device="cuda")
+    keep = [n for n in SCRIPT if not by_uid[uids[n]].cancelled]
+    order = []
+    for mt in (GEN_LEN, SHORT):
+        names = [n for n in keep if SCRIPT[n][1] == mt]
+        for i in range(0, len(names), MAX_GANG):
+            part = names[i:i + MAX_GANG]
+            order += [part[j % len(part)] for j in range(MAX_GANG)]
+
+    def batch_run():
+        sub = {}
+        for n in order:
+            i, mt = SCRIPT[n]
+            sub.setdefault(n, beng.submit(prompts[i], max_tokens=mt))
+        done = {c.uid: c for c in beng.run_to_completion()}
+        return {n: done[u] for n, u in sub.items()}
+
+    batch = batch_run()                       # captures its graphs
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    batch_run()
+    torch.cuda.synchronize()
+    batch_wall = time.perf_counter() - t3
+    batch_tokens = sum(int(c.tokens.shape[0]) for c in batch.values())
+
+    vs_batch = {n: bool(np.array_equal(by_uid[uids[n]].tokens,
+                                       batch[n].tokens)) for n in keep}
+
+    a1, a2 = by_uid[uids["A1"]], by_uid[uids["A2"]]
+
+    def two_shapes(t):
+        blocks = {}
+        for B, T, blk, _ in t:
+            blocks.setdefault((B, T), set()).add(blk)
+        return any(len(v) >= 2 for v in blocks.values())
+
+    # at one gang size nothing compacts to a smaller batch, so the
+    # script is not asked to reach a compaction
+    reached = {
+        "merge": snap["gang_merges"] >= 1,
+        # A1 back in a gang of its own at the block its old gang is at
+        "resumed_row": any(g[3][0] == uids["A1"] and not any(g[3][1:])
+                           and any(h[2] == g[2] and uids["A0"] in h[3]
+                                   for h in t)
+                           for t in trace for g in t),
+        "backfill": any(uids["C0"] in g[3] for t in trace for g in t),
+        "two_live_gangs_one_shape_different_blocks": any(
+            two_shapes(t) for t in trace)}
+    rec = {"phase": "continuous", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "method": dcfg.method, **mode,
+           "max_slots": MAX_SLOTS, "max_gang": MAX_GANG,
+           "buckets": warm["buckets"], "prewarm_batch_sizes":
+           warm["batch_sizes"], "graphs": eng.graph_cache_size(),
+           "prewarm_s": prewarm_s, "capture_s": capture_s,
+           "post_warm_captures": snap["post_warm_compiles"],
+           "requests": snap["requests"], "tokens": snap["tokens"],
+           "ticks": eng.metrics.ticks,
+           "wall_s": wall, "tok_s": snap["tokens"] / wall,
+           "ttfb_p50_s": percentile(ttfb, 50),
+           "ttfb_p90_s": percentile(ttfb, 90),
+           "latency_p50_s": percentile(lat, 50),
+           "latency_p90_s": percentile(lat, 90),
+           "mean_occupancy": snap["mean_occupancy"],
+           "gang_merges": snap["gang_merges"],
+           "gang_blocks": len(spans),
+           "host_syncs_per_block": snap["host_syncs_per_block"],
+           "pool": eng.pool.stats(),
+           "peak_mem_gb": peak,
+           "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+           "replay_host_ms": {"mean": 1e3 * float(np.mean(replay_s)),
+                              "max": 1e3 * float(np.max(replay_s)),
+                              "n": len(replay_s)} if replay_s else None,
+           "launches": launches,
+           "trace": trace, "reached": reached,
+           "completions": {name_of[c.uid]: {
+               "n_tokens": c.n_tokens, "nfe": c.nfe, "n_blocks": c.n_blocks,
+               "cancelled": c.cancelled} for c in comps},
+           "vs_host_loop": {**vs_host, "host_wall_s": host_wall},
+           "vs_batch_mode": vs_batch,
+           "batch_mode": {"wall_s": batch_wall,
+                          "tok_s": batch_tokens / batch_wall,
+                          "graphs": sum(d.graph_cache_size() for d in
+                                        beng._decoders.values())}}
+    checks = {
+        "no_capture_after_prewarm": rec["post_warm_captures"] == 0,
+        "one_sync_per_gang_block": rec["host_syncs_per_block"] == 1.0
+        and sum(c.host_syncs for c in comps) == sum(
+            c.n_blocks for c in comps),
+        "no_mask": all((c.tokens != cfg.mask_token_id).all() for c in comps),
+        "conf_finite": all(c.commit_conf is None
+                           or np.isfinite(c.commit_conf).all()
+                           for c in comps),
+        "cancelled_partial": a2.cancelled and 0 < len(a2.tokens) < GEN_LEN
+        and len(a2.tokens) == a2.n_blocks * BLOCK,
+        "preempted_resumed": (not a1.cancelled and a1.n_blocks
+                              == GEN_LEN // BLOCK and "A1" in vs_batch),
+        "graph_loop_equals_host_loop": all(vs_host.values()),
+        "one_gang_size": mode["batch_multiple"] == MAX_GANG
+        and not mode["decoder_batch_invariant"]
+        and all(g[0] == MAX_GANG for t in trace for g in t),
+        "equals_batch_mode": all(vs_batch.values()),
+        "every_request_served": sorted(by_uid) == sorted(uids.values()),
+        "kernels_launched": all(v > 0 for v in launches.values()),
+        "one_replay_per_gang_block": len(replay_s) == len(spans),
+        "reached": all(reached.values())}
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"continuous phase failed: {checks}")
+    del eng, heng, beng
+    torch.cuda.empty_cache()
+    return rec
 
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -1055,38 +1450,38 @@ def main() -> int:
     build.load("confidence")
     build.load("graph_loop")
     t_nvcc = time.perf_counter() - t0
-    confidence.triton_kernel()
-    import triton
     ptxas = [f for lib in libs[:3]
              for f in ptxas_report(lib.with_suffix(".log").read_text())]
     emit({"phase": "build", "nvcc_s": t_nvcc,
           "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:3]],
           "ptxas": ptxas,
-          "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas),
-          "triton": triton.__version__})
+          "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas)})
 
     step, conf = phase_kernels()
     phase_probe()
     phase_reference()
     phase_reference_llada()
     tok = ByteTokenizer(get_config("llada-8b").vocab_size)
-    phase_methods(np.stack([tok.encode(p) for p in make_prompts(
-        N_PROMPTS, SEED)]).astype(np.int32))
+    prompts = np.stack([tok.encode(p) for p in make_prompts(
+        N_PROMPTS, SEED)]).astype(np.int32)
+    inv = phase_invariance(prompts)
+    phase_methods(prompts)
     *model, serve = phase_serve()
     phase_profile(*model)
+    cont = phase_continuous(model[0], model[1].params, inv["batch_invariant"])
 
     kernels = [
         {"name": "block_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_attention.cu",
          "replaces": "src/repro/kernels/block_attention.py:109",
-         "launches": serve["launches"]["block_attention"],
+         "launches": cont["launches"]["block_attention"],
          "max_abs_err": step["max_abs_err"], "ms": step["kernel_ms"],
          "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
          "bound_by": step["bound_by"], "library_ms": step["library_ms"]},
         {"name": "confidence_argmax", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/confidence.cu",
          "replaces": "src/repro/kernels/confidence.py:70",
-         "launches": serve["launches"]["confidence_argmax"],
+         "launches": cont["launches"]["confidence_argmax"],
          "max_abs_err": conf["max_abs_err"], "ms": conf["kernel_ms"],
          "plain_ms": conf["plain_ms"], "bound_ms": conf["bound_ms"],
          "bound_by": conf["bound_by"], "library_ms": None},

@@ -19,8 +19,8 @@ Five methods (paper Tables 1/2/8):
 
 ``frozen_suffix`` (parallel methods) freezes the pruned-suffix KV at the
 block refresh and lets the steps query only the block. ``prefix_cache``
-(ROADMAP A7), executor placement (A11) and ``take_rows``/``merge_rows``
-(A6) raise ``NotImplementedError`` naming their item.
+(ROADMAP A7) and executor placement (A11) raise ``NotImplementedError``
+naming their item.
 
 Two loops per block, as in the JAX package:
 
@@ -49,10 +49,13 @@ one KV buffer per (B, T), the *bound* buffer, and every graph of that
 shape reads and writes it. For every method but dkv the block refresh
 rewrites every cache slot the steps read, so ``prefill`` hands each state
 the bound buffer, and a state whose cache is another buffer (a deep copy)
-adopts the bound one at its next block. A dkv cache carries state across
-blocks, so a dkv state owns its buffer: the device loop copies it into
-the bound buffer before the replay and back after. No state ever
-replays a graph on a buffer other than the one that holds its cache.
+or none (a parked ``take_rows(alloc_cache=False)`` state) adopts the
+bound one at its next block; ``take_rows``/``merge_rows`` gather no KV
+for them. A dkv cache carries state across blocks, so a dkv state owns
+its buffer (``take_rows`` gathers its rows into a new one): the device
+loop copies it into the bound buffer before the replay and back after.
+No state ever replays a graph on a buffer other than the one that holds
+its cache.
 
 On the card, attention and the parallel methods' confidence run through
 the kernels (``use_kernels=True``); a CUDA decoder without them raises.
@@ -72,7 +75,7 @@ from repro_torch.core.suffix import suffix_query_region
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import apply_model, init_cache
+from repro_torch.models.model import apply_model, cache_take_rows, init_cache
 from repro_torch.obs.telemetry import CONF_BUCKETS, BlockStats
 
 METHODS = ("vanilla", "dkv", "prefix", "fast", "streaming")
@@ -173,8 +176,15 @@ class DecodeState:
         return self.x.shape[0]
 
     @property
+    def total_len(self) -> int:
+        return self.x.shape[1]
+
+    @property
     def finished(self) -> bool:
         return self.block_idx >= self.n_blocks or bool(self.done.all())
+
+    def row_finished(self, b: int) -> bool:
+        return bool(self.done[b]) or self.block_idx >= self.n_blocks
 
 
 @dataclasses.dataclass
@@ -499,11 +509,13 @@ class DiffusionDecoder:
 
     @property
     def batch_invariant(self) -> bool:
-        """True when per-row outputs do not depend on how rows are
-        batched. Holds for every method except dkv, whose step-level KV
-        freezing accumulates ulp-level drift under batch reshaping (as in
-        the JAX package)."""
-        return self.dcfg.method != "dkv"
+        """True when per-row outputs do not depend on the batch size.
+        On the CPU it holds for every method except dkv, whose step-level
+        KV freezing accumulates ulp-level drift under batch reshaping (as
+        in the JAX package). On the card it holds for none: cuBLAS picks
+        its GEMM by row count, so a row's bits change with B (ROADMAP
+        C 1)."""
+        return self.dcfg.method != "dkv" and self.device.type != "cuda"
 
     @property
     def cache_carries_state(self) -> bool:
@@ -523,11 +535,26 @@ class DiffusionDecoder:
             self._buffers[(B, T)] = _BlockBuffers(self, B, T)
         return self._buffers[(B, T)]
 
-    def prefill(self, prompt: np.ndarray) -> DecodeState:
+    def _bound_cache(self, B: int, T: int):
+        """The bound KV buffer of (B, T) (None for vanilla, which has no
+        cache)."""
+        if self.dcfg.method == "vanilla":
+            return None
+        return self._block_buffers(B, T).cache
+
+    def _no_cache_arg(self, cache, what: str) -> None:
+        if cache is not None and not self.cache_carries_state:
+            raise ValueError(
+                f"{what}: {self.dcfg.method} states run on the decoder's "
+                "bound KV buffer and take no buffer of their own")
+
+    def prefill(self, prompt: np.ndarray, cache=None) -> DecodeState:
         """Admit a batch of prompts. The returned state sits at block 0
         ready for ``decode_block``; its cache is the bound buffer of its
-        shape, except for dkv, which gets a buffer of its own filled by
-        one full-sequence pass (only the prompt KV is valid)."""
+        shape, except for dkv, which gets a buffer of its own (``cache``,
+        a pool's, or a new one) filled by one full-sequence pass (only
+        the prompt KV is valid)."""
+        self._no_cache_arg(cache, "prefill")
         cfg, d = self.cfg, self.dcfg
         B, P = prompt.shape
         T = P + d.gen_len
@@ -541,10 +568,11 @@ class DiffusionDecoder:
         if d.method == "vanilla":
             return state
         if not self.cache_carries_state:
-            state.cache = self._block_buffers(B, T).cache
+            state.cache = self._bound_cache(B, T)
             return state
         tp0 = time.perf_counter()
-        state.cache = init_cache(cfg, B, T, self.device)
+        state.cache = cache if cache is not None else init_cache(
+            cfg, B, T, self.device)
         pos = torch.arange(T, dtype=torch.int32, device=self.device)[None]
         with torch.no_grad():
             apply_model(cfg, self.params, tokens=self._upload(x),
@@ -563,11 +591,65 @@ class DiffusionDecoder:
         state.cached_mask = state.valid_mask.copy()
         return state
 
-    def take_rows(self, state, rows, cache=None, alloc_cache=True):
-        raise NotImplementedError("take_rows is ROADMAP A6")
+    def take_rows(self, state: DecodeState, rows, cache=None,
+                  alloc_cache: bool = True) -> DecodeState:
+        """Extract rows into a standalone state (batch compaction /
+        preemption). dkv gathers the rows' KV and masks into a buffer
+        the new state owns (its cache carries across blocks), whatever
+        ``alloc_cache`` says. Every other method runs on the bound
+        buffer of the new (B, T): ``alloc_cache=True`` hands it over now,
+        ``alloc_cache=False`` (a preempted state parked off-slot) holds
+        no KV and adopts it at its next block. No KV rows are gathered
+        for them, and ``cache`` is refused (the binding rule, module
+        docstring)."""
+        self._no_cache_arg(cache, "take_rows")
+        rows = list(rows)
+        sub = DecodeState(
+            x=state.x[rows].copy(), committed=state.committed[rows].copy(),
+            done=state.done[rows].copy(), prompt_len=state.prompt_len,
+            n_blocks=state.n_blocks, block_idx=state.block_idx,
+            steps_per_block=list(state.steps_per_block))
+        if self.cache_carries_state:
+            # index_select copies: the sub-state never aliases the gang
+            # it left, whose buffer goes back to the pool
+            sub.cache = cache_take_rows(state.cache, rows)
+            sub.valid_mask = state.valid_mask[rows].copy()
+            sub.cached_mask = state.cached_mask[rows].copy()
+        elif alloc_cache:
+            sub.cache = self._bound_cache(len(rows), state.total_len)
+        return sub
 
-    def merge_rows(self, parts, cache=None):
-        raise NotImplementedError("merge_rows is ROADMAP A6")
+    def merge_rows(self, parts, cache=None) -> DecodeState:
+        """Fuse rows from several states sitting at the SAME block
+        boundary into one state (the scheduler's cross-gang straggler
+        merge). ``parts`` is a list of ``(state, rows)``. Excludes dkv,
+        whose cache carries across blocks; every other method's next
+        block refresh rewrites the cache, so the merged state takes the
+        bound buffer of its new (B, T) and nothing is gathered. A row
+        keeps its bits when ``batch_invariant``, or (on the card) when
+        the merged state has the batch of every part: the scheduler's
+        ``_reshapes_exactly`` decides, as for ``take_rows``."""
+        assert not self.cache_carries_state
+        self._no_cache_arg(cache, "merge_rows")
+        ref = parts[0][0]
+        for st, _ in parts[1:]:
+            assert (st.prompt_len, st.n_blocks, st.block_idx) == \
+                (ref.prompt_len, ref.n_blocks, ref.block_idx), \
+                "cross-gang merge requires identical (bucket, block) state"
+        sub = DecodeState(
+            x=np.concatenate([st.x[rows] for st, rows in parts]),
+            committed=np.concatenate(
+                [st.committed[rows] for st, rows in parts]),
+            done=np.concatenate([st.done[rows] for st, rows in parts]),
+            prompt_len=ref.prompt_len, n_blocks=ref.n_blocks,
+            block_idx=ref.block_idx,
+            # per-block step counts diverge across source gangs; keep
+            # the elementwise max (metrics-only, like take_rows' copy)
+            steps_per_block=[max(vals) for vals in zip(
+                *(st.steps_per_block for st, _ in parts))]
+            if ref.steps_per_block else [])
+        sub.cache = self._bound_cache(sub.batch, ref.total_len)
+        return sub
 
     def row_output(self, state: DecodeState, b: int):
         """Finalized generation for one row: tokens after the prompt,
@@ -668,7 +750,7 @@ class DiffusionDecoder:
         Sq = len(qpos)
         bufs = self._block_buffers(B, T)
         prog = self._program(bufs, qpos, region.block_start)
-        if not self.cache_carries_state and bufs.cache is not None:
+        if not self.cache_carries_state:
             state.cache = bufs.cache          # the binding rule (docstring)
         live_rows = int((~state.done).sum())
         bufs.load(state)
@@ -713,6 +795,8 @@ class DiffusionDecoder:
         K = d.block_size
         T = state.x.shape[1]
         dev = self.device
+        if not self.cache_carries_state:
+            state.cache = self._bound_cache(B, T)   # the binding rule
         x, committed, done = state.x, state.committed, state.done
         valid_mask, cached_mask = state.valid_mask, state.cached_mask
         cache = state.cache

@@ -1,8 +1,13 @@
 """Batched serving engine front end — the PyTorch counterpart of
-``repro.core.engine`` in ``mode="batch"``: requests are grouped by
+``repro.core.engine``. Two modes over one API:
+
+``mode="continuous"`` (default) — delegates to the continuous-batching
+subsystem (``repro_torch.serving``): block-granular scheduling, slot
+backfill on EOS early exit, streaming chunks.
+
+``mode="batch"`` — the synchronous path: requests are grouped by
 (prompt_len, gen_len) shape bucket and the largest group is decoded to
-completion. ``mode="continuous"`` (the continuous-batching scheduler) is
-ROADMAP A6.
+completion. Kept as the baseline continuous serving is compared with.
 """
 from __future__ import annotations
 
@@ -39,13 +44,12 @@ class Completion:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, dcfg: DecodeConfig,
-                 max_batch: int = 32, mode: str = "batch", device=None):
-        if mode == "continuous":
-            raise NotImplementedError("continuous serving is ROADMAP A6")
-        if mode != "batch":
+                 max_batch: int = 32, mode: str = "continuous", device=None):
+        if mode not in ("batch", "continuous"):
             raise ValueError(f"unknown serving mode {mode!r}")
         self.cfg = cfg
         self.dcfg = dcfg
+        self.mode = mode
         self.device = resolve_device(device)
         self.tok = ByteTokenizer(cfg.vocab_size)
         self.max_batch = max_batch
@@ -55,10 +59,19 @@ class ServingEngine:
         self._uid = 0
         self.stats = defaultdict(float)
         # per-batch GenerateResults, for callers that read the decode
-        # counters (NFE, steps per block, block telemetry)
+        # counters (NFE, steps per block, block telemetry); batch mode
         self.results: list = []
+        self._continuous = None
+        if mode == "continuous":
+            from repro_torch.serving import ContinuousEngine
+            self._continuous = ContinuousEngine(
+                cfg, params, dcfg, max_slots=max_batch, tokenizer=self.tok,
+                device=self.device)
+            self.stats = self._continuous.stats   # one shared counter dict
 
     def submit(self, prompt: str, max_tokens: int = 64) -> int:
+        if self._continuous is not None:
+            return self._continuous.submit(prompt, max_tokens)
         self._uid += 1
         self._queue.append(Request(self._uid, prompt, max_tokens,
                                    self.tok.encode(prompt)))
@@ -72,9 +85,13 @@ class ServingEngine:
         return self._decoders[gen_len]
 
     def step(self) -> List[Completion]:
-        """Serve one scheduling round: group queued requests by
+        """Serve one scheduling round. Continuous mode: one block for
+        every live gang. Batch mode: group queued requests by
         (prompt_len, gen_len) and decode the largest group to
         completion."""
+        if self._continuous is not None:
+            return [Completion(c.uid, c.text, c.tokens, c.latency_s, c.nfe)
+                    for c in self._continuous.step()]
         if not self._queue:
             return []
         groups = defaultdict(list)
@@ -99,6 +116,9 @@ class ServingEngine:
                 for i, r in enumerate(batch)]
 
     def run_to_completion(self) -> List[Completion]:
+        if self._continuous is not None:
+            return [Completion(c.uid, c.text, c.tokens, c.latency_s, c.nfe)
+                    for c in self._continuous.run_to_completion()]
         out: List[Completion] = []
         while self._queue:
             out.extend(self.step())

@@ -6,9 +6,7 @@
 | confidence_argmax | CUDA C++ (csrc/confidence.cu)          | repro/kernels/confidence.py       |
 
 Each source builds with nvcc at first use into its own library under
-``build/repro_torch/`` (``build.py``) and is bound with ``ctypes``. The
-first port's Triton confidence kernel (``confidence.launch_triton``) is
-reached only by ``chip_smoke.py``, which times it beside the CUDA kernel.
+``build/repro_torch/`` (``build.py``) and is bound with ``ctypes``.
 The CPU tests (``tests/test_torch_*.py``) reach the plain versions and the
 host-side geometry; ``python3 chip_smoke.py`` builds and checks the
 kernels on the card.

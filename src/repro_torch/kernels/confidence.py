@@ -6,13 +6,11 @@ of the row's maximum and ``conf = 1 / max(sum exp(x - max), 1e-30)``, the
 largest softmax probability. The kernel takes bf16 or float32 logits and
 bans one column (``mask_id``); its source says what bounds it on the H100
 and how its design answers that. ``launch_plan`` is its host-side
-geometry, pure Python so the CPU tests reach it.
-
-The first port's Triton kernel (one program per row, float32 or bf16, no
-ban) stays here as ``launch_triton``, reached only by ``chip_smoke.py``,
-which times it beside the CUDA kernel on the same inputs. Triton is
-imported at that launch, never when this module is imported: the
-kernel's body names ``tl``, which that launch binds.
+geometry, pure Python so the CPU tests reach it. Its split count
+depends on (V, dtype) and the card only, never on the row count, so a
+row's partial sums merge the same way whatever batch it sits in: the
+continuous scheduler's gangs change size, and a row's ``conf`` must not
+change its last bits with them.
 
 This module only launches the kernels: ``kernels.ops.confidence_argmax``
 is the checked, counted entry.
@@ -36,6 +34,9 @@ CTAS_PER_SM = 4           # __launch_bounds__(THREADS, 4)
 VEC_BYTES = 16
 MIN_SPLIT_VECTORS = 1024  # 4 vectors (64 bytes) per thread of a split's CTA
 H100_SMS = 132
+# rows the split count is sized for: the main path's largest gang
+# (4 requests x 32-token block), whose grid is then one full wave
+REF_ROWS = 128
 
 
 @dataclass(frozen=True)
@@ -73,14 +74,15 @@ class LaunchPlan:
 @functools.lru_cache(maxsize=256)
 def launch_plan(N: int, V: int, dtype: torch.dtype,
                 n_sm: int = H100_SMS) -> LaunchPlan:
-    """Split each row over as many CTAs as keep the whole grid resident
-    at once (``CTAS_PER_SM`` per SM: one wave), but no more than leaves
-    each split ``MIN_SPLIT_VECTORS`` 16-byte vectors, or ``MAX_SPLITS``.
-    At N = 128 rows that is 4 splits (512 CTAs); N = 32 gets 15 at
-    V = 126464 in bf16."""
+    """Split each row over as many CTAs as keep a grid of ``REF_ROWS``
+    rows resident at once (``CTAS_PER_SM`` per SM: one wave), but no
+    more than leaves each split ``MIN_SPLIT_VECTORS`` 16-byte vectors,
+    or ``MAX_SPLITS``: 4 splits at V = 126464 on the H100, for every N
+    (512 CTAs at N = 128, 128 at N = 32). The count never depends on N,
+    so a row's ``conf`` is bit-identical at every batch size."""
     vec = VEC_BYTES // dtype.itemsize
     nvec = V // vec                     # the most vectors a row's body has
-    splits = max(1, min(MAX_SPLITS, n_sm * CTAS_PER_SM // N,
+    splits = max(1, min(MAX_SPLITS, n_sm * CTAS_PER_SM // REF_ROWS,
                         nvec // MIN_SPLIT_VECTORS))
     chunk = max(1, -(-nvec // splits))
     return LaunchPlan(vec=vec, splits=splits, chunk=chunk, grid=(N, splits))
@@ -150,55 +152,3 @@ def launch(logits: torch.Tensor, conf: torch.Tensor, idx: torch.Tensor, *,
         plan.chunk, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"confidence_argmax launch failed: cudaError {err}")
-
-
-# ------------------------------------------- the first port's Triton kernel
-
-BLOCK_V = 4096
-NUM_WARPS = 8
-
-tl = None          # triton.language, bound at the first Triton launch
-_TRITON_KERNEL = None
-
-
-def _triton_conf_kernel(x_ptr, conf_ptr, idx_ptr, V, stride,
-                        BLOCK_N: tl.constexpr, BLOCK_V: tl.constexpr):
-    rows = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
-    base = x_ptr + rows.to(tl.int64)[:, None] * stride
-    m = tl.full([BLOCK_N], -1e30, tl.float32)
-    s = tl.zeros([BLOCK_N], tl.float32)
-    a = tl.zeros([BLOCK_N], tl.int32)
-    for v0 in range(0, V, BLOCK_V):
-        cols = v0 + tl.arange(0, BLOCK_V)
-        x = tl.load(base + cols[None, :], mask=cols[None, :] < V,
-                    other=-1e30).to(tl.float32)
-        t_max = tl.max(x, axis=1)
-        t_arg = tl.argmax(x, axis=1, tie_break_left=True).to(tl.int32) + v0
-        better = t_max > m
-        m_new = tl.maximum(m, t_max)
-        s = s * tl.exp(m - m_new) + tl.sum(tl.exp(x - m_new[:, None]), axis=1)
-        a = tl.where(better, t_arg, a)
-        m = m_new
-    tl.store(conf_ptr + rows, 1.0 / tl.maximum(s, 1e-30))
-    tl.store(idx_ptr + rows, a)
-
-
-def triton_kernel():
-    """The Triton kernel, compiled on first use."""
-    global tl, _TRITON_KERNEL
-    if _TRITON_KERNEL is None:
-        import triton
-        import triton.language as language
-        tl = language
-        _TRITON_KERNEL = triton.jit(_triton_conf_kernel)
-    return _TRITON_KERNEL
-
-
-def launch_triton(logits: torch.Tensor, conf: torch.Tensor,
-                  idx: torch.Tensor) -> None:
-    """The first port's kernel: one program of 8 warps per row, 4096-wide
-    chunks, no ban. Same outputs as ``launch`` with ``mask_id=-1``."""
-    N, V = logits.shape
-    block_v = min(BLOCK_V, 1 << max(V - 1, 1).bit_length())
-    triton_kernel()[(N,)](logits, conf, idx, V, logits.stride(0),
-                          BLOCK_N=1, BLOCK_V=block_v, num_warps=NUM_WARPS)

@@ -1,16 +1,22 @@
-"""Minimal serving CLI of the port: batch-mode serving of a few prompts
-on ``init_params`` weights (what the JAX CLI serves with
-``--train-steps 0``).
+"""Minimal serving CLI of the port: continuous (default) or batch-mode
+serving of a few prompts on ``init_params`` weights (what the JAX CLI
+serves with ``--train-steps 0``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \\
-        --method streaming --mode batch --n 4 --gen-len 256 --window 96
+        --method streaming --n 4 --gen-len 256 --window 96 \\
+        --max-slots 4 --prewarm 12:256
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny \\
-        --device cpu --dtype float32 --method dkv --host-loop
+        --device cpu --dtype float32 --mode continuous --max-slots 2 --stream
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny \\
+        --device cpu --dtype float32 --mode batch --method dkv --host-loop
 
 Runs on CUDA unless ``--device cpu``; on CUDA attention and confidence
 go through the kernels, and each block is one CUDA graph replay
-(``--host-loop``: the per-step host loop instead). ``--ckpt`` and
-training wait for ROADMAP A12, ``--mode continuous`` for ROADMAP A6.
+(``--host-loop``: the per-step host loop instead). ``--prewarm P:G``
+captures the graphs of prompt length P and generation length G for every
+gang size before serving (a capture otherwise stalls the first block of
+each new shape). ``--ckpt`` and training wait for ROADMAP A12, ``--http``
+for A8.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from repro_torch.core.engine import ServingEngine
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import get_config, init_params
+from repro_torch.serving import ContinuousEngine
 
 
 def make_prompts(n: int, seed: int):
@@ -40,12 +47,40 @@ def make_prompts(n: int, seed: int):
     return out
 
 
+def parse_prewarm(s: str):
+    """``"P:G[,P:G...]"`` -> [(prompt_len, gen_len), ...]."""
+    buckets = []
+    for part in s.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            p, g = (int(v) for v in part.split(":"))
+        except ValueError:
+            raise SystemExit(
+                f"--prewarm wants 'P:G[,P:G...]' ints, got {part!r}")
+        buckets.append((p, g))
+    return buckets
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tiny")
     ap.add_argument("--method", default="streaming", choices=METHODS)
-    ap.add_argument("--mode", default="batch", choices=["batch"])
+    ap.add_argument("--mode", default="continuous",
+                    choices=["continuous", "batch"])
     ap.add_argument("--n", type=int, default=4)
+    ap.add_argument("--max-slots", type=int, default=8,
+                    help="continuous mode: concurrent decode lanes")
+    ap.add_argument("--stream", action="store_true",
+                    help="continuous mode: print per-block chunks as they "
+                    "commit")
+    ap.add_argument("--prewarm", default="", metavar="P:G[,P:G...]",
+                    help="continuous mode: capture these (prompt_len, "
+                    "gen_len) buckets for every gang size before serving")
+    ap.add_argument("--pad-pow2", action="store_true",
+                    help="continuous mode: snap gang sizes to powers of two "
+                    "(fewer captured shapes, pad rows cost compute)")
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--window", type=int, default=16)
     ap.add_argument("--tau0", type=float, default=0.9)
@@ -73,26 +108,53 @@ def main(argv=None):
                      tau0=args.tau0, alpha=args.alpha,
                      use_kernels=args.use_kernels,
                      fused=not args.host_loop)
-    eng = ServingEngine(cfg, params, d, mode=args.mode, device=device)
+    if args.mode == "batch":
+        eng = ServingEngine(cfg, params, d, mode="batch", device=device)
+    else:
+        eng = ContinuousEngine(cfg, params, d, max_slots=args.max_slots,
+                               pad_pow2=args.pad_pow2, device=device)
+    summary = {"arch": args.arch, "method": args.method, "mode": args.mode,
+               "device": (torch.cuda.get_device_name(device)
+                          if device.type == "cuda" else "cpu")}
+    if args.prewarm:
+        if args.mode != "continuous":
+            raise SystemExit("--prewarm needs --mode continuous")
+        summary["prewarm"] = eng.prewarm(parse_prewarm(args.prewarm))
     for prompt in make_prompts(args.n, args.seed):
         eng.submit(prompt, max_tokens=args.gen_len)
+    if args.stream and args.mode == "continuous":
+        eng.on_chunk(None, lambda ch: print(
+            f"  uid={ch.uid} block={ch.block_idx} "
+            f"{'[done] ' if ch.finished else ''}{ch.text!r}", flush=True))
     kops.reset_launches()
     t1 = time.perf_counter()
     done = eng.run_to_completion()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t2 = time.perf_counter()
-    nfe = sum(r.nfe for r in eng.results)
-    steps = [s for r in eng.results for s in r.steps_per_block]
-    summary = {
-        "arch": args.arch, "method": args.method, "mode": args.mode,
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
-        "served": len(done), "init_s": t1 - t0, "serve_s": t2 - t1,
-        "tok_s": eng.throughput, "nfe": nfe,
-        "steps_per_block": float(np.mean(steps)) if steps else 0.0,
-        "host_syncs": sum(r.host_syncs for r in eng.results),
-        "launches": dict(kops.LAUNCHES)}
+    summary.update({"served": len(done), "init_s": t1 - t0,
+                    "serve_s": t2 - t1, "tok_s": eng.throughput})
+    if args.mode == "batch":
+        steps = [s for r in eng.results for s in r.steps_per_block]
+        summary.update({
+            "nfe": sum(r.nfe for r in eng.results),
+            "steps_per_block": float(np.mean(steps)) if steps else 0.0,
+            "host_syncs": sum(r.host_syncs for r in eng.results)})
+    else:
+        # per-request sums (a gang's passes count once for each row)
+        snap = eng.metrics.snapshot()
+        summary.update({
+            "nfe": snap["total_nfe"],
+            "steps_per_block": snap["device_steps_per_block"],
+            "host_syncs": snap["total_host_syncs"],
+            "host_syncs_per_block": snap["host_syncs_per_block"],
+            "latency_p50_s": snap["latency_p50_s"],
+            "ttfb_p50_s": snap["ttfb_p50_s"],
+            "mean_occupancy": snap["mean_occupancy"],
+            "gang_merges": snap["gang_merges"],
+            "graphs": eng.graph_cache_size(),
+            "post_warm_captures": snap["post_warm_compiles"]})
+    summary["launches"] = dict(kops.LAUNCHES)
     print(json.dumps(summary))
     return summary
 

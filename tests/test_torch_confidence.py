@@ -48,19 +48,30 @@ def test_launch_plan_covers_every_column_once(N, V, dtype):
 
 
 def test_launch_plan_geometry_at_the_main_path_shapes():
-    """One wave of 4 CTAs per SM: at N = 128 rows each row splits 4 ways
-    (512 CTAs) in both dtypes and at both vocabularies; N = 32 (one
-    request) takes 15 splits, as many as give each a full pass of its
-    loads; N = 1 the same 15; a tiny vocabulary one."""
+    """One wave of 4 CTAs per SM at the main path's largest gang: at
+    N = 128 rows each row splits 4 ways (512 CTAs) in both dtypes and at
+    both vocabularies; N = 32 (one request) and N = 1 take the same 4
+    splits, since the count never depends on N; a tiny vocabulary one."""
     for dtype in DTYPES:
         for V in (126464, 152064):
             plan = kconf.launch_plan(128, V, dtype)
             assert (plan.splits, plan.grid) == (4, (128, 4))
     assert kconf.launch_plan(128, 126464, torch.bfloat16).chunk == 3952
-    assert kconf.launch_plan(32, 126464, torch.bfloat16).splits == 15
-    assert kconf.launch_plan(1, 126464, torch.bfloat16).splits == 15
-    assert kconf.launch_plan(32, 126464, torch.float32).splits == 16
+    assert kconf.launch_plan(32, 126464, torch.bfloat16).grid == (32, 4)
+    assert kconf.launch_plan(1, 126464, torch.bfloat16).splits == 4
+    assert kconf.launch_plan(32, 126464, torch.float32).splits == 4
     assert kconf.launch_plan(4, 320, torch.float32).splits == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("V", [320, 50257, 126464, 152064])
+def test_split_count_does_not_depend_on_rows(V, dtype):
+    """A row's partials merge the same way at every row count (the
+    continuous scheduler changes a gang's batch size): every N gives the
+    same splits and chunk, so the same column cuts."""
+    plans = [kconf.launch_plan(N, V, dtype) for N in (1, 32, 64, 96, 128,
+                                                    512, 1024)]
+    assert len({(p.splits, p.chunk) for p in plans}) == 1
 
 
 def _logits(N, V, seed):

@@ -2,9 +2,11 @@
 confidence kernel on strided rows, and the CUDA-graph block loop on
 ``tiny`` (against the host loop for every method, two states
 interleaved, no new capture at known shapes, launch counts under
-replay). Each kernel against its plain version at the main path's
-shapes, and llada-8b through the graphs, are checked by
-``chip_smoke.py``. Needs a CUDA card; skips without one. Imports no JAX,
+replay), and continuous serving's use of it (compacted and merged states
+on graphs of a new batch, a dkv row parked and resumed, no capture after
+``ContinuousEngine.prewarm``). Each kernel against its plain version
+at the main path's shapes, and llada-8b through the graphs, are checked
+by ``chip_smoke.py``. Needs a CUDA card; skips without one. Imports no JAX,
 so it runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
@@ -265,3 +267,136 @@ def test_graph_if_nodes_skip_after_the_loop_closes(tiny_cuda, method):
     assert graph.steps_per_block == host.steps_per_block == [3]
     assert (graph.x == host.x).all()
     assert g_launch == h_launch
+
+
+def _host_twin(tiny, state, **kw):
+    """(host-loop decoder, a deep copy of ``state``) for running the
+    same state through the per-step host loop."""
+    import copy
+    return _decoder(tiny, fused=False, **kw), copy.deepcopy(state)
+
+
+def _finish(dec, state):
+    while not state.finished:
+        dec.decode_block(state)
+    return dec.finalize(state)
+
+
+@pytest.mark.parametrize("method", ["prefix", "streaming"])
+def test_take_and_merge_rows_replay_graphs_of_a_new_batch(tiny_cuda,
+                                                          method):
+    """A compacted (B 2 -> 1) and a merged (1 + 2 -> 3) state capture and
+    replay the graphs of their new batch on its bound buffer, and give
+    the host loop's tokens and counters for the same state."""
+    import numpy as np
+    kw = dict(method=method, gen_len=32)
+    prompt = tiny_cuda[2]
+    dec = _decoder(tiny_cuda, **kw)
+    st = dec.prefill(prompt.copy())
+    dec.decode_block(st)
+    sub = dec.take_rows(st, [1])
+    assert sub.cache is dec._block_buffers(1, st.total_len).cache
+    other = dec.prefill(np.random.default_rng(5).integers(
+        0, 200, (2, 10)).astype(np.int32))
+    dec.decode_block(other)
+    merged = dec.merge_rows([(st, [0]), (other, [0, 1])])
+    for state in (sub, merged):
+        hdec, twin = _host_twin(tiny_cuda, state, **kw)
+        before = dec.graph_cache_size()
+        got, want = _finish(dec, state), _finish(hdec, twin)
+        assert dec.graph_cache_size() > before     # graphs of the new B
+        assert (got.tokens == want.tokens).all()
+        for name in COUNTERS:
+            assert getattr(got, name) == getattr(want, name), name
+        # one sync per block decoded since the state was made (it keeps
+        # its sources' step counts for the block before)
+        assert state.host_syncs == len(state.steps_per_block) - 1
+
+
+def test_dkv_row_preempted_and_resumed_through_the_graph_loop(tiny_cuda):
+    """dkv's one ``take_rows`` path: a row parked off-slot carries its
+    gathered KV and masks, stays bit-stable while its old gang decodes
+    on, and resumes through the graph loop with the host loop's tokens
+    and counters for the same state."""
+    kw = dict(method="dkv", gen_len=32)
+    dec = _decoder(tiny_cuda, **kw)
+    st = dec.prefill(tiny_cuda[2].copy())
+    dec.decode_block(st)
+    sub = dec.take_rows(st, [1], alloc_cache=False)
+    assert sub.cache is not None and sub.cache is not st.cache
+    snap = [t.clone() for kv in sub.cache for t in kv]
+    _finish(dec, st)                       # the old gang decodes on
+    assert all(torch.equal(a, b) for a, b in
+               zip(snap, [t for kv in sub.cache for t in kv]))
+    hdec, twin = _host_twin(tiny_cuda, sub, **kw)
+    got, want = _finish(dec, sub), _finish(hdec, twin)
+    assert (got.tokens == want.tokens).all()
+    for name in COUNTERS:
+        assert getattr(got, name) == getattr(want, name), name
+
+
+def test_prewarm_leaves_no_capture_after_it(tiny_cuda):
+    """``ContinuousEngine.prewarm`` captures every (bucket, gang size,
+    block) graph; serving a script with a preempt, a cancel and two
+    buckets afterwards captures none, one sync per block."""
+    from repro_torch.core.decoder import DecodeConfig
+    from repro_torch.serving import ContinuousEngine
+    cfg, params, prompt = tiny_cuda
+    eng = ContinuousEngine(cfg, params, DecodeConfig(**{
+        **_BASE, "gen_len": 24, "early_exit": False}), max_slots=2,
+        device="cuda")
+    rep = eng.prewarm([(10, 24), (10, 8)])
+    # on the card every gang runs at one size (batch_multiple = max_gang)
+    assert rep["graphs"] == 3 + 1 and rep["batch_sizes"] == [2]
+    uids = [eng.submit(prompt[i % 2], max_tokens=24 if i < 3 else 8)
+            for i in range(5)]
+    eng.step()
+    eng.preempt(uids[0])
+    eng.step()
+    eng.cancel(uids[1])
+    done = eng.run_to_completion()
+    snap = eng.metrics.snapshot()
+    assert snap["post_warm_compiles"] == 0 and snap["prewarmed"] == 1
+    assert snap["requests"] == 5 and snap["cancelled"] == 1
+    assert snap["host_syncs_per_block"] == 1.0
+    assert all((c.tokens != cfg.mask_token_id).all() for c in done)
+
+
+def test_card_gangs_run_at_one_size(tiny_cuda):
+    """No decoder is batch-invariant on the card (cuBLAS picks its GEMM
+    by row count, ROADMAP C 1), so the scheduler there defaults to
+    ``batch_multiple = max_gang``: every gang, a resumed row's too, runs
+    at that one size, stragglers still merge, and a preempted row ends
+    with the tokens of an uninterrupted decode. An explicit
+    ``batch_multiple=1`` gives gangs that keep their admitted batch: a
+    gang with a freed lane does not compact, and nothing merges."""
+    from repro_torch.core.decoder import DecodeConfig
+    from repro_torch.serving import BlockScheduler
+    cfg, params, prompt = tiny_cuda
+    d = DecodeConfig(**{**_BASE, "gen_len": 24, "early_exit": False})
+    assert not _decoder(tiny_cuda).batch_invariant
+    assert not _decoder(tiny_cuda, method="dkv").batch_invariant
+
+    def run(preempt, **kw):
+        s = BlockScheduler(cfg, params, d, max_slots=4, max_gang=2,
+                           device="cuda", **kw)
+        for i in range(3):
+            s.submit(prompt[i % 2], 24, 24)
+        sizes, done, tick = set(), [], 0
+        while not s.idle:
+            done += s.tick()[1]
+            sizes |= {(g.batch, len(g.live_rows())) for g in s.gangs}
+            if tick == 0 and preempt:
+                s.preempt(1)
+            tick += 1
+        return s, sizes, {c.uid: c.tokens for c in done}
+
+    s, sizes, toks = run(True)
+    assert s.batch_multiple == 2 and {b for b, _ in sizes} == {2}
+    assert s.merges >= 1
+    _, _, want = run(False)
+    assert sorted(toks) == sorted(want) == [1, 2, 3]
+    assert all((toks[u] == want[u]).all() for u in want)
+    s, sizes, _ = run(True, batch_multiple=1)
+    assert s.batch_multiple == 1 and s.merges == 0
+    assert (2, 1) in sizes                  # a freed lane, not compacted

@@ -206,7 +206,8 @@ def test_batch_engine_serves_a_queue():
 def test_serve_cli_on_cpu():
     from repro_torch.launch import serve
     out = serve.main(["--arch", "tiny", "--device", "cpu", "--dtype",
-                      "float32", "--n", "3", "--gen-len", "16"])
+                      "float32", "--n", "3", "--gen-len", "16", "--mode",
+                      "batch"])
     assert out["served"] == 3 and out["nfe"] > 0
     assert out["launches"] == {"block_attention": 0, "confidence_argmax": 0}
     assert out["host_syncs"] == 2             # one batch of two blocks
@@ -233,13 +234,22 @@ def test_unported_paths_raise(kw, item):
 
 
 def test_unported_engine_paths_raise():
+    """Continuous serving is ported (ROADMAP A6); what it does not have
+    yet raises naming its item: stealing and handoff (A10), executor
+    placement (A11), the prefix cache (A7), the auditor (A9)."""
+    from repro_torch.serving import BlockScheduler, ContinuousEngine
     d = DecodeConfig(**BASE)
-    with pytest.raises(NotImplementedError, match="A6"):
-        ServingEngine(CFG, PARAMS, d, mode="continuous", device="cpu")
-    dec = DiffusionDecoder(CFG, PARAMS, d, device="cpu")
-    st = dec.prefill(PROMPT.copy())
-    with pytest.raises(NotImplementedError, match="A6"):
-        dec.take_rows(st, [0])
+    eng = ContinuousEngine(CFG, PARAMS, d, device="cpu")
+    for call, item in ((eng.scheduler.steal_waiting, "A10"),
+                       (eng.scheduler.take_handoffs, "A10"),
+                       (lambda: eng.attach_auditor(object()), "A9")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+    for kw, item in ((dict(executor=object()), "A11"),
+                     (dict(prefill_only=True), "A10"),
+                     (dict(prefix_cache=object()), "A7")):
+        with pytest.raises(NotImplementedError, match=item):
+            BlockScheduler(CFG, PARAMS, d, device="cpu", **kw)
 
 
 def test_cuda_decoder_requires_kernels():
