@@ -8,28 +8,31 @@ package. Phases, each printing JSON lines:
 
 1. device   — card name and power limit (nvidia-smi), torch/CUDA versions.
 2. build    — builds the CUDA sources of ``src/repro_torch/kernels/csrc``
-              with nvcc (the port's two kernel libraries, the CUDA-graph
-              block loop's library and two probe builds of each kernel,
-              in parallel; ptxas registers and spills per kernel).
+              with nvcc (the port's kernel libraries: attention,
+              confidence, the GEMM and the CUDA-graph block loop, and two
+              probe builds of each TPU kernel's port, in parallel; ptxas
+              registers and spills per kernel).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the main path's shapes and at small edge cases, with its
               time, the plain version's, the library call's and the bound;
               at the timed shapes also the first port's simple attention
               kernel, in turns with the new one; the confidence kernel as
               its rows grow from 32 to 512; then the LM-head path of a
-              denoise step as a unit, against the plain route.
+              denoise step as a unit, against the plain route; then the
+              GEMM at every product of a llada-8b denoise step at
+              B = 1..8, at a refresh and at the LM head, against its
+              plain version, cuBLAS and its bound.
 4. probe    — the bf16 attention kernel against its load path alone and
               its math alone, at the timed shapes.
 5. reference — ``tiny`` (float32) on the card through the kernels against
               the plain path on the CPU: model logits and decode tokens;
               then llada-8b at full width, 2 layers, bf16, through the
               kernels against ``attend_ref`` on the card.
-6. invariance — the same row at B = 1..4, llada-8b at full width cut to
-              2 layers, bf16: bit for bit after every attention and FFN,
-              in the head logits and the confidence kernel's outputs, and
-              in whole decodes; it fails nothing: it shows the fault
-              (ROADMAP C 1) for which the continuous phase runs every
-              gang at one size.
+6. invariance — the same row at B = 1..8 (first and last in its batch),
+              llada-8b at full width cut to 2 layers, bf16: bit for bit
+              after every attention and FFN, in the head logits and the
+              confidence kernel's outputs, and in whole decodes at
+              B = 1..4; any difference fails the run.
 7. methods  — llada-8b at full width cut to 2 layers (bf16, random
               weights), gen_len 64: every method and frozen_suffix on the
               CUDA-graph block loop against the per-step host loop:
@@ -47,12 +50,19 @@ package. Phases, each printing JSON lines:
               same block through the host loop for comparison.
 10. continuous — ``ContinuousEngine`` at llada-8b full width and depth on
               the serve phase's weights: prewarm, then a scripted mix of
-              arrivals, a preempt and a cancel, timed; against the same
-              script through the host loop and against batch mode, gangs
-              at one size (``phase_continuous``, ``continuous_script``).
+              arrivals, a preempt and a cancel, timed, with gangs of
+              several sizes that compact and merge; against the same
+              script through the host loop and against each request
+              decoded alone (``phase_continuous``, ``continuous_script``).
+11. prefix_cache — the same model with the prefix cache: cold against
+              warm prefill of prompts sharing a 192-token prefix, then two
+              waves through ``ContinuousEngine`` at gang sizes 1, 2 and 4
+              with a preempt and resume, each request equal to its cold
+              decode bit for bit (``phase_prefix_cache``).
 
 Then the kernels summary line (launches counted
-on the continuous phase's timed run), the nvidia-smi line and, last, the device
+on the continuous phase's timed run; the GEMM has no TPU kernel behind
+it, and its line names the reference's XLA product it stands for), the nvidia-smi line and, last, the device
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no result.
 """
@@ -84,7 +94,7 @@ from repro_torch.core.decoder import (DecodeConfig,  # noqa: E402
 from repro_torch.core.engine import ServingEngine  # noqa: E402
 from repro_torch.data.tokenizer import ByteTokenizer  # noqa: E402
 from repro_torch.kernels import block_attention as kba  # noqa: E402
-from repro_torch.kernels import build, confidence, ops, ref  # noqa: E402
+from repro_torch.kernels import build, confidence, gemm, ops, ref  # noqa: E402
 from repro_torch.models import apply_model, get_config, init_params  # noqa: E402
 from repro_torch.models.model import init_cache, params_to  # noqa: E402
 
@@ -587,6 +597,120 @@ def phase_kernels():
     return step, conf
 
 
+# ------------------------------------------------------------------ GEMM
+
+# llada-8b's products per layer of a pass, as (name, K, N, count): q, k, v
+# and o; gate and up; down. The LM head is (4096, 126464), once a step.
+LLADA_PRODUCTS = (("qkvo", 4096, 4096, 4), ("gate_up", 4096, 12288, 2),
+                  ("down", 12288, 4096, 1))
+LLADA_HEAD = (4096, 126464)
+
+
+def bf16_ulp(v):
+    """The spacing of bfloat16 numbers at |v| (8 significant bits)."""
+    e = torch.frexp(v.abs().float())[1]
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def gemm_close(y, x, w):
+    """(ok, max |y - ref|) of the kernel's y against the plain float32
+    product ``ref``. float32: max |y - ref| <= 2e-5 * max |ref| (another
+    summation order). bfloat16: within one bf16 ulp of ref rounded to
+    bf16, the ulp taken at the larger of |ref| and 2^-10 * max |ref| (a
+    sum that cancels to nearly 0 is held to its terms' float32 order
+    error, not to the spacing at 0)."""
+    want = ref.gemm_ref(x, w).float()
+    full = x.float() @ w.float()
+    err = (y.float() - full).abs().max().item()
+    scale = full.abs().max()
+    if y.dtype == torch.float32:
+        return bool(err <= 2e-5 * scale.item()), err
+    tol = bf16_ulp(torch.maximum(full.abs(), scale * 2.0 ** -10))
+    return bool(((y.float() - want).abs() <= tol).all()), err
+
+
+def gemm_bound(M, K, N, dtype):
+    """The least time for (M, K) @ (K, N): x and W read once, y written
+    once, against 2 M K N operations at the dense peak of ``dtype``."""
+    es = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (M * K + K * N + M * N) * es / HBM_BYTES_S
+    t_ops = 2 * M * K * N / PEAK_OPS_S[str(dtype).split(".")[-1]]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def check_gemm(name, M, K, N, dtype=torch.bfloat16, *, plain=False):
+    """The GEMM kernel through ``ops.gemm`` against its plain version on
+    the same inputs (``gemm_close``), then device time beside one
+    ``torch.matmul`` (cuBLAS, the library call; the port never makes it),
+    in turns (kernel, library, library, kernel), on inputs cycled past
+    the L2, and the bound; ``plain`` also times the plain version."""
+
+    def make(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return (torch.randn((M, K), generator=g, device="cuda").to(dtype),
+                (torch.randn((K, N), generator=g, device="cuda")
+                 / math.sqrt(K)).to(dtype))
+
+    x, w = make(0)
+    y = ops.gemm(x, w)
+    torch.cuda.synchronize()
+    ok, err = gemm_close(y, x, w)
+    sets = [make(s) for s in range(n_copies(nbytes(x, w)))]
+    t_k, t_l = time_ms(ops.gemm, sets), time_ms(torch.matmul, sets)
+    t_l2, t_k2 = time_ms(torch.matmul, sets), time_ms(ops.gemm, sets)
+    bound, by = gemm_bound(M, K, N, dtype)
+    plan = gemm.launch_plan(N, K, dtype)
+    rec = {"phase": "kernels", "kernel": "gemm", "route": "cuda",
+           "case": name, "shape": {"M": M, "K": K, "N": N},
+           "dtype": str(dtype).split(".")[-1],
+           "plan": {"block": [plan.block_m, plan.block_n, plan.block_k],
+                    "stages": plan.stages, "grid": list(plan.grid(M))},
+           "max_abs_err": err, "ok": ok,
+           "kernel_ms": (t_k + t_k2) / 2, "library_ms": (t_l + t_l2) / 2,
+           "kernel_ms_turns": [t_k, t_k2], "library_ms_turns": [t_l, t_l2],
+           "bound_ms": bound, "bound_by": by}
+    rec["bound_share"] = bound / rec["kernel_ms"]
+    if plain:
+        rec["plain_ms"] = time_ms(ref.gemm_ref, sets)
+    emit(rec)
+    del sets
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"gemm {name}: kernel disagrees with plain "
+                             f"(max err {err})")
+    return rec
+
+
+def phase_gemm():
+    """The GEMM kernel at the main path's shapes (llada-8b, bf16): each
+    product of a denoise step (Sq = 129 rows a request) at B = 1..8, the
+    same products at a middle block's refresh (B = 4, prefix 256 + 129),
+    and the LM head of a step (32 rows a request) at B = 1 and 4; then
+    float32 (the ``tiny`` config's route) at a small shape. Per B, the
+    step's 32 layers of products summed: kernel, cuBLAS and bound."""
+    layers = get_config("llada-8b").n_layers
+    for B in range(1, 9):
+        tot = {"kernel_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for name, K, N, count in LLADA_PRODUCTS:
+            rec = check_gemm(f"step_B{B}_{name}", 129 * B, K, N,
+                             plain=(B == 4 and name == "gate_up"))
+            if B == 4 and name == "gate_up":
+                main = rec
+            for k in tot:
+                tot[k] += layers * count * rec[k]
+        emit({"phase": "kernels", "kernel": "gemm", "case": f"step_B{B}",
+              "per_step_all_layers": tot, "layers": layers})
+    for name, K, N, _ in LLADA_PRODUCTS:
+        check_gemm(f"refresh_B4_{name}", 4 * (256 + 129), K, N)
+    for B in (1, 4):
+        check_gemm(f"head_B{B}", 32 * B, *LLADA_HEAD)
+    check_gemm("f32_tiny_ffn", 2 * 13, 256, 768, torch.float32)
+    check_gemm("f32_ragged", 37, 72, 40, torch.float32)
+    check_gemm("bf16_ragged", 37, 72, 40)
+    return main
+
+
 # ------------------------------------------------------------------ model
 
 def phase_reference():
@@ -707,19 +831,18 @@ def phase_reference_llada():
 
 
 def phase_invariance(prompts):
-    """Batch invariance on the card: the same row 0 at B = 1, 2, 3, 4
-    (rows 1.. are other prompts), llada-8b at full width cut to 2 layers,
-    bf16, through the kernels. For a refresh pass (encode of the whole
-    384-token buffer) and a denoise step (Sq = 129 over the cache valid
-    to a middle block start) it compares row 0 bit for bit against B = 1
-    after every attention, after every FFN, in the head logits of the
-    block (the bf16 GEMM output) and in the confidence kernel's conf/idx
-    on them. Then the confidence kernel alone: the same 32 rows of
-    logits reduced as N = 32 and inside N = 128. Last, whole decodes
-    (streaming, gen_len 64) of the same prompt at B = 1..4 through the
-    graph loop: row 0's tokens and commit confidences. It raises
-    nothing: it shows the fault (ROADMAP C 1) for which the scheduler
-    runs every gang at one size on the card."""
+    """Batch invariance on the card, held bit for bit (it raises on any
+    difference): llada-8b at full width cut to 2 layers, bf16, through
+    the kernels. For a refresh pass (encode of the whole 384-token
+    buffer) and a denoise step (Sq = 129 over the cache valid to a middle
+    block start), a reference row at B = 1 against the same row at slot 0
+    and at slot B - 1 of a batch of B = 2..8 (the other rows random):
+    every attention and FFN output, the head logits of the block (the
+    GEMM's bf16 output) and the confidence kernel's conf/idx on them.
+    Then the confidence kernel alone: the same rows reduced as N = 1, 32
+    and 128. Then whole decodes (streaming, gen_len 64, the graph loop) of a
+    prompt at B = 1..4, first and last in its batch: tokens and commit
+    confidences."""
     from repro_torch.models import model as model_mod
     cfg = get_config("llada-8b", dtype="bfloat16", param_dtype="bfloat16",
                      n_layers=2, reps=0)
@@ -728,7 +851,7 @@ def phase_invariance(prompts):
     T, Sq = PROMPT_LEN + GEN_LEN, BLOCK + WINDOW + 1
     mid = PROMPT_LEN + (GEN_LEN // BLOCK // 2) * BLOCK
     rng = np.random.default_rng(SEED + 4)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size - 2, (4, T))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size - 2, (8, T))
                             .astype(np.int32)).cuda()
     qpos = (mid + torch.arange(Sq, dtype=torch.int32, device="cuda"))
     head = params["lm_head"]
@@ -738,24 +861,27 @@ def phase_invariance(prompts):
 
     def rec_attn(*a, **kw):
         out = orig[0](*a, **kw)
-        seen.append(("attn", (out[0] if isinstance(out, tuple) else out)[0]))
+        seen.append(("attn", out[0] if isinstance(out, tuple) else out))
         return out
 
     def rec_ffn(*a, **kw):
         out = orig[1](*a, **kw)
-        seen.append(("ffn", out[0]))
+        seen.append(("ffn", out))
         return out
 
-    def one_pass(B, kind):
+    def one_pass(B, kind, slot):
+        """The named outputs of the reference row, sitting at ``slot``."""
+        batch = toks[:B].clone()
+        batch[slot] = toks[0]
         seen.clear()
         pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
         cache = init_cache(cfg, B, T, "cuda")
-        out = apply_model(cfg, params, tokens=toks[:B], positions=pos.expand(
+        out = apply_model(cfg, params, tokens=batch, positions=pos.expand(
             B, T), cache=cache, skip_head=True, use_kernels=True)
         blk = slice(mid, mid + BLOCK)
         if kind == "step":
             seen.clear()
-            out = apply_model(cfg, params, tokens=toks[:B, T - Sq:],
+            out = apply_model(cfg, params, tokens=batch[:, T - Sq:],
                               positions=qpos[None].expand(B, Sq),
                               mode="step", cache=cache,
                               kv_valid=torch.full((B,), mid, dtype=torch.int32,
@@ -763,65 +889,78 @@ def phase_invariance(prompts):
                               skip_head=True, use_kernels=True)
             blk = slice(0, BLOCK)
         hid = out.logits[:, blk].reshape(-1, cfg.d_model)
-        logits = hid @ head
+        logits = ops.linear(hid, head)
         conf, idx = ops.confidence_argmax(logits, mask_id=mask_id)
-        rows = {f"{n}{i // 2}": t.clone() for i, (n, t) in enumerate(seen)}
-        rows["head_logits"] = logits[:BLOCK].clone()
-        rows["conf"], rows["idx"] = conf[:BLOCK].clone(), idx[:BLOCK].clone()
-        return rows
+        rows = slice(slot * BLOCK, (slot + 1) * BLOCK)
+        got = {f"{n}{i // 2}": t[slot].clone()
+               for i, (n, t) in enumerate(seen)}
+        got["head_logits"] = logits[rows].clone()
+        got["conf"], got["idx"] = conf[rows].clone(), idx[rows].clone()
+        return got
 
     model_mod.apply_attention, model_mod.apply_ffn = rec_attn, rec_ffn
     rec = {"phase": "invariance", "arch": "llada-8b", "layers": 2,
-           "cut": "n_layers 32 -> 2"}
+           "cut": "n_layers 32 -> 2", "batch_sizes": list(range(1, 9))}
+    ok = True
     try:
         with torch.no_grad():
             for kind in ("refresh", "step"):
-                ref_rows = one_pass(1, kind)
-                res = {}
-                for B in (2, 3, 4):
-                    got = one_pass(B, kind)
-                    res[B] = {k: (bool(torch.equal(got[k], v)),
-                                  (got[k].float() - v.float()).abs().max()
-                                  .item()) for k, v in ref_rows.items()}
-                rec[kind] = {k: {"bit_equal_at_B": [res[B][k][0]
-                                                    for B in (2, 3, 4)],
-                                 "max_abs_diff": max(res[B][k][1]
-                                                     for B in (2, 3, 4))}
-                             for k in ref_rows}
+                want = one_pass(1, kind, 0)
+                diff = {k: 0.0 for k in want}
+                equal = {k: True for k in want}
+                for B in range(2, 9):
+                    for slot in (0, B - 1):
+                        got = one_pass(B, kind, slot)
+                        for k, v in want.items():
+                            equal[k] &= bool(torch.equal(got[k], v))
+                            diff[k] = max(diff[k], (got[k].float() - v.float())
+                                          .abs().max().item())
+                rec[kind] = {k: {"bit_equal": equal[k],
+                                 "max_abs_diff": diff[k]} for k in want}
+                ok = ok and all(equal.values())
     finally:
         model_mod.apply_attention, model_mod.apply_ffn = orig
+    # the confidence kernel alone: the same rows reduced as N = 1, 32, 128
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     x = (torch.randn((128, 126464), generator=g, device="cuda") * 4).to(
         torch.bfloat16)
     c128, i128 = ops.confidence_argmax(x, mask_id=mask_id)
     c32, i32 = ops.confidence_argmax(x[:32].contiguous(), mask_id=mask_id)
-    c1, _ = ops.confidence_argmax(x[:1].contiguous(), mask_id=mask_id)
+    c1, i1 = ops.confidence_argmax(x[:1].contiguous(), mask_id=mask_id)
     rec["confidence_kernel"] = {
         "splits": {N: confidence.launch_plan(N, 126464, torch.bfloat16)
                    .splits for N in (1, 32, 128)},
-        "conf_bit_equal_32_vs_128": bool(torch.equal(c32, c128[:32])),
-        "conf_bit_equal_1_vs_128": bool(torch.equal(c1, c128[:1])),
-        "idx_equal_32_vs_128": bool(torch.equal(i32, i128[:32])),
-        "conf_max_abs_diff": (c32 - c128[:32]).abs().max().item()}
+        "bit_equal_32_vs_128": bool(torch.equal(c32, c128[:32])
+                                    and torch.equal(i32, i128[:32])),
+        "bit_equal_1_vs_128": bool(torch.equal(c1, c128[:1])
+                                   and torch.equal(i1, i128[:1]))}
+    ok = (ok and rec["confidence_kernel"]["bit_equal_32_vs_128"]
+          and rec["confidence_kernel"]["bit_equal_1_vs_128"])
     dcfg = DecodeConfig(method="streaming", gen_len=64, block_size=BLOCK,
                         window=WINDOW, use_kernels=True)
     dec = DiffusionDecoder(cfg, params, dcfg, device="cuda")
     runs = {}
     for B in (1, 2, 3, 4):
-        r = dec.generate(prompts[:B].copy())
-        runs[B] = (r.tokens[0], np.concatenate(
-            [s.commit_conf[0] for s in r.block_stats]))
-    rec["decode_row0"] = {
-        "tokens_equal_at_B": [bool((runs[B][0] == runs[1][0]).all())
-                              for B in (2, 3, 4)],
-        "commit_conf_bit_equal_at_B": [bool((runs[B][1] == runs[1][1]).all())
-                                       for B in (2, 3, 4)]}
-    rec["batch_invariant"] = (all(rec["decode_row0"]["tokens_equal_at_B"])
-                              and all(rec["decode_row0"]
-                                      ["commit_conf_bit_equal_at_B"]))
+        for slot in sorted({0, B - 1}):
+            order = [i for i in range(1, 4)][:B - 1]
+            order.insert(slot, 0)
+            r = dec.generate(prompts[order].copy())
+            runs[(B, slot)] = (r.tokens[slot], np.concatenate(
+                [s.commit_conf[slot] for s in r.block_stats]))
+    base = runs[(1, 0)]
+    rec["decode"] = {f"B{B}_slot{slot}": {
+        "tokens_equal": bool((t == base[0]).all()),
+        "commit_conf_bit_equal": bool((c == base[1]).all())}
+        for (B, slot), (t, c) in runs.items()}
+    ok = ok and all(v["tokens_equal"] and v["commit_conf_bit_equal"]
+                    for v in rec["decode"].values())
+    rec["batch_invariant"] = rec["ok"] = ok
     emit(rec)
     del dec, params
     torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("invariance phase: a row's bits change with "
+                             "the batch on the card")
     return rec
 
 
@@ -1011,23 +1150,28 @@ SHORT = 96                     # the second gen_len bucket (3 blocks)
 # the script's requests: name -> (prompt index, max_tokens)
 SCRIPT = {"A0": (0, GEN_LEN), "A1": (1, GEN_LEN), "A2": (2, GEN_LEN),
           "A3": (3, GEN_LEN), "B0": (4, SHORT), "B1": (5, SHORT),
-          "C0": (6, GEN_LEN), "C1": (7, GEN_LEN)}
+          "C0": (6, GEN_LEN), "C1": (7, GEN_LEN), "C2": (8, GEN_LEN)}
+# PR 15's continuous phase on the same script less C2, every gang at one
+# size (chip call 4 of PR 15, H100 80GB HBM3, 700 W)
+PR15_CONTINUOUS = {"tok_s": 154.6, "mean_occupancy": 0.629,
+                   "ttfb_p50_s": 0.907}
 
 
 def continuous_script(eng, prompts):
     """The continuous phase's submission script, one tick at a time.
     Tick 0: A0-A3 (256 tokens) and B0, B1 (96 tokens, a second bucket and
-    decoder) are submitted; admission makes gang G1 = A0-A3 and gang
-    G2 = B0, B1 (+ pads). After tick 1: preempt A1 (extracted at tick
-    2's block boundary, at block 3). G2 ends at tick 2; its freed slots
-    take A1 back at once (backfill), as its own gang at block 3. After
-    tick 2: submit C0, C1 (256 tokens; they wait). Tick 3: A1's gang and
-    G1 sit at the same (bucket, block 3) and merge (cross-gang merge);
-    the freed slots admit C0, C1 (backfill), so two live gangs of one
-    (B, T) run at different blocks (3 and 0). After tick 3: cancel A2
-    (released at tick 4's block boundary). Returns (trace, completions,
-    uids): the trace holds (batch, total length, next block, lane uids)
-    of every gang after every tick."""
+    decoder) are submitted; admission makes gang G1 = A0-A3 (B = 4) and
+    gang G2 = B0, B1 (B = 2). After tick 1: preempt A1 (extracted at tick
+    2's block boundary, at block 3: G1 compacts to B = 3). G2 ends at
+    tick 2; A1 comes back at once (backfill), as its own gang (B = 1) at
+    block 3. After tick 2: submit C0-C2 (256 tokens). Tick 3: A1's gang
+    and G1 sit at the same (bucket, block 3) and merge (cross-gang merge,
+    B = 4); the free slots admit C0-C2 (backfill, B = 3). After tick 3:
+    cancel A2 (released at tick 4's block boundary: the merged gang
+    compacts to B = 3), so two live gangs of one (B, T) run at different
+    blocks (4 and 1). Returns (trace, completions, uids): the trace holds
+    (batch, total length, next block, lane uids) of every gang after
+    every tick."""
     uids = {}
 
     def submit(name):
@@ -1046,8 +1190,8 @@ def continuous_script(eng, prompts):
         if tick == 1:
             eng.preempt(uids["A1"])
         elif tick == 2:
-            submit("C0")
-            submit("C1")
+            for name in ("C0", "C1", "C2"):
+                submit(name)
         elif tick == 3:
             got = eng.cancel(uids["A2"])
             if got is not None:
@@ -1061,33 +1205,31 @@ def phase_continuous(cfg, params, invariance):
     phase's weights), streaming, gen_len 256 / block 32 / window 96,
     ``max_slots=8, max_gang=4``, driven by ``continuous_script``.
 
-    Gang size: a row's bits change with the batch size on the card
-    (ROADMAP C 1; the invariance phase's finding is printed beside), so
-    no decoder there is batch-invariant and the scheduler runs every
-    gang at one size by default, ``batch_multiple = max_gang = 4`` (pad
-    lanes replicate a row): every pass sees one GEMM row count, and a
-    gang never compacts to a smaller batch. The phase uses that default
-    and checks it.
+    Gang size: the decoder is batch-invariant on the card (the products
+    run through the GEMM kernel; the invariance phase holds it bit for
+    bit), so the scheduler's default forms gangs of every size, compacts
+    them as rows leave and merges stragglers. The phase uses that
+    default and checks it, beside PR 15's numbers at one gang size.
 
     First ``prewarm`` captures every (bucket, gang size, block) graph,
     then the script runs timed. Checks: no capture after prewarm; one
     host sync per gang block; no [MASK] in a completion and finite
     commit confidences; the cancelled request's partial completion; the
-    preempted request resumed at the block it left; the same script
-    through the host loop (``fused=False``) gives the same tokens, NFE,
-    blocks, completion order and gangs tick by tick; every uncancelled
-    request equals, token for token, a batch-mode decode of its prompt
-    at the gang size the phase ran at (pads replicate a prompt): at one
-    size no near-tie is excused. Device idle share over the timed run is
-    one minus the CUDA-event span of every ``decode_block`` call over
-    the run's wall; host time of a graph replay is timed around the
-    launch call, without the profiler."""
+    preempted request resumed at the block it left; gangs of several
+    sizes, a compaction and a merge; the same script through the host
+    loop (``fused=False``) gives the same tokens, NFE, blocks,
+    completion order and gangs tick by tick; every uncancelled request
+    equals, token for token and in its commit confidences, a batch-mode
+    decode of its prompt alone (B = 1); no near-tie is excused. Device
+    idle share over the timed run is one minus the CUDA-event span of
+    every ``decode_block`` call over the run's wall; host time of a graph
+    replay is timed around the launch call, without the profiler."""
     from repro_torch.core import graph_loop
     from repro_torch.serving import ContinuousEngine
     from repro_torch.serving.metrics import percentile
     dcfg = DecodeConfig(method="streaming", gen_len=GEN_LEN, block_size=BLOCK,
                         window=WINDOW, use_kernels=True)
-    prompts = make_prompts(8, SEED + 7)
+    prompts = make_prompts(len(SCRIPT), SEED + 7)
     tok = ByteTokenizer(cfg.vocab_size)
 
     def engine(d):
@@ -1100,10 +1242,7 @@ def phase_continuous(cfg, params, invariance):
     mode = {"batch_multiple": eng.scheduler.batch_multiple,
             "decoder_batch_invariant": eng.scheduler.decoder_for(
                 GEN_LEN).batch_invariant,
-            "invariance_phase_found_invariant": invariance,
-            "why": "a row's bits change with the batch size on the card "
-                   "(cuBLAS GEMMs per row count, ROADMAP C 1), so the "
-                   "scheduler runs every gang at one size"}
+            "invariance_phase_found_invariant": invariance}
     print(json.dumps({"phase": "continuous_mode", **mode}), flush=True)
     t0 = time.perf_counter()
     warm = eng.prewarm([(PROMPT_LEN, GEN_LEN), (PROMPT_LEN, SHORT)])
@@ -1167,37 +1306,28 @@ def phase_continuous(cfg, params, invariance):
                == [c.uid for c in hcomps],
                "requests_identical": summary(comps) == summary(hcomps)}
 
-    # batch mode on the same prompts, at the gang size the phase ran at:
-    # each bucket's requests in batches of MAX_GANG, the last one padded
-    # with repeats of its prompts
-    beng = ServingEngine(cfg, params, dcfg, max_batch=MAX_GANG, mode="batch",
+    # batch mode on the same prompts, each request alone (B = 1); the
+    # wall includes the capture of its graphs
+    beng = ServingEngine(cfg, params, dcfg, max_batch=1, mode="batch",
                          device="cuda")
     keep = [n for n in SCRIPT if not by_uid[uids[n]].cancelled]
-    order = []
-    for mt in (GEN_LEN, SHORT):
-        names = [n for n in keep if SCRIPT[n][1] == mt]
-        for i in range(0, len(names), MAX_GANG):
-            part = names[i:i + MAX_GANG]
-            order += [part[j % len(part)] for j in range(MAX_GANG)]
-
-    def batch_run():
-        sub = {}
-        for n in order:
-            i, mt = SCRIPT[n]
-            sub.setdefault(n, beng.submit(prompts[i], max_tokens=mt))
-        done = {c.uid: c for c in beng.run_to_completion()}
-        return {n: done[u] for n, u in sub.items()}
-
-    batch = batch_run()                       # captures its graphs
-    torch.cuda.synchronize()
     t3 = time.perf_counter()
-    batch_run()
+    name_of_b = {beng.submit(prompts[SCRIPT[n][0]],
+                             max_tokens=SCRIPT[n][1]): n for n in keep}
+    batch = {}
+    while True:
+        got = beng.step()                     # one batch of one request
+        if not got:
+            break
+        res = beng.results[-1]
+        batch[name_of_b[got[0].uid]] = (got[0].tokens, np.concatenate(
+            [bs.commit_conf[0] for bs in res.block_stats]))
     torch.cuda.synchronize()
     batch_wall = time.perf_counter() - t3
-    batch_tokens = sum(int(c.tokens.shape[0]) for c in batch.values())
-
-    vs_batch = {n: bool(np.array_equal(by_uid[uids[n]].tokens,
-                                       batch[n].tokens)) for n in keep}
+    vs_batch = {n: bool(np.array_equal(by_uid[uids[n]].tokens, batch[n][0])
+                        and np.array_equal(by_uid[uids[n]].commit_conf,
+                                           batch[n][1]))
+                for n in keep}
 
     a1, a2 = by_uid[uids["A1"]], by_uid[uids["A2"]]
 
@@ -1207,10 +1337,12 @@ def phase_continuous(cfg, params, invariance):
             blocks.setdefault((B, T), set()).add(blk)
         return any(len(v) >= 2 for v in blocks.values())
 
-    # at one gang size nothing compacts to a smaller batch, so the
-    # script is not asked to reach a compaction
+    a0_sizes = [g[0] for t in trace for g in t if uids["A0"] in g[3]]
+    gang_sizes = sorted({g[0] for t in trace for g in t})
     reached = {
         "merge": snap["gang_merges"] >= 1,
+        "compaction": any(b < a for a, b in zip(a0_sizes, a0_sizes[1:])),
+        "several_gang_sizes": len(gang_sizes) > 1,
         # A1 back in a gang of its own at the block its old gang is at
         "resumed_row": any(g[3][0] == uids["A1"] and not any(g[3][1:])
                            and any(h[2] == g[2] and uids["A0"] in h[3]
@@ -1222,6 +1354,7 @@ def phase_continuous(cfg, params, invariance):
     rec = {"phase": "continuous", "arch": cfg.name, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "method": dcfg.method, **mode,
            "max_slots": MAX_SLOTS, "max_gang": MAX_GANG,
+           "gang_sizes": gang_sizes, "pr15_one_gang_size": PR15_CONTINUOUS,
            "buckets": warm["buckets"], "prewarm_batch_sizes":
            warm["batch_sizes"], "graphs": eng.graph_cache_size(),
            "prewarm_s": prewarm_s, "capture_s": capture_s,
@@ -1249,11 +1382,10 @@ def phase_continuous(cfg, params, invariance):
                "n_tokens": c.n_tokens, "nfe": c.nfe, "n_blocks": c.n_blocks,
                "cancelled": c.cancelled} for c in comps},
            "vs_host_loop": {**vs_host, "host_wall_s": host_wall},
-           "vs_batch_mode": vs_batch,
-           "batch_mode": {"wall_s": batch_wall,
-                          "tok_s": batch_tokens / batch_wall,
-                          "graphs": sum(d.graph_cache_size() for d in
-                                        beng._decoders.values())}}
+           "vs_batch_mode_b1": vs_batch,
+           "batch_mode_b1": {"wall_s_with_captures": batch_wall,
+                             "graphs": sum(d.graph_cache_size() for d in
+                                           beng._decoders.values())}}
     checks = {
         "no_capture_after_prewarm": rec["post_warm_captures"] == 0,
         "one_sync_per_gang_block": rec["host_syncs_per_block"] == 1.0
@@ -1268,10 +1400,9 @@ def phase_continuous(cfg, params, invariance):
         "preempted_resumed": (not a1.cancelled and a1.n_blocks
                               == GEN_LEN // BLOCK and "A1" in vs_batch),
         "graph_loop_equals_host_loop": all(vs_host.values()),
-        "one_gang_size": mode["batch_multiple"] == MAX_GANG
-        and not mode["decoder_batch_invariant"]
-        and all(g[0] == MAX_GANG for t in trace for g in t),
-        "equals_batch_mode": all(vs_batch.values()),
+        "card_default_compacts": mode["batch_multiple"] == 1
+        and mode["decoder_batch_invariant"],
+        "equals_batch_mode_b1": all(vs_batch.values()),
         "every_request_served": sorted(by_uid) == sorted(uids.values()),
         "kernels_launched": all(v > 0 for v in launches.values()),
         "one_replay_per_gang_block": len(replay_s) == len(spans),
@@ -1283,6 +1414,144 @@ def phase_continuous(cfg, params, invariance):
         raise AssertionError(f"continuous phase failed: {checks}")
     del eng, heng, beng
     torch.cuda.empty_cache()
+    return rec
+
+
+# ------------------------------------------------------------ prefix cache
+
+PC_PROMPT, PC_SHARED, PC_CHUNK, PC_GEN = 256, 192, 16, 96
+
+
+def prefix_waves(seed):
+    """Two waves of 4 prompts of 256 tokens that share their first 192
+    (12 chunks of 16); each prompt's last 64 tokens are its own."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, 250, PC_SHARED)
+    return [np.stack([np.concatenate([shared, rng.integers(
+        0, 250, PC_PROMPT - PC_SHARED)]) for _ in range(4)]).astype(np.int32)
+        for _ in range(2)]
+
+
+def phase_prefix_cache(cfg, params):
+    """The prefix cache at llada-8b full width and depth (32 layers, bf16,
+    the serve phase's weights), streaming, gen_len 96. First the prefill
+    alone, one gang of 4 on a decoder with a store: wave 1 cold (16 chunk
+    passes), then wave 2 warm (12 chunks hit, 4 passes), timed, with the
+    warm prompt KV against a storeless prefill of the same prompts (bit
+    for bit). Then both waves through ``ContinuousEngine`` at gang sizes
+    1, 2 and 4 (``max_gang``), each engine with a fresh store; at gang
+    size 4 a wave-2 request is preempted after its first block and
+    resumes, re-primed from the store. Every request's tokens and commit
+    confidences must equal the cold run: the same prompt decoded alone
+    (B = 1) with no store."""
+    from repro_torch.cache import PrefixKVCache, device_placement
+    from repro_torch.serving import ContinuousEngine
+    dcfg = DecodeConfig(method="streaming", gen_len=PC_GEN, block_size=BLOCK,
+                        window=WINDOW, use_kernels=True, prefix_cache=True,
+                        cache_chunk=PC_CHUNK)
+    waves = prefix_waves(SEED + 9)
+
+    def store():
+        return PrefixKVCache(chunk_tokens=PC_CHUNK, max_bytes=4 << 30,
+                             placement=device_placement("cuda"))
+
+    def timed_prefill(dec, prompts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = dec.prefill(prompts.copy())
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t0
+
+    rec = {"phase": "prefix_cache", "arch": cfg.name, "layers": cfg.n_layers,
+           "prompt_len": PC_PROMPT, "shared_prefix": PC_SHARED,
+           "chunk": PC_CHUNK, "gen_len": PC_GEN}
+    # a storeless prefill of wave 2 first: the reference for the warm
+    # prompt KV, and the first use of the chunk passes' shapes
+    plain = DiffusionDecoder(cfg, params, dcfg, device="cuda").prefill(
+        waves[1].copy())
+    st0 = store()
+    dec = DiffusionDecoder(cfg, params, dcfg, device="cuda", prompt_cache=st0)
+    cold, cold_s = timed_prefill(dec, waves[0])
+    after_cold = st0.stats()
+    warm, warm_s = timed_prefill(dec, waves[1])
+    kv_equal = all(torch.equal(a[:, :PC_PROMPT], b[:, :PC_PROMPT])
+                   for kv_w, kv_p in zip(warm.cache, plain.cache)
+                   for a, b in zip(kv_w, kv_p))
+    rec["prefill"] = {
+        "cold_s": cold_s, "warm_s": warm_s,
+        "cold_passes": cold.nfe, "warm_passes": warm.nfe,
+        "cold_q_tokens": cold.q_tokens, "warm_q_tokens": warm.q_tokens,
+        "warm_hit_tokens": warm.prefix_hit_tokens.tolist(),
+        "store_after_cold": after_cold, "store_after_warm": st0.stats(),
+        "warm_kv_equals_storeless": kv_equal}
+    del dec, cold, warm, plain, st0
+    torch.cuda.empty_cache()
+
+    ref_dec = DiffusionDecoder(cfg, params, dcfg, device="cuda")
+    cold_runs = {}
+    for w, prompts in enumerate(waves):
+        for i in range(4):
+            r = ref_dec.generate(prompts[i:i + 1].copy())
+            cold_runs[(w, i)] = (r.tokens[0], np.concatenate(
+                [bs.commit_conf[0] for bs in r.block_stats]))
+    del ref_dec
+    runs, ok = {}, kv_equal
+    for gang in (1, 2, 4):
+        eng = ContinuousEngine(cfg, params, dcfg, max_slots=4, max_gang=gang,
+                               prefix_cache=store(), device="cuda")
+        sizes, equal, hits, resumed = set(), {}, {}, None
+        t0 = time.perf_counter()
+        for w, prompts in enumerate(waves):
+            uids = {eng.submit(p, max_tokens=PC_GEN): i
+                    for i, p in enumerate(prompts)}
+            tick, comps = 0, []
+            while not eng.scheduler.idle:
+                comps += eng.step()
+                sizes |= {g.batch for g in eng.scheduler.gangs}
+                if gang == 4 and w == 1 and tick == 0:
+                    resumed = next(u for u, i in uids.items() if i == 1)
+                    eng.preempt(resumed)
+                    lookups = eng.prefix_cache.stats()["lookups"]
+                    hit_tokens = eng.prefix_cache.stats()[
+                        "lookup_hit_tokens"]
+                tick += 1
+            for c in comps:
+                t, conf = cold_runs[(w, uids[c.uid])]
+                equal[f"w{w}r{uids[c.uid]}"] = bool(
+                    np.array_equal(c.tokens, t)
+                    and np.array_equal(c.commit_conf, conf))
+                hits[f"w{w}r{uids[c.uid]}"] = c.cache_hit_tokens
+        torch.cuda.synchronize()
+        stats = eng.prefix_cache.stats()
+        run = {"wall_s": time.perf_counter() - t0,
+               "gang_sizes": sorted(sizes), "equals_cold_b1": equal,
+               "cache_hit_tokens": hits, "store": stats,
+               "merges": eng.scheduler.merges}
+        ok = ok and all(equal.values()) and len(equal) == 8
+        if gang == 4:
+            # the resume re-primes: one more lookup, hitting the row's
+            # own 16 chunks
+            run["resume"] = {
+                "lookups": stats["lookups"] - lookups,
+                "hit_tokens": stats["lookup_hit_tokens"] - hit_tokens}
+            ok = ok and run["resume"] == {"lookups": 1,
+                                          "hit_tokens": PC_PROMPT}
+        runs[gang] = run
+        del eng
+        torch.cuda.empty_cache()
+    rec["runs"] = runs
+    pre = rec["prefill"]
+    rec["checks"] = {
+        "warm_computes_only_the_tail":
+            pre["cold_passes"] == PC_PROMPT // PC_CHUNK
+            and pre["warm_passes"] == (PC_PROMPT - PC_SHARED) // PC_CHUNK
+            and pre["warm_hit_tokens"] == [PC_SHARED] * 4,
+        "warm_kv_equals_storeless": kv_equal,
+        "cached_equals_cold_at_gang_sizes_1_2_4": ok}
+    rec["ok"] = all(rec["checks"].values())
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"prefix_cache phase failed: {rec['checks']}")
     return rec
 
 
@@ -1401,7 +1670,7 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = m.group(1)
-            short = re.search(r"((?:attn|conf)_\w+?_kernel)I(.*?)EEv",
+            short = re.search(r"((?:attn|conf|gemm)_\w+?_kernel)I(.*?)EEv",
                               name)
             funcs.append({"kernel": short.group(1) + "<" + short.group(2)
                           + ">" if short else name, "registers": None,
@@ -1437,10 +1706,10 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    # one nvcc per library, all started together: the port's two kernel
-    # libraries and the two probe builds of the attention kernel
+    # one nvcc per library, all started together: the port's kernel
+    # libraries and the two probe builds of each kernel
     jobs = [("block_attention", ()), ("confidence", ()), ("graph_loop", ()),
-            ("block_attention", ("ATTN_PROBE=1",)),
+            ("gemm", ()), ("block_attention", ("ATTN_PROBE=1",)),
             ("block_attention", ("ATTN_PROBE=2",)),
             ("confidence", ("CONF_PROBE=1",)),
             ("confidence", ("CONF_PROBE=2",))]
@@ -1449,15 +1718,17 @@ def main() -> int:
     build.load("block_attention")
     build.load("confidence")
     build.load("graph_loop")
+    build.load("gemm")
     t_nvcc = time.perf_counter() - t0
-    ptxas = [f for lib in libs[:3]
+    ptxas = [f for lib in libs[:4]
              for f in ptxas_report(lib.with_suffix(".log").read_text())]
     emit({"phase": "build", "nvcc_s": t_nvcc,
-          "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:3]],
+          "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:4]],
           "ptxas": ptxas,
           "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas)})
 
     step, conf = phase_kernels()
+    gemm_main = phase_gemm()
     phase_probe()
     phase_reference()
     phase_reference_llada()
@@ -1469,6 +1740,7 @@ def main() -> int:
     *model, serve = phase_serve()
     phase_profile(*model)
     cont = phase_continuous(model[0], model[1].params, inv["batch_invariant"])
+    phase_prefix_cache(model[0], model[1].params)
 
     kernels = [
         {"name": "block_attention", "route": "cuda",
@@ -1485,6 +1757,16 @@ def main() -> int:
          "max_abs_err": conf["max_abs_err"], "ms": conf["kernel_ms"],
          "plain_ms": conf["plain_ms"], "bound_ms": conf["bound_ms"],
          "bound_by": conf["bound_by"], "library_ms": None},
+        # no TPU kernel: the JAX package leaves its projections to XLA's
+        # dot; the main-path shape timed here is a step's gate/up at B = 4
+        {"name": "gemm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gemm.cu",
+         "replaces": "src/repro/models/layers.py:252",
+         "launches": cont["launches"]["gemm"],
+         "max_abs_err": gemm_main["max_abs_err"],
+         "ms": gemm_main["kernel_ms"], "plain_ms": gemm_main["plain_ms"],
+         "bound_ms": gemm_main["bound_ms"], "bound_by": gemm_main["bound_by"],
+         "library_ms": gemm_main["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

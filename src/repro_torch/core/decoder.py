@@ -19,8 +19,11 @@ Five methods (paper Tables 1/2/8):
 
 ``frozen_suffix`` (parallel methods) freezes the pruned-suffix KV at the
 block refresh and lets the steps query only the block. ``prefix_cache``
-(ROADMAP A7) and executor placement (A11) raise ``NotImplementedError``
-naming their item.
+(``repro_torch.cache``) computes the prompt KV once at prefill by
+chunk-causal passes, shareable across requests through a
+``PrefixKVCache`` store, and the block refreshes then rewrite only the
+generated region (a *tail* refresh). Executor placement (ROADMAP A11)
+raises ``NotImplementedError``.
 
 Two loops per block, as in the JAX package:
 
@@ -54,11 +57,14 @@ bound one at its next block; ``take_rows``/``merge_rows`` gather no KV
 for them. A dkv cache carries state across blocks, so a dkv state owns
 its buffer (``take_rows`` gathers its rows into a new one): the device
 loop copies it into the bound buffer before the replay and back after.
-No state ever replays a graph on a buffer other than the one that holds
-its cache.
+A prefix-cached state's prompt KV is likewise never rewritten by a
+refresh, so it owns its buffer too and takes the same copies. No state
+ever replays a graph on a buffer other than the one that holds its
+cache.
 
-On the card, attention and the parallel methods' confidence run through
-the kernels (``use_kernels=True``); a CUDA decoder without them raises.
+On the card, attention, the confidence and (through ``ops.linear``)
+every product of the model run through the kernels
+(``use_kernels=True``); a CUDA decoder without them raises.
 """
 from __future__ import annotations
 
@@ -74,7 +80,7 @@ from repro_torch.core import schedule as sched
 from repro_torch.core.suffix import suffix_query_region
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN, ATTN_LOCAL, ModelConfig
 from repro_torch.models.model import apply_model, cache_take_rows, init_cache
 from repro_torch.obs.telemetry import CONF_BUCKETS, BlockStats
 
@@ -115,11 +121,24 @@ class DecodeConfig:
                                    # False = the host loop (per-step syncs)
     frozen_suffix: bool = False    # parallel methods: freeze the suffix KV
                                    # at the refresh; steps query the block
-    prefix_cache: bool = False     # ROADMAP A7
+    # Cross-request prefix KV reuse (repro_torch.cache): the prompt KV is
+    # computed once at prefill by chunk-causal passes (chunk i attends to
+    # chunks 0..i only, bidirectionally within the chunk), so each chunk's
+    # KV is content-addressable and shareable across requests; block
+    # refreshes then rewrite only the generated region and attend to the
+    # frozen prompt KV. Cached and cold prefill are bit-identical.
+    prefix_cache: bool = False
+    cache_chunk: int = 16          # prompt chunk size for repro_torch.cache
 
     def __post_init__(self):
         assert self.method in METHODS, self.method
         assert self.gen_len % self.block_size == 0
+        assert self.cache_chunk > 0
+        # the frozen-suffix refresh writes position-indexed over the whole
+        # buffer with nothing cached-valid; a frozen prompt region would
+        # need a third refresh variant (as in the JAX package)
+        assert not (self.prefix_cache and self.frozen_suffix), \
+            "prefix_cache and frozen_suffix are mutually exclusive"
 
     @property
     def effective_window(self) -> int:
@@ -140,11 +159,6 @@ class DecodeConfig:
         return self.method not in ("vanilla", "dkv")
 
 
-def _check_ported(dcfg: DecodeConfig) -> None:
-    if dcfg.prefix_cache:
-        raise NotImplementedError("prefix_cache is ROADMAP A7")
-
-
 @dataclasses.dataclass
 class DecodeState:
     """Resumable decode progress for a batch of rows that all sit at the
@@ -160,6 +174,7 @@ class DecodeState:
     cache: Any = None
     valid_mask: Optional[np.ndarray] = None    # dkv only: (B, T) bool
     cached_mask: Optional[np.ndarray] = None   # dkv only: (B, T) bool
+    prefix_hit_tokens: Optional[np.ndarray] = None  # prefix_cache: (B,)
     nfe: int = 0
     q_tokens: int = 0
     kv_tokens: int = 0
@@ -242,13 +257,16 @@ class _BlockBuffers:
                                     dtype=getattr(self, n).dtype,
                                     pin_memory=self.pinned)
                      for n in self.OUTPUTS}
-        # dkv: the masks and the KV are state carried across blocks
+        # the KV is state carried across blocks for dkv and prefix-cached
+        # states; the masks for dkv only
         self.carries = dec.cache_carries_state
+        self.masks = d.method == "dkv"
 
     def load(self, state: DecodeState) -> None:
         """Copy a state's host arrays in (asynchronously from pinned
-        memory on the card) and, for dkv, its KV into the bound buffer."""
-        names = self.INPUTS if self.carries else self.INPUTS[:3]
+        memory on the card) and, for a state that owns its buffer (dkv,
+        prefix cache), its KV into the bound buffer."""
+        names = self.INPUTS if self.masks else self.INPUTS[:3]
         for n in names:
             src = self.host[n]
             src.numpy()[...] = getattr(state, n)
@@ -260,13 +278,14 @@ class _BlockBuffers:
 
     def fetch(self, state: DecodeState) -> Dict[str, np.ndarray]:
         """The block's one fetch: every output to host memory, then a
-        single wait (the only one of the block on the card). A dkv state's
-        cache is copied back out of the bound buffer first."""
+        single wait (the only one of the block on the card). A state that
+        owns its buffer gets its cache copied back out of the bound
+        buffer first."""
         if self.carries and state.cache is not self.cache:
             for (bk, bv), (sk, sv) in zip(self.cache, state.cache):
                 sk.copy_(bk)
                 sv.copy_(bv)
-        names = self.OUTPUTS if self.carries else tuple(
+        names = self.OUTPUTS if self.masks else tuple(
             n for n in self.OUTPUTS if n not in ("valid_mask", "cached_mask"))
         for n in names:
             self.host[n].copy_(getattr(self, n), non_blocking=self.pinned)
@@ -294,9 +313,16 @@ class _BlockProgram:
                                   .astype(np.int32))
         self.valid_len = torch.full((B,), bstart, dtype=torch.int32,
                                     device=dev)
+        # prefix cache: the refresh starts at the prompt boundary (the
+        # prompt KV was computed at prefill and is attended, never
+        # recomputed)
+        self.pstart = T - d.gen_len if d.prefix_cache else 0
+        self.pstart_valid = torch.full((B,), self.pstart, dtype=torch.int32,
+                                       device=dev)
         arange = torch.arange(T, dtype=torch.int32, device=dev)
         self.pos_T = arange[None].expand(B, T)
-        self.prefix_pos = arange[None, :bstart].expand(B, bstart)
+        self.prefix_pos = arange[None, self.pstart:bstart].expand(
+            B, bstart - self.pstart)
         self.prefix_valid = (arange < bstart)[None].expand(B, T)
         self.bpos = (bstart + torch.arange(K, dtype=torch.int32, device=dev)
                      )[None].expand(B, K)
@@ -366,12 +392,18 @@ class _BlockProgram:
     def _refresh(self) -> None:
         """Block-start refresh (paper §3.3): one pass over [prefix ||
         query region] that produces the block's confidences and rewrites
-        the cache (with frozen_suffix position-indexed, suffix included)."""
+        the cache (with frozen_suffix position-indexed, suffix included;
+        with the prefix cache over [generated prefix || query region]
+        only, appended after the prompt KV)."""
         d, b, K = self.dec.dcfg, self.b, self.K
         prefix_len = self.bstart
         full_pos = torch.cat([self.prefix_pos, self.qpos_b], dim=1)
         full_toks = torch.gather(b.x, 1, full_pos.long())
-        if d.frozen:
+        if d.prefix_cache:
+            out = self._model(full_toks, full_pos, "append", cache=b.cache,
+                              kv_valid=self.pstart_valid,
+                              skip_head=d.parallel)
+        elif d.frozen:
             out = self._model(full_toks, full_pos, "append", cache=b.cache,
                               kv_valid=torch.zeros((self.B,), dtype=torch.int32,
                                                    device=b.x.device),
@@ -382,8 +414,8 @@ class _BlockProgram:
         else:
             out = self._model(full_toks, full_pos, "encode", cache=b.cache,
                               cache_upto=prefix_len, skip_head=d.parallel)
-        self._commit(*self._conf_toks(out.logits[:, prefix_len:prefix_len
-                                                 + K]))
+        boff = prefix_len - self.pstart
+        self._commit(*self._conf_toks(out.logits[:, boff:boff + K]))
 
     def body(self) -> None:
         """One denoise step, then the loop condition."""
@@ -458,11 +490,20 @@ class DiffusionDecoder:
 
     def __init__(self, cfg: ModelConfig, params, dcfg: DecodeConfig,
                  device=None, executor=None, prompt_cache=None):
-        _check_ported(dcfg)
-        if executor is not None or prompt_cache is not None:
+        if executor is not None:
             raise NotImplementedError(
-                "executor / mesh placement is ROADMAP A11 and the "
-                "cross-request prompt cache ROADMAP A7")
+                "executor / mesh placement is ROADMAP A11")
+        if dcfg.prefix_cache:
+            assert all(s.mixer in (ATTN, ATTN_LOCAL) for s in cfg.layout), \
+                ("prefix_cache needs an attention-only layout (recurrent "
+                 "states have no chunkable time axis)")
+            if prompt_cache is not None:
+                assert prompt_cache.chunk_tokens == dcfg.cache_chunk, \
+                    (prompt_cache.chunk_tokens, dcfg.cache_chunk)
+        # the cross-request chunk store (repro_torch.cache.PrefixKVCache).
+        # May be None in prefix_cache mode: the chunk-aligned prefill and
+        # the tail refresh still run, but nothing is shared across requests
+        self.prompt_cache = prompt_cache
         self.device = resolve_device(device)
         if self.device.type == "cuda" and not dcfg.use_kernels:
             raise ValueError(
@@ -495,8 +536,13 @@ class DiffusionDecoder:
                   logit_softcap=cfg.logit_softcap)
 
     def _conf_from_logits(self, blk_logits):
-        """Full-vocab path (fixed-schedule methods): ban [MASK], Eq. 4,
-        in plain torch."""
+        """Full-vocab path (fixed-schedule methods): ban [MASK], Eq. 4.
+        Through the confidence kernel when use_kernels (its plain version
+        on the CPU, the same operations as below), so that on the card a
+        row's confidence does not depend on how many rows are reduced."""
+        if self.dcfg.use_kernels:
+            return kops.confidence_argmax(blk_logits,
+                                          mask_id=self.cfg.mask_token_id)
         blk = blk_logits.float().clone()
         blk[..., self.cfg.mask_token_id] = -1e30
         return sched.confidence_and_tokens(blk)
@@ -509,20 +555,24 @@ class DiffusionDecoder:
 
     @property
     def batch_invariant(self) -> bool:
-        """True when per-row outputs do not depend on the batch size.
-        On the CPU it holds for every method except dkv, whose step-level
-        KV freezing accumulates ulp-level drift under batch reshaping (as
-        in the JAX package). On the card it holds for none: cuBLAS picks
-        its GEMM by row count, so a row's bits change with B (ROADMAP
-        C 1)."""
-        return self.dcfg.method != "dkv" and self.device.type != "cuda"
+        """True when per-row outputs do not depend on the batch size:
+        for every method except dkv, whose step-level KV freezing
+        accumulates ulp-level drift under batch reshaping (as in the JAX
+        package). On the card it rests on the kernels: the GEMM's sum
+        order depends on (N, K) only (``kernels/gemm.py``), the
+        confidence kernel's split count on (V, dtype) only, and the
+        attention kernel sums each row alone."""
+        return self.dcfg.method != "dkv"
 
     @property
     def cache_carries_state(self) -> bool:
         """True when the KV buffer holds state a block refresh does not
-        rewrite: dkv's position-indexed cache (with its masks). Such a
-        state owns its buffer; any other shares the bound one."""
-        return self.dcfg.method == "dkv"
+        rewrite: dkv's position-indexed cache (with its masks), or the
+        prefix-cached prompt region. Such a state owns its buffer
+        (compaction and merges gather its rows); any other shares the
+        bound one."""
+        return self.dcfg.method == "dkv" or (
+            self.dcfg.prefix_cache and self.dcfg.method != "vanilla")
 
     def graph_cache_size(self) -> int:
         """Block programs built so far, one per (B, T, Sq, block start):
@@ -551,9 +601,10 @@ class DiffusionDecoder:
     def prefill(self, prompt: np.ndarray, cache=None) -> DecodeState:
         """Admit a batch of prompts. The returned state sits at block 0
         ready for ``decode_block``; its cache is the bound buffer of its
-        shape, except for dkv, which gets a buffer of its own (``cache``,
-        a pool's, or a new one) filled by one full-sequence pass (only
-        the prompt KV is valid)."""
+        shape, except for a state that owns its buffer (``cache``, a
+        pool's, or a new one): dkv fills it by one full-sequence pass
+        (only the prompt KV is valid), the prefix cache by the
+        chunk-aligned prompt prefill (``prime_prompt_kv``)."""
         self._no_cache_arg(cache, "prefill")
         cfg, d = self.cfg, self.dcfg
         B, P = prompt.shape
@@ -570,9 +621,19 @@ class DiffusionDecoder:
         if not self.cache_carries_state:
             state.cache = self._bound_cache(B, T)
             return state
-        tp0 = time.perf_counter()
         state.cache = cache if cache is not None else init_cache(
             cfg, B, T, self.device)
+        if d.prefix_cache:
+            # dkv rides the same path: its masks mark the prompt valid and
+            # frozen exactly as the full-sequence prefill would, but the
+            # masked region's pass is skipped (those KV were never valid)
+            self.prime_prompt_kv(state)
+            if d.method == "dkv":
+                state.valid_mask = np.zeros((B, T), bool)
+                state.valid_mask[:, :P] = True
+                state.cached_mask = state.valid_mask.copy()
+            return state
+        tp0 = time.perf_counter()
         pos = torch.arange(T, dtype=torch.int32, device=self.device)[None]
         with torch.no_grad():
             apply_model(cfg, self.params, tokens=self._upload(x),
@@ -591,17 +652,103 @@ class DiffusionDecoder:
         state.cached_mask = state.valid_mask.copy()
         return state
 
+    def prime_prompt_kv(self, state: DecodeState) -> DecodeState:
+        """Prefix-cache prompt prefill (the chunk-aligned path): look up
+        the longest cached prefix per row, copy its KV into the state's
+        buffer, run the model only over the uncached chunks plus the
+        unaligned remainder, and publish the freshly computed chunks back
+        to the store. Also the re-prime of a resumed (preempted) state,
+        whose parked state dropped its KV: its own chunks are usually
+        still in the store, so a resume costs O(tail).
+
+        Exactness: an assembled chunk carries the bytes its original
+        prefill pass wrote, and a computed chunk sees only [assembled
+        prefix || its own tokens], so cached and cold prefill are
+        bit-identical by construction. Rows with a deeper hit than the
+        gang's common depth get their extra chunks recomputed in-batch,
+        bit-equal to the stored ones because the decoder is
+        batch-invariant (on the card: ``kernels/gemm.py``)."""
+        from repro_torch.cache import slicing
+        d = self.dcfg
+        assert d.prefix_cache and d.method != "vanilla"
+        assert state.cache is not None
+        B, P = state.batch, state.prompt_len
+        C = d.cache_chunk
+        n_chunks = P // C
+        store = self.prompt_cache
+        tp0 = time.perf_counter()
+        hits: list = [[] for _ in range(B)]
+        if store is not None and n_chunks:
+            hits = [store.match(state.x[b, :P]) for b in range(B)]
+        try:
+            # the gang computes chunks from the common hit depth; the
+            # scheduler's hit-aware admission keeps gangs hit-homogeneous
+            n_hit = min(len(h) for h in hits)
+            if n_hit:
+                slicing.assemble_batch(
+                    state.cache, [[n.payload for n in hits[b][:n_hit]]
+                                  for b in range(B)])
+            spans = [(c * C, (c + 1) * C) for c in range(n_hit, n_chunks)]
+            if P > n_chunks * C:
+                spans.append((n_chunks * C, P))   # unaligned remainder
+            with torch.no_grad():
+                for t0, t1 in spans:
+                    pos = torch.arange(t0, t1, dtype=torch.int32,
+                                       device=self.device)
+                    apply_model(
+                        self.cfg, self.params,
+                        tokens=self._upload(state.x[:, t0:t1]),
+                        positions=pos[None].expand(B, t1 - t0),
+                        mode="append", cache=state.cache,
+                        kv_valid=torch.full((B,), t0, dtype=torch.int32,
+                                            device=self.device),
+                        skip_head=True, use_kernels=d.use_kernels)
+                    state.nfe += 1
+                    state.q_tokens += B * (t1 - t0)
+                    state.kv_tokens += B * (t1 - t0) * t1
+            if spans:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                state.host_syncs += 1
+            # publish the chunks this gang computed (above what each row
+            # already had cached); rows repeating an earlier row's prompt
+            # (pad lanes replicate row 0) skip the extraction entirely
+            if store is not None:
+                seen: set = set()
+                for b in range(B):
+                    key = state.x[b, :P].tobytes()
+                    start = len(hits[b])
+                    if n_chunks > start and key not in seen:
+                        kvs = [slicing.extract_row(state.cache, b, c * C,
+                                                   (c + 1) * C)
+                               for c in range(start, n_chunks)]
+                        store.insert(state.x[b, :P], start, kvs,
+                                     parent_chain=hits[b])
+                    seen.add(key)
+        finally:
+            # pins must die with this call even if a pass raises: a
+            # leaked pin makes its chunk unevictable forever
+            if store is not None:
+                for h in hits:
+                    store.unpin(h)
+        state.prefix_hit_tokens = np.full((B,), n_hit * C, np.int32)
+        state.prefill_time += time.perf_counter() - tp0
+        return state
+
     def take_rows(self, state: DecodeState, rows, cache=None,
                   alloc_cache: bool = True) -> DecodeState:
         """Extract rows into a standalone state (batch compaction /
         preemption). dkv gathers the rows' KV and masks into a buffer
         the new state owns (its cache carries across blocks), whatever
-        ``alloc_cache`` says. Every other method runs on the bound
-        buffer of the new (B, T): ``alloc_cache=True`` hands it over now,
-        ``alloc_cache=False`` (a preempted state parked off-slot) holds
-        no KV and adopts it at its next block. No KV rows are gathered
-        for them, and ``cache`` is refused (the binding rule, module
-        docstring)."""
+        ``alloc_cache`` says. A prefix-cached state's prompt KV travels
+        with its rows the same way, gathered into a buffer of its own;
+        a parked one (``alloc_cache=False``) drops it instead and
+        ``prime_prompt_kv`` re-primes it on resume, usually from the
+        store. Every other method runs on the bound buffer of the new
+        (B, T): ``alloc_cache=True`` hands it over now,
+        ``alloc_cache=False`` holds no KV and adopts it at its next
+        block. No KV rows are gathered for them, and ``cache`` is
+        refused (the binding rule, module docstring)."""
         self._no_cache_arg(cache, "take_rows")
         rows = list(rows)
         sub = DecodeState(
@@ -609,12 +756,17 @@ class DiffusionDecoder:
             done=state.done[rows].copy(), prompt_len=state.prompt_len,
             n_blocks=state.n_blocks, block_idx=state.block_idx,
             steps_per_block=list(state.steps_per_block))
-        if self.cache_carries_state:
-            # index_select copies: the sub-state never aliases the gang
-            # it left, whose buffer goes back to the pool
+        if state.prefix_hit_tokens is not None:
+            sub.prefix_hit_tokens = state.prefix_hit_tokens[rows].copy()
+        # index_select copies: the sub-state never aliases the gang it
+        # left, whose buffer goes back to the pool
+        if self.dcfg.method == "dkv":
             sub.cache = cache_take_rows(state.cache, rows)
             sub.valid_mask = state.valid_mask[rows].copy()
             sub.cached_mask = state.cached_mask[rows].copy()
+        elif self.cache_carries_state:
+            if alloc_cache:
+                sub.cache = cache_take_rows(state.cache, rows)
         elif alloc_cache:
             sub.cache = self._bound_cache(len(rows), state.total_len)
         return sub
@@ -623,13 +775,15 @@ class DiffusionDecoder:
         """Fuse rows from several states sitting at the SAME block
         boundary into one state (the scheduler's cross-gang straggler
         merge). ``parts`` is a list of ``(state, rows)``. Excludes dkv,
-        whose cache carries across blocks; every other method's next
-        block refresh rewrites the cache, so the merged state takes the
-        bound buffer of its new (B, T) and nothing is gathered. A row
-        keeps its bits when ``batch_invariant``, or (on the card) when
-        the merged state has the batch of every part: the scheduler's
-        ``_reshapes_exactly`` decides, as for ``take_rows``."""
-        assert not self.cache_carries_state
+        whose cache drifts under reshaping. A prefix-cached state's
+        prompt KV is gathered from every part into a buffer the merged
+        state owns; for every other method the next block refresh
+        rewrites the cache, so the merged state takes the bound buffer
+        of its new (B, T) and nothing is gathered. A row keeps its bits
+        when ``batch_invariant``, or when the merged state has the batch
+        of every part: the scheduler's ``_reshapes_exactly`` decides, as
+        for ``take_rows``."""
+        assert self.dcfg.method != "dkv"
         self._no_cache_arg(cache, "merge_rows")
         ref = parts[0][0]
         for st, _ in parts[1:]:
@@ -648,7 +802,16 @@ class DiffusionDecoder:
             steps_per_block=[max(vals) for vals in zip(
                 *(st.steps_per_block for st, _ in parts))]
             if ref.steps_per_block else [])
-        sub.cache = self._bound_cache(sub.batch, ref.total_len)
+        if all(st.prefix_hit_tokens is not None for st, _ in parts):
+            sub.prefix_hit_tokens = np.concatenate(
+                [st.prefix_hit_tokens[rows] for st, rows in parts])
+        if self.cache_carries_state:
+            gathered = [cache_take_rows(st.cache, rows) for st, rows in parts]
+            sub.cache = [(torch.cat([g[i][0] for g in gathered]),
+                          torch.cat([g[i][1] for g in gathered]))
+                         for i in range(len(gathered[0]))]
+        else:
+            sub.cache = self._bound_cache(sub.batch, ref.total_len)
         return sub
 
     def row_output(self, state: DecodeState, b: int):
@@ -685,7 +848,10 @@ class DiffusionDecoder:
             for vs in vsums[:steps]:
                 state.kv_tokens += B * Sq * (int(vs) + Sq)
         elif steps > 0:
-            ref_q = prefix_len + Sq
+            # with the prefix cache the refresh covers only the generated
+            # prefix + query (the prompt is attended, not recomputed)
+            ref_q = (prefix_len - state.prompt_len if d.prefix_cache
+                     else prefix_len) + Sq
             state.q_tokens += B * ref_q
             state.kv_tokens += B * ref_q * (prefix_len + Sq)
             if d.frozen:
@@ -759,7 +925,7 @@ class DiffusionDecoder:
 
         state.x, state.committed, state.done = (out["x"], out["committed"],
                                                 out["done"])
-        if self.cache_carries_state:
+        if d.method == "dkv":
             state.valid_mask = out["valid_mask"]
             state.cached_mask = out["cached_mask"]
         steps, n_hit = int(out["step"]), int(out["n_hit"])
@@ -845,6 +1011,20 @@ class DiffusionDecoder:
                     cached_mask |= newly
                     valid_mask |= newly
                     vsums.append(int(valid_mask.sum()) // B)
+                elif step == 1 and d.prefix_cache:
+                    # tail refresh: [generated prefix || query] only; the
+                    # prompt KV is attended via kv_valid = P
+                    upto = prefix_len - P
+                    full_pos = np.broadcast_to(np.concatenate(
+                        [np.arange(P, prefix_len, dtype=np.int32), qpos])[None],
+                        (B, upto + Sq))
+                    out = model(x[rows, full_pos], self._upload(full_pos),
+                                "append", cache=cache,
+                                kv_valid=torch.full((B,), P, dtype=torch.int32,
+                                                    device=dev),
+                                skip_head=d.parallel)[:, upto:upto + K]
+                    valid = torch.full((B,), prefix_len, dtype=torch.int32,
+                                       device=dev)
                 elif step == 1:
                     full_pos = np.broadcast_to(np.concatenate(
                         [np.arange(prefix_len, dtype=np.int32), qpos])[None],
@@ -889,8 +1069,16 @@ class DiffusionDecoder:
                     blk = out.float().cpu()
                     state.host_syncs += 1
                     state.logit_syncs += 1
-                    blk[..., cfg.mask_token_id] = -1e30
-                    conf, toks = sched.confidence_and_tokens(blk)
+                    if d.use_kernels:
+                        # the device loop's reduction (the confidence
+                        # kernel on the card), so both loops select from
+                        # the same bits; on the CPU the same operations
+                        # as below
+                        conf, toks = (t.cpu() for t in
+                                      self._conf_from_logits(out))
+                    else:
+                        blk[..., cfg.mask_token_id] = -1e30
+                        conf, toks = sched.confidence_and_tokens(blk)
 
                 masked_t = torch.from_numpy(blk_masked)
                 if d.parallel:

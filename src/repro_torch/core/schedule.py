@@ -11,6 +11,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.ops import linear
+
 
 def confidence_and_tokens(logits: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -41,7 +43,7 @@ def chunked_head_reduce(hidden: torch.Tensor, head: torch.Tensor, reduce_fn,
     confs, toks = [], []
     for s in range(0, h2.shape[0], row_chunk):
         hc = h2[s:s + row_chunk]
-        c, t = reduce_fn(hc @ head.to(hc.dtype))
+        c, t = reduce_fn(linear(hc, head.to(hc.dtype)))
         confs.append(c)
         toks.append(t)
     conf = confs[0] if len(confs) == 1 else torch.cat(confs)

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES = {"block_attention": 0, "confidence_argmax": 0}
+LAUNCHES = {"block_attention": 0, "confidence_argmax": 0, "gemm": 0}
 
 
 def reset_launches() -> None:
@@ -25,6 +25,52 @@ def reset_launches() -> None:
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(what)
+
+
+def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N) -> (M, N) in x's dtype, summed in float32 in
+    an order that depends on (N, K, dtype) only (``kernels/gemm.py``).
+    CPU tensors take the plain version (``ref.gemm_ref``); CUDA tensors
+    the kernel: float32 or bfloat16, both contiguous, one dtype, one
+    device, and in bfloat16 K and N multiples of 8 with 16-byte aligned
+    rows. Anything else raises."""
+    _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
+             f"gemm: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.device.type == "cpu":
+        return ref.gemm_ref(x, w)
+    from repro_torch.kernels import gemm as kernel
+    _require(x.is_cuda and w.device == x.device,
+             f"gemm: devices {x.device} and {w.device}")
+    _require(x.dtype in (torch.float32, torch.bfloat16) and w.dtype == x.dtype,
+             f"gemm: dtypes {x.dtype} and {w.dtype} (float32 or bfloat16, "
+             "one dtype)")
+    _require(x.is_contiguous() and w.is_contiguous(),
+             "gemm: x and w must be contiguous (row-major (M, K), (K, N))")
+    M, K = x.shape
+    N = w.shape[1]
+    _require(M >= 1 and N >= 1 and K >= 1, "gemm: empty operand")
+    if x.dtype == torch.bfloat16:
+        _require(K % 8 == 0 and N % 8 == 0,
+                 f"gemm: bfloat16 needs K and N multiples of 8 (K={K}, N={N})")
+        _require(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+                 "gemm: x and w must be 16-byte aligned")
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    kernel.launch(x, w, y)
+    LAUNCHES["gemm"] += 1
+    return y
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for every product of the model: x (..., K), w (K, N).
+    On the CPU it is ``torch.matmul``, exactly as the plain path has it;
+    on the card the GEMM kernel (``gemm``), whose sum order does not
+    depend on how many rows x has. No fallback: a product the kernel
+    does not take raises."""
+    if x.device.type == "cpu":
+        return x @ w
+    lead = x.shape[:-1]
+    y = gemm(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    return y.reshape(*lead, w.shape[1])
 
 
 def block_attention(q, k, v, q_pos, kv_pos, kv_mask, *, scale=None,

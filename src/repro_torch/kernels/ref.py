@@ -14,6 +14,11 @@ def softcap_ref(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N) in float32, cast to x's dtype."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
 def block_attention_ref(q, k, v, q_pos, kv_pos, kv_mask, *, scale: float,
                         softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """Bidirectional GQA attention with arbitrary KV validity mask.

@@ -15,8 +15,9 @@ go through the kernels, and each block is one CUDA graph replay
 (``--host-loop``: the per-step host loop instead). ``--prewarm P:G``
 captures the graphs of prompt length P and generation length G for every
 gang size before serving (a capture otherwise stalls the first block of
-each new shape). ``--ckpt`` and training wait for ROADMAP A12, ``--http``
-for A8.
+each new shape). ``--prefix-cache`` (with ``--cache-chunk`` and
+``--cache-bytes``) reuses prompt KV across requests in continuous mode.
+``--ckpt`` and training wait for ROADMAP A12, ``--http`` for A8.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.cache import PrefixKVCache, device_placement
 from repro_torch.core.decoder import METHODS, DecodeConfig
 from repro_torch.core.engine import ServingEngine
 from repro_torch.device import resolve_device
@@ -93,10 +95,21 @@ def main(argv=None):
     ap.add_argument("--host-loop", action="store_true",
                     help="per-step host loop (validation oracle) instead "
                     "of the device loop")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request prefix KV cache (repro_torch.cache): "
+                    "chunk-aligned prompt prefill, radix-tree content "
+                    "matching (continuous mode shares it across requests)")
+    ap.add_argument("--cache-chunk", type=int, default=16,
+                    help="prefix-cache chunk size in prompt tokens")
+    ap.add_argument("--cache-bytes", type=int, default=256 << 20,
+                    help="prefix-cache byte budget (LRU eviction beyond it)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.prefix_cache and args.method == "vanilla":
+        raise SystemExit("--prefix-cache has no effect with --method "
+                         "vanilla (no KV cache to reuse)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, dtype=args.dtype, param_dtype=args.dtype)
@@ -107,12 +120,20 @@ def main(argv=None):
                      block_size=cfg.block_size, window=args.window,
                      tau0=args.tau0, alpha=args.alpha,
                      use_kernels=args.use_kernels,
-                     fused=not args.host_loop)
+                     fused=not args.host_loop,
+                     prefix_cache=args.prefix_cache,
+                     cache_chunk=args.cache_chunk)
     if args.mode == "batch":
         eng = ServingEngine(cfg, params, d, mode="batch", device=device)
     else:
+        store = None
+        if args.prefix_cache:
+            store = PrefixKVCache(chunk_tokens=args.cache_chunk,
+                                  max_bytes=args.cache_bytes,
+                                  placement=device_placement(device))
         eng = ContinuousEngine(cfg, params, d, max_slots=args.max_slots,
-                               pad_pow2=args.pad_pow2, device=device)
+                               pad_pow2=args.pad_pow2, prefix_cache=store,
+                               device=device)
     summary = {"arch": args.arch, "method": args.method, "mode": args.mode,
                "device": (torch.cuda.get_device_name(device)
                           if device.type == "cuda" else "cpu")}
@@ -154,6 +175,10 @@ def main(argv=None):
             "gang_merges": snap["gang_merges"],
             "graphs": eng.graph_cache_size(),
             "post_warm_captures": snap["post_warm_compiles"]})
+        if args.prefix_cache:
+            summary.update({
+                "prefix_cache_hit_tokens": snap["prefix_cache_hit_tokens"],
+                "prefix_cache_nodes": snap["prefix_cache_nodes"]})
     summary["launches"] = dict(kops.LAUNCHES)
     print(json.dumps(summary))
     return summary

@@ -16,9 +16,31 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ops import linear
 from repro_torch.models.heads import HeadPlan
 
 NEG_INF = -1e30
+
+
+# PyTorch's CUDA reduction sizes its thread block by the number of rows
+# below this count (ATen Reduce.cuh, set_block_dimension), which changes
+# the order of a row's sum with the batch; from it on, one configuration
+# serves every row count.
+MIN_REDUCE_ROWS = 16
+
+
+def _mean_sq(x: torch.Tensor) -> torch.Tensor:
+    """mean(x * x) over the last axis (keepdim), in an order that does not
+    depend on the number of rows: on the card, fewer than
+    ``MIN_REDUCE_ROWS`` rows are reduced beside zero rows."""
+    sq = x * x
+    rows = sq.numel() // sq.shape[-1]
+    if not sq.is_cuda or rows >= MIN_REDUCE_ROWS:
+        return torch.mean(sq, dim=-1, keepdim=True)
+    padded = torch.cat([sq.reshape(rows, -1), sq.new_zeros(
+        (MIN_REDUCE_ROWS - rows, sq.shape[-1]))])
+    return torch.mean(padded, dim=-1, keepdim=True)[:rows].reshape(
+        *sq.shape[:-1], 1)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
@@ -26,7 +48,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     """RMSNorm in float32 with a zero-init ``(1 + w)`` gain."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    x = x * torch.rsqrt(_mean_sq(x) + eps)
     return (x * (1.0 + w.float())).to(dt)
 
 
@@ -219,9 +241,9 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
     B, Sq_self, d = x.shape
     H, hd = p["wq"].shape[1], p["wq"].shape[2]
     Hkv = p["wk"].shape[1]
-    q = (x @ p["wq"].reshape(d, H * hd)).reshape(B, Sq_self, H, hd)
-    k = (x @ p["wk"].reshape(d, Hkv * hd)).reshape(B, Sq_self, Hkv, hd)
-    v = (x @ p["wv"].reshape(d, Hkv * hd)).reshape(B, Sq_self, Hkv, hd)
+    q = linear(x, p["wq"].reshape(d, H * hd)).reshape(B, Sq_self, H, hd)
+    k = linear(x, p["wk"].reshape(d, Hkv * hd)).reshape(B, Sq_self, Hkv, hd)
+    v = linear(x, p["wv"].reshape(d, Hkv * hd)).reshape(B, Sq_self, Hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -257,7 +279,7 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
         out = attend_ref(q, k, v, scale=scale, attn_softcap=cfg.attn_softcap,
                          window=window, q_pos=q_pos, kv_pos=kv_pos,
                          kv_mask=kv_mask)
-    out = out.reshape(B, Sq_self, H * hd) @ p["wo"].reshape(H * hd, d)
+    out = linear(out.reshape(B, Sq_self, H * hd), p["wo"].reshape(H * hd, d))
     return (out, new_kv) if return_kv else out
 
 
@@ -265,8 +287,8 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
 
 def apply_ffn(p, x, kind: str):
     if kind == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+        h = F.gelu(linear(x, p["w_up"]), approximate="tanh")
+    return linear(h, p["w_down"])

@@ -29,6 +29,7 @@ from typing import Any, List, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.ops import linear
 from repro_torch.models.config import (ATTN, ATTN_LOCAL, NONE, LayerSpec,
                                        ModelConfig)
 from repro_torch.models.heads import plan_heads
@@ -260,7 +261,7 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
         logits = x  # final hidden states; caller owns the head projection
     else:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = (x @ head.to(x.dtype)).float()
+        logits = linear(x, head.to(x.dtype)).float()
         if cfg.logit_softcap:
             logits = softcap(logits, cfg.logit_softcap)
 

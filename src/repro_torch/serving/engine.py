@@ -19,9 +19,13 @@ of its (B, T, Sq, block start): about 1.6 s per block at llada-8b full
 depth, during which every gang waits. ``prewarm`` captures every shape
 admission and compaction can reach before requests arrive.
 
+With ``DecodeConfig(prefix_cache=True)`` the engine reuses prompt KV
+across requests through its scheduler's ``PrefixKVCache``
+(``expected_prefix_hit``, the ``prefix_cache_*`` metrics).
+
 Not ported yet: ``prefill_only`` and host budgets (ROADMAP A10; the
 scheduler's stealing and handoff raise too), executor placement (A11),
-the prefix cache (A7), the shadow auditor and the profiler window (A9:
+the shadow auditor and the profiler window (A9:
 ``attach_auditor`` raises; ``audit_tick``/``drain_audits`` do nothing
 while no auditor exists).
 """
@@ -81,6 +85,8 @@ class ContinuousEngine:
             telemetry=self.telemetry,
             block_hist=self.metrics.hist_block_wall, device=self.device)
         self.metrics.max_slots = self.scheduler.max_slots
+        # the cross-request prefix KV store (None unless dcfg.prefix_cache)
+        self.prefix_cache = self.scheduler.prefix_cache
         self.router = StreamRouter()
         self.stats = defaultdict(float)    # ServingEngine's keys
 
@@ -107,6 +113,16 @@ class ContinuousEngine:
                                     t_ns=t_ns, uid=req.uid,
                                     max_tokens=max_tokens)
         return req.uid
+
+    def expected_prefix_hit(self, prompt: Union[str, np.ndarray]) -> int:
+        """Longest prefix (tokens) of ``prompt`` resident in this engine's
+        cross-request cache; 0 when caching is off. A pure read over the
+        store."""
+        if self.prefix_cache is None:
+            return 0
+        toks = self.tok.encode(prompt) if isinstance(prompt, str) \
+            else np.asarray(prompt, np.int32)
+        return self.prefix_cache.match_len(toks)
 
     # ------------------------------------------------------ pre-warm
 
@@ -219,6 +235,11 @@ class ContinuousEngine:
         self.metrics.compile_hits = watch.hits
         self.metrics.compile_seconds = watch.seconds
         self.metrics.post_warm_compiles = watch.post_warm
+        if self.prefix_cache is not None:
+            st = self.prefix_cache.stats()
+            self.metrics.prefix_cache_bytes = st["bytes"]
+            self.metrics.prefix_cache_evictions = st["evictions"]
+            self.metrics.prefix_cache_nodes = st["nodes"]
         return completions
 
     def _record(self, comp: Completion) -> None:
@@ -226,7 +247,11 @@ class ContinuousEngine:
             uid=comp.uid, queue_s=comp.queue_s, ttfb_s=comp.ttfb_s,
             latency_s=comp.latency_s, n_tokens=comp.n_tokens,
             nfe=comp.nfe, n_blocks=comp.n_blocks,
-            host_syncs=comp.host_syncs, logit_syncs=comp.logit_syncs))
+            host_syncs=comp.host_syncs, logit_syncs=comp.logit_syncs,
+            cache_hit_tokens=comp.cache_hit_tokens))
+        if comp.cache_hit_tokens > 0:
+            self.metrics.prefix_cache_hits += 1
+            self.metrics.prefix_cache_hit_tokens += comp.cache_hit_tokens
         if comp.cancelled:
             self.metrics.cancelled += 1
         if self.tracer is not None and comp.trace_id:

@@ -9,15 +9,16 @@ Which states draw from the pool — the graph binding rule
 (``repro_torch.core.decoder``): on the card a block graph bakes in
 buffer addresses, so the decoder owns one KV buffer per (B, T), the
 *bound* buffer, and every graph of that shape reads and writes it. For
-every method but dkv the block refresh rewrites every slot the steps
-read, so those states run on the bound buffer and need no buffer of
-their own: the scheduler never acquires from the pool for them, and
-never releases a bound buffer into it. A dkv state carries its cache
-across blocks (``DiffusionDecoder.cache_carries_state``), so it owns a
-buffer — the pool's — that the device loop copies into the bound buffer
-before each replay and back after. The pool therefore only serves dkv
-gangs (their prefill) and counts it: ``hits``/``misses`` stay zero for
-a scheduler of any other method.
+most states the block refresh rewrites every slot the steps read, so
+they run on the bound buffer and need no buffer of their own: the
+scheduler never acquires from the pool for them, and never releases a
+bound buffer into it. A dkv state, and a prefix-cached state (its prompt
+KV is computed at prefill, never refreshed), carries its cache across
+blocks (``DiffusionDecoder.cache_carries_state``), so it owns a buffer —
+the pool's — that the device loop copies into the bound buffer before
+each replay and back after. The pool therefore serves those gangs (their
+prefill and a resumed state's re-prime) and counts it:
+``hits``/``misses`` stay zero for a scheduler of any other state.
 
 Buffers are retained on a bounded free list with oldest-first
 eviction.

@@ -13,24 +13,21 @@ Graphs and buffers (the graph binding rule, ``core/decoder.py``): on
 the card each (B, T, Sq, block start) is one captured CUDA graph, so
 every gang batch size is a set of graphs; ``ContinuousEngine.prewarm``
 captures them before admission opens, and ``compile_watch`` counts any
-capture after that. Every method but dkv runs on the decoder's bound KV
-buffer of its (B, T): compaction and merges gather no KV and take
-nothing from the ``PrefixKVPool``. Only dkv states own a buffer (the
-pool's), since their cache carries across blocks.
+capture after that. Every method runs on the decoder's bound KV buffer
+of its (B, T), except the states whose cache carries across blocks
+(``DiffusionDecoder.cache_carries_state``: dkv, and the prefix cache's
+prompt region), which own a buffer (the pool's) that the block is
+copied through; compaction and merges gather KV only for them.
 
 Exactness: compaction and merges move a row into a gang of another
 shape, which keeps its bits only where ``DiffusionDecoder.
-batch_invariant`` holds: on the CPU for every method except dkv, whose
-step-level KV freezing drifts at ulp level when the batch changes. dkv
-gangs therefore keep their admitted batch until every row finishes
+batch_invariant`` holds: on the CPU and on the card for every method
+except dkv, whose step-level KV freezing drifts at ulp level when the
+batch changes (on the card the model's products run through a GEMM
+whose sum order does not depend on the row count, ``kernels/gemm.py``).
+dkv gangs therefore keep their admitted batch until every row finishes
 (matching the synchronous engine), while the other methods shrink and
-backfill freely. On the card no decoder is batch-invariant (cuBLAS
-picks its GEMM by row count, ROADMAP C 1), so there ``batch_multiple``
-defaults to ``max_gang``: every gang, a resumed row's included, runs at
-one size, nothing compacts, and a merge moves rows between gangs of
-that one size, which keeps their bits. An explicit ``batch_multiple``
-below ``max_gang`` on the card gives gangs of several sizes that keep
-their admitted batch (no compaction, no merge), as dkv does.
+backfill freely.
 
 Preemption is block-level: ``preempt(uid)`` extracts the row's
 ``DecodeState`` at the next block boundary, parks it without a KV
@@ -45,10 +42,15 @@ trimmed). A waiting or paused request is cancelled immediately; an
 active row is released at the next block boundary — before the next
 tick's decode, so a cancelled request never pays for another block.
 
+Prefix cache (``repro_torch.cache``): with ``DecodeConfig.prefix_cache``
+the scheduler owns a ``PrefixKVCache`` bound to its device (or checks
+the one it is given), groups admission by (shape bucket, hit depth) so a
+gang's prefill computes from a common depth, re-primes a resumed state's
+prompt KV from the store, and reports each request's hit tokens.
+
 Not ported yet, each raising ``NotImplementedError`` naming its item:
 ``prefill_only`` and block-boundary stealing / handoff (ROADMAP A10),
-``executor``/``mesh`` placement (A11), the cross-request prefix cache
-(A7).
+``executor``/``mesh`` placement (A11).
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.cache import PrefixKVCache, device_placement
 from repro_torch.core.decoder import (DecodeConfig, DecodeState,
                                       DiffusionDecoder, eos_truncate)
 from repro_torch.device import resolve_device
@@ -135,8 +138,6 @@ class BlockScheduler:
                  block_hist=None, device=None):
         if executor is not None or mesh is not None:
             _not_ported("executor / mesh placement", "A11")
-        if prefix_cache is not None or dcfg.prefix_cache:
-            _not_ported("the cross-request prefix cache", "A7")
         if prefill_only:
             _not_ported("prefill_only (disaggregated pools)", "A10")
         self.cfg = cfg
@@ -148,11 +149,7 @@ class BlockScheduler:
         self.prefill_wall_s = 0.0
         self.decode_wall_s = 0.0
         # Gang batches are rounded up to this multiple (pad rows
-        # replicate row 0, exactly like pad_pow2 padding). On the card
-        # it defaults to max_gang: every gang at one size, so every pass
-        # sees the same GEMM row count (module docstring).
-        if batch_multiple is None and self.device.type == "cuda":
-            batch_multiple = min(max_gang or max_slots, max_slots)
+        # replicate row 0, exactly like pad_pow2 padding).
         self.batch_multiple = batch_multiple or 1
         self.max_slots = max(max_slots, self.batch_multiple)
         self.max_gang = min(max_gang or self.max_slots, self.max_slots)
@@ -165,6 +162,32 @@ class BlockScheduler:
         if pool is None:
             pool = PrefixKVPool(cfg, device=self.device)
         self.pool = pool
+        # the cross-request prefix KV store: like the pool, bound to the
+        # device it serves (chunk KV bits differ between the CPU and the
+        # card). vanilla has no KV cache, so a store could never be
+        # filled or read: it runs storeless
+        placement = device_placement(self.device)
+        use_store = dcfg.prefix_cache and dcfg.method != "vanilla"
+        if prefix_cache is not None and not use_store:
+            raise ValueError(
+                "a PrefixKVCache store needs DecodeConfig.prefix_cache "
+                "and a non-vanilla method "
+                f"(prefix_cache={dcfg.prefix_cache}, "
+                f"method={dcfg.method!r})")
+        if use_store and prefix_cache is None:
+            prefix_cache = PrefixKVCache(chunk_tokens=dcfg.cache_chunk,
+                                         placement=placement)
+        if prefix_cache is not None:
+            if tuple(prefix_cache.placement) != placement:
+                raise ValueError(
+                    "PrefixKVCache must be bound to the scheduler's device "
+                    f"(store={prefix_cache.placement}, scheduler="
+                    f"{placement})")
+            if prefix_cache.chunk_tokens != dcfg.cache_chunk:
+                raise ValueError(
+                    f"PrefixKVCache chunk {prefix_cache.chunk_tokens} != "
+                    f"DecodeConfig.cache_chunk {dcfg.cache_chunk}")
+        self.prefix_cache = prefix_cache
         self.max_waiting = max_waiting
         self.tok = tokenizer
         self.merge_gangs = merge_gangs
@@ -203,7 +226,8 @@ class BlockScheduler:
         if gen_len not in self._decoders:
             d = dataclasses.replace(self.dcfg, gen_len=gen_len)
             self._decoders[gen_len] = DiffusionDecoder(
-                self.cfg, self.params, d, device=self.device)
+                self.cfg, self.params, d, device=self.device,
+                prompt_cache=self.prefix_cache)
         return self._decoders[gen_len]
 
     def decoder_for(self, gen_len: int) -> DiffusionDecoder:
@@ -229,7 +253,8 @@ class BlockScheduler:
 
     def _release(self, decoder: DiffusionDecoder, st: DecodeState) -> None:
         """Return a gang's KV buffer to the pool when the state owns one
-        (dkv); a bound buffer belongs to the decoder and stays there."""
+        (dkv, prefix cache); a bound buffer belongs to the decoder and
+        stays there."""
         if decoder.cache_carries_state and st.cache is not None:
             self.pool.release(st.batch, st.total_len, st.cache)
         st.cache = None
@@ -300,6 +325,11 @@ class BlockScheduler:
             self.tracer.async_begin(trace_id, "queue", pid=self.pid,
                                     uid=req.uid)
             self._span_state[req.uid] = "queue"
+        if self.prefix_cache is not None:
+            # expected hit length: reported in the Completion and the
+            # basis of hit-aware admission grouping (_group_key)
+            req.expected_hit_tokens = self.prefix_cache.match_len(
+                req.prompt_tokens)
         self.waiting.append(req)
         return req
 
@@ -471,9 +501,10 @@ class BlockScheduler:
                 self._merge_bin(bin_gangs)
 
     def _merge_bin(self, gangs: List[Gang]) -> None:
-        """Merge non-dkv gangs: the merged state takes the bound buffer
-        of its (B, T) (``merge_rows``); the sources' bound buffers stay
-        with the decoder, so nothing returns to or leaves the pool."""
+        """Merge non-dkv gangs (``merge_rows``): the merged state takes
+        the bound buffer of its (B, T), or, prefix-cached, a buffer of its
+        own gathered from the sources, whose buffers then return to the
+        pool."""
         decoder = gangs[0].decoder
         parts: List[Tuple[DecodeState, List[int]]] = []
         reqs: List[Optional[ServeRequest]] = []
@@ -488,6 +519,9 @@ class BlockScheduler:
             reqs.extend([None] * (new_b - len(reqs)))
         state = decoder.merge_rows(parts)
         for g in gangs:
+            # a prefix-cached source's buffer was read by the merge's
+            # gather: release it only now
+            self._release(decoder, g.state)
             self.gangs.remove(g)
         self.gangs.append(Gang(decoder, state, reqs))
         self.merges += 1
@@ -562,9 +596,11 @@ class BlockScheduler:
     def _admit(self) -> None:
         free = self.max_slots - self.slots_used
         # resumed (preempted) states go first, at their original block.
-        # A non-dkv parked state holds no KV and adopts the bound buffer
-        # at its next block; a dkv one carries its gathered rows. A
-        # resumed row is padded to ``batch_multiple`` like any gang.
+        # A parked state holds no KV and adopts the bound buffer at its
+        # next block, or, prefix-cached, gets a pool buffer and its prompt
+        # KV re-primed (its own chunks are usually still in the store, so
+        # this is O(tail)); a dkv one carries its gathered rows. A resumed
+        # row is padded to ``batch_multiple`` like any gang.
         while self.paused and free > 0:
             req, state, decoder = self.paused[0]
             padded = self._pad_batch(state.batch)
@@ -574,6 +610,16 @@ class BlockScheduler:
             if padded > state.batch:
                 state = decoder.take_rows(
                     state, [0] * padded, alloc_cache=False)
+            if state.cache is None and decoder.cache_carries_state:
+                def _resume(state=state, decoder=decoder):
+                    state.cache = self.pool.acquire(state.batch,
+                                                    state.total_len)
+                    decoder.prime_prompt_kv(state)
+                t0 = time.perf_counter()
+                self.compile_watch.watched(
+                    _resume, self.graph_cache_size, "resume",
+                    tracer=self.tracer, pid=self.pid)
+                self.prefill_wall_s += time.perf_counter() - t0
             if req.admit_time < 0:   # resume keeps the first admission
                 req.admit_time = time.perf_counter()
             self._trace_admit(req)
@@ -586,7 +632,7 @@ class BlockScheduler:
         # large backlog is exactly the continuous-batching regime)
         groups: Dict[tuple, List[ServeRequest]] = {}
         for r in self.waiting:
-            groups.setdefault(r.bucket, []).append(r)
+            groups.setdefault(self._group_key(r), []).append(r)
         admitted_ids = set()
         while free > 0:
             # Largest shape group first (mirrors the synchronous
@@ -621,6 +667,18 @@ class BlockScheduler:
             self.waiting = deque(r for r in self.waiting
                                  if id(r) not in admitted_ids)
 
+    def _group_key(self, r: ServeRequest) -> tuple:
+        """Admission group: shape bucket, plus (with the prefix cache on)
+        the *current* cached-hit depth in chunks, so gangs form
+        hit-homogeneous (a gang's prefill computes from the minimum hit
+        across its rows; a cold row in a warm gang would make every row
+        pay the cold row's prompt). Queried here, not frozen at submit:
+        the cache warms while requests queue."""
+        if self.prefix_cache is None:
+            return r.bucket
+        hit = self.prefix_cache.match_len(r.prompt_tokens)
+        return r.bucket + (hit // self.dcfg.cache_chunk,)
+
     def _gang_target(self, group_len: int, free: int,
                      decoder: DiffusionDecoder):
         """Pick (rows to admit, padded gang batch) for one shape group.
@@ -644,15 +702,16 @@ class BlockScheduler:
 
     def _form_gang(self, decoder: DiffusionDecoder, bucket, batch_reqs,
                    padded: int) -> Gang:
-        P, gen_len = bucket
+        P, gen_len = bucket[:2]   # the group key may carry a hit depth
         n = len(batch_reqs)
         prompts = np.stack(
             [r.prompt_tokens for r in batch_reqs]
             + [batch_reqs[0].prompt_tokens] * (padded - n)).astype(np.int32)
 
         def _build():
-            # only a dkv state owns a buffer; the others run on the
-            # decoder's bound one (pool docstring)
+            # only a state whose cache carries across blocks owns a
+            # buffer; the others run on the decoder's bound one (pool
+            # docstring)
             cache = None
             if decoder.cache_carries_state:
                 cache = self.pool.acquire(padded, P + gen_len)
@@ -666,9 +725,11 @@ class BlockScheduler:
             tracer=self.tracer, pid=self.pid)
         now = time.perf_counter()
         self.prefill_wall_s += now - t0
-        for r in batch_reqs:
+        for i, r in enumerate(batch_reqs):
             if r.admit_time < 0:
                 r.admit_time = now
+            if state.prefix_hit_tokens is not None:
+                r.cache_hit_tokens = int(state.prefix_hit_tokens[i])
             self._trace_admit(r)
         rows: List[Optional[ServeRequest]] = \
             list(batch_reqs) + [None] * (padded - n)
@@ -705,6 +766,8 @@ class BlockScheduler:
             max_tokens=req.max_tokens, cancelled=cancelled,
             host_syncs=req.host_syncs, logit_syncs=req.logit_syncs,
             trace_id=req.trace_id,
+            cache_hit_tokens=req.cache_hit_tokens,
+            expected_hit_tokens=req.expected_hit_tokens,
             prompt_tokens=req.prompt_tokens,
             commit_conf=conf,
             early_exited=req.blocks_decoded * K < req.gen_len)
@@ -800,9 +863,11 @@ class BlockScheduler:
                 if new_b < st.batch:
                     rows = open_rows + [open_rows[0]] * \
                         (new_b - len(open_rows))
-                    # non-dkv: the new state takes the bound buffer of
-                    # its new (B, T); nothing is gathered or pooled
+                    # the new state takes the bound buffer of its new
+                    # (B, T), or, prefix-cached, gathers its prompt KV
+                    # and the old buffer returns to the pool
                     new_state = gang.decoder.take_rows(st, rows)
+                    self._release(gang.decoder, st)
                     reqs = [gang.requests[i] for i in open_rows] \
                         + [None] * (new_b - len(open_rows))
                     kept.append(Gang(gang.decoder, new_state, reqs))

@@ -1,10 +1,13 @@
 """The port on the card: what the kernel wrappers refuse to launch, the
-confidence kernel on strided rows, and the CUDA-graph block loop on
+confidence kernel on strided rows, the GEMM against its plain version
+and bit for bit across batch sizes and row positions, and the CUDA-graph
+block loop on
 ``tiny`` (against the host loop for every method, two states
 interleaved, no new capture at known shapes, launch counts under
 replay), and continuous serving's use of it (compacted and merged states
 on graphs of a new batch, a dkv row parked and resumed, no capture after
-``ContinuousEngine.prewarm``). Each kernel against its plain version
+``ContinuousEngine.prewarm``, gangs of several sizes that compact and
+merge with every request equal to its B = 1 decode). Each kernel against its plain version
 at the main path's shapes, and llada-8b through the graphs, are checked
 by ``chip_smoke.py``. Needs a CUDA card; skips without one. Imports no JAX,
 so it runs where JAX is absent:
@@ -346,8 +349,8 @@ def test_prewarm_leaves_no_capture_after_it(tiny_cuda):
         **_BASE, "gen_len": 24, "early_exit": False}), max_slots=2,
         device="cuda")
     rep = eng.prewarm([(10, 24), (10, 8)])
-    # on the card every gang runs at one size (batch_multiple = max_gang)
-    assert rep["graphs"] == 3 + 1 and rep["batch_sizes"] == [2]
+    # gangs of 1 and 2 rows, each a set of graphs of its own
+    assert rep["graphs"] == 2 * (3 + 1) and rep["batch_sizes"] == [1, 2]
     uids = [eng.submit(prompt[i % 2], max_tokens=24 if i < 3 else 8)
             for i in range(5)]
     eng.step()
@@ -362,41 +365,150 @@ def test_prewarm_leaves_no_capture_after_it(tiny_cuda):
     assert all((c.tokens != cfg.mask_token_id).all() for c in done)
 
 
-def test_card_gangs_run_at_one_size(tiny_cuda):
-    """No decoder is batch-invariant on the card (cuBLAS picks its GEMM
-    by row count, ROADMAP C 1), so the scheduler there defaults to
-    ``batch_multiple = max_gang``: every gang, a resumed row's too, runs
-    at that one size, stragglers still merge, and a preempted row ends
-    with the tokens of an uninterrupted decode. An explicit
-    ``batch_multiple=1`` gives gangs that keep their admitted batch: a
-    gang with a freed lane does not compact, and nothing merges."""
-    from repro_torch.core.decoder import DecodeConfig
+def test_card_compacts_and_merges_gangs_of_several_sizes(tiny_cuda):
+    """On the card the decoder is batch-invariant (the model's products
+    run through the GEMM kernel, whose sum order does not depend on the
+    row count), so the scheduler forms gangs of several sizes, compacts a
+    gang when a row leaves and merges stragglers, and every request ends
+    with the tokens and commit confidences of its own B = 1 decode. The
+    script: three requests with max_gang 2 (gangs of 2 and 1); the
+    second is preempted after the first block (its gang compacts to 1)
+    and resumes as a gang of its own; the two 1-row gangs at the same
+    block merge."""
+    import numpy as np
+
+    from repro_torch.core.decoder import DecodeConfig, DiffusionDecoder
     from repro_torch.serving import BlockScheduler
     cfg, params, prompt = tiny_cuda
-    d = DecodeConfig(**{**_BASE, "gen_len": 24, "early_exit": False})
-    assert not _decoder(tiny_cuda).batch_invariant
+    prompts = np.concatenate([prompt, prompt[:1] + 1])
+    d = DecodeConfig(**{**_BASE, "gen_len": 32, "early_exit": False})
+    for m in ("vanilla", "prefix", "fast", "streaming"):
+        assert _decoder(tiny_cuda, method=m).batch_invariant
     assert not _decoder(tiny_cuda, method="dkv").batch_invariant
-
-    def run(preempt, **kw):
-        s = BlockScheduler(cfg, params, d, max_slots=4, max_gang=2,
-                           device="cuda", **kw)
-        for i in range(3):
-            s.submit(prompt[i % 2], 24, 24)
-        sizes, done, tick = set(), [], 0
-        while not s.idle:
-            done += s.tick()[1]
-            sizes |= {(g.batch, len(g.live_rows())) for g in s.gangs}
-            if tick == 0 and preempt:
-                s.preempt(1)
-            tick += 1
-        return s, sizes, {c.uid: c.tokens for c in done}
-
-    s, sizes, toks = run(True)
-    assert s.batch_multiple == 2 and {b for b, _ in sizes} == {2}
+    s = BlockScheduler(cfg, params, d, max_slots=4, max_gang=2,
+                       device="cuda")
+    assert s.batch_multiple == 1
+    for p in prompts:
+        s.submit(p, 32, 32)
+    sizes, done, tick = [], [], 0
+    while not s.idle:
+        done += s.tick()[1]
+        sizes.append(sorted(g.batch for g in s.gangs))
+        if tick == 0:
+            s.preempt(2)
+        tick += 1
+    assert {b for t in sizes for b in t} == {1, 2}, sizes
     assert s.merges >= 1
-    _, _, want = run(False)
-    assert sorted(toks) == sorted(want) == [1, 2, 3]
-    assert all((toks[u] == want[u]).all() for u in want)
-    s, sizes, _ = run(True, batch_multiple=1)
-    assert s.batch_multiple == 1 and s.merges == 0
-    assert (2, 1) in sizes                  # a freed lane, not compacted
+    dec = DiffusionDecoder(cfg, params, d, device="cuda")
+    for c in sorted(done, key=lambda c: c.uid):
+        ref = dec.generate(prompts[c.uid - 1][None].copy())
+        assert (c.tokens == ref.tokens[0]).all(), c.uid
+        assert np.array_equal(c.commit_conf, np.concatenate(
+            [b.commit_conf[0] for b in ref.block_stats])), c.uid
+
+
+# ------------------------------------------------------------------ GEMM
+
+def _bf16_ulp(v):
+    """The spacing of bfloat16 numbers at |v| (8 significant bits)."""
+    e = torch.frexp(v.abs().float())[1]
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def _gemm_ok(y, x, w):
+    """The kernel's y against the plain float32 product ``ref`` of the
+    same inputs. float32: max |y - ref| <= 2e-5 * max |ref| (the sums run
+    in another order). bfloat16: within one bf16 ulp of ref rounded to
+    bf16, the ulp taken at the larger of |ref| and 2^-10 * max |ref| (so
+    a sum that cancels to nearly 0 is held to the float32 order error
+    of its terms, not to the spacing at 0)."""
+    ref = x.float() @ w.float()
+    scale = ref.abs().max()
+    if y.dtype == torch.float32:
+        return bool((y - ref).abs().max() <= 2e-5 * scale)
+    tol = _bf16_ulp(torch.maximum(ref.abs(), scale * 2.0 ** -10))
+    return bool(((y.float() - ref.to(torch.bfloat16).float()).abs()
+                 <= tol).all())
+
+
+# (M, K, N): a llada-8b denoise step at B = 4 (q/k/v/o, gate/up, down),
+# a refresh of a middle block (4 rows of prefix 256 + 129), the LM head
+_GEMM_SHAPES = {"step_qkvo": (516, 4096, 4096), "step_gate_up": (516, 4096,
+                                                                 12288),
+                "step_down": (516, 12288, 4096),
+                "refresh_gate_up": (1540, 4096, 12288),
+                "head": (128, 4096, 126464), "ragged": (37, 72, 40)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(_GEMM_SHAPES))
+def test_gemm_kernel_matches_plain(cuda, shape, dtype):
+    M, K, N = _GEMM_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((K, N), generator=g, device=cuda)
+         / K ** 0.5).to(dtype)
+    before = ops.LAUNCHES["gemm"]
+    y = ops.gemm(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gemm"] == before + 1
+    assert y.dtype == dtype and y.shape == (M, N)
+    assert _gemm_ok(y, x, w)
+
+
+@pytest.mark.parametrize("KN", [(4096, 4096), (4096, 12288), (12288, 4096)],
+                         ids=["qkvo", "gate_up", "down"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_row_is_bit_equal_at_every_batch_size_and_position(cuda, KN,
+                                                                dtype):
+    """129 rows (one request's denoise step) multiplied alone (B = 1) and
+    placed at every request slot j < B of a batch of B = 1..8 requests
+    (M = 129 * B, the other rows random): their outputs are bit-equal."""
+    K, N = KN
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = (torch.randn((K, N), generator=g, device=cuda) / K ** 0.5).to(dtype)
+    x0 = torch.randn((129, K), generator=g, device=cuda).to(dtype)
+    y0 = ops.gemm(x0, w)
+    for B in range(2, 9):
+        x = torch.randn((129 * B, K), generator=g, device=cuda).to(dtype)
+        for j in range(B):
+            xj = x.clone()
+            xj[129 * j:129 * (j + 1)] = x0
+            y = ops.gemm(xj, w)
+            assert torch.equal(y[129 * j:129 * (j + 1)], y0), (B, j)
+
+
+def test_gemm_captures_in_a_cuda_graph(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((258, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((4096, 4096), generator=g, device=cuda)
+         / 64).to(torch.bfloat16)
+    ops.gemm(x, w)                       # first use: builds, sets smem
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = ops.gemm(x, w)
+    x.copy_(torch.randn(x.shape, generator=g, device=cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, ops.gemm(x, w))
+
+
+def test_gemm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    before = dict(ops.LAUNCHES)
+    x = torch.randn((8, 64), device=cuda)
+    w = torch.randn((64, 32), device=cuda)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.gemm(x.half(), w.half())
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.gemm(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gemm(x, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.gemm(x[:, :60].contiguous().to(torch.bfloat16),
+                 w[:60].contiguous().to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shapes"):
+        ops.gemm(x, w[:32])
+    with pytest.raises(ValueError, match="devices"):
+        ops.gemm(x, w.cpu())
+    assert ops.LAUNCHES == before

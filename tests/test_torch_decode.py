@@ -209,7 +209,8 @@ def test_serve_cli_on_cpu():
                       "float32", "--n", "3", "--gen-len", "16", "--mode",
                       "batch"])
     assert out["served"] == 3 and out["nfe"] > 0
-    assert out["launches"] == {"block_attention": 0, "confidence_argmax": 0}
+    assert out["launches"] == {"block_attention": 0, "confidence_argmax": 0,
+                               "gemm": 0}
     assert out["host_syncs"] == 2             # one batch of two blocks
 
 
@@ -226,17 +227,17 @@ def test_serve_cli_dkv_host_loop_on_cpu():
 
 # ------------------------------------------------------------ boundaries
 
-@pytest.mark.parametrize("kw,item", [(dict(prefix_cache=True), "A7")])
+@pytest.mark.parametrize("kw,item", [(dict(executor=object()), "A11")])
 def test_unported_paths_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
-        DiffusionDecoder(CFG, PARAMS, DecodeConfig(**{**BASE, **kw}),
-                         device="cpu")
+        DiffusionDecoder(CFG, PARAMS, DecodeConfig(**BASE), device="cpu",
+                         **kw)
 
 
 def test_unported_engine_paths_raise():
-    """Continuous serving is ported (ROADMAP A6); what it does not have
-    yet raises naming its item: stealing and handoff (A10), executor
-    placement (A11), the prefix cache (A7), the auditor (A9)."""
+    """Continuous serving and the prefix cache are ported (ROADMAP A6,
+    A7); what they do not have yet raises naming its item: stealing and
+    handoff (A10), executor placement (A11), the auditor (A9)."""
     from repro_torch.serving import BlockScheduler, ContinuousEngine
     d = DecodeConfig(**BASE)
     eng = ContinuousEngine(CFG, PARAMS, d, device="cpu")
@@ -246,8 +247,7 @@ def test_unported_engine_paths_raise():
         with pytest.raises(NotImplementedError, match=item):
             call()
     for kw, item in ((dict(executor=object()), "A11"),
-                     (dict(prefill_only=True), "A10"),
-                     (dict(prefix_cache=object()), "A7")):
+                     (dict(prefill_only=True), "A10")):
         with pytest.raises(NotImplementedError, match=item):
             BlockScheduler(CFG, PARAMS, d, device="cpu", **kw)
 
@@ -274,19 +274,30 @@ def test_defaulted_device_raises_without_cuda(monkeypatch):
             call()
 
 
+# modules the import checks must reach by name: the prefix cache copies
+# JAX-free modules of the JAX package (radix, store), which the port must
+# not import from there
+NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
+                 "repro_torch.cache.store", "repro_torch.cache.slicing",
+                 "repro_torch.kernels.gemm")
+
+
 def test_import_leaves_jax_out():
-    """Importing the port and every submodule loads no jax and nothing of
-    the JAX package (the test process itself has jax, so this runs in a
-    fresh interpreter)."""
+    """Importing the port and every submodule (the prefix cache and the
+    GEMM binding among them) loads no jax and nothing of the JAX package
+    (the test process itself has jax, so this runs in a fresh
+    interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"missing = [m for m in {NAMED_MODULES!r} if m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
-        "print(len(list(pkgutil.walk_packages(repro_torch.__path__))), bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(len(list(pkgutil.walk_packages(repro_torch.__path__))), bad,\n"
+        "      missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=120)
@@ -305,6 +316,9 @@ def test_no_jax_or_repro_imports_in_port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    named = {".".join(f.relative_to(ROOT / "src").with_suffix("").parts)
+             .replace(".__init__", "") for f in files[:-1]}
+    assert set(NAMED_MODULES) <= named
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]

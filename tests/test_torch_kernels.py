@@ -162,7 +162,10 @@ def test_cpu_wrappers_do_not_count_launches():
     _, t = _both(_attn_inputs(1, 8, 16, 2, 1, 16), "float32")
     ops.block_attention(*t)
     ops.confidence_argmax(torch.randn(3, 50))
-    assert ops.LAUNCHES == {"block_attention": 0, "confidence_argmax": 0}
+    ops.gemm(torch.randn(3, 8), torch.randn(8, 5))
+    ops.linear(torch.randn(2, 3, 8), torch.randn(8, 5))
+    assert ops.LAUNCHES == {"block_attention": 0, "confidence_argmax": 0,
+                            "gemm": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
