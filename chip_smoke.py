@@ -9,9 +9,12 @@ package. Phases, each printing JSON lines:
 1. device   — card name and power limit (nvidia-smi), torch/CUDA versions.
 2. build    — builds the CUDA sources of ``src/repro_torch/kernels/csrc``
               with nvcc (the port's kernel libraries: attention,
-              confidence, the GEMM and the CUDA-graph block loop, and two
-              probe builds of each TPU kernel's port, in parallel; ptxas
-              registers and spills per kernel).
+              confidence, the GEMM and the CUDA-graph block loop, two
+              probe builds of each of the first two and one of the GEMM,
+              in parallel; ptxas
+              registers and spills per kernel; from ``cuobjdump -sass``
+              each kernel's HGMMA, UTMALDG and HMMA counts: the bf16 GEMM
+              must use wgmma and TMA and no mma.sync).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the main path's shapes and at small edge cases, with its
               time, the plain version's, the library call's and the bound;
@@ -21,9 +24,12 @@ package. Phases, each printing JSON lines:
               denoise step as a unit, against the plain route; then the
               GEMM at every product of a llada-8b denoise step at
               B = 1..8, at a refresh and at the LM head, against its
-              plain version, cuBLAS and its bound.
-4. probe    — the bf16 attention kernel against its load path alone and
-              its math alone, at the timed shapes.
+              plain version, cuBLAS and its bound, with its tile plan
+              (tile, stages, CTAs, waves on the card's SMs).
+4. probe    — the GEMM against its probe build (its load path alone)
+              at a step's products and the head; the bf16 attention
+              kernel against its load path alone and its math alone, at
+              the timed shapes.
 5. reference — ``tiny`` (float32) on the card through the kernels against
               the plain path on the CPU: model logits and decode tokens;
               then llada-8b at full width, 2 layers, bf16, through the
@@ -47,7 +53,9 @@ package. Phases, each printing JSON lines:
 9. profile  — the middle block of that decode through its graph: wall
               time without the profiler, device time by kernel under it,
               idle share, and the blocking syncs inside the block; the
-              same block through the host loop for comparison.
+              same block through the host loop for comparison, with the
+              host's cost per eager launch (a tensor-map encode, the
+              GEMM's launch and wrapper, a PyTorch elementwise op).
 10. continuous — ``ContinuousEngine`` at llada-8b full width and depth on
               the serve phase's weights: prewarm, then a scripted mix of
               arrivals, a preempt and a cancel, timed, with gangs of
@@ -69,11 +77,14 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
+import importlib.util
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -661,11 +672,16 @@ def check_gemm(name, M, K, N, dtype=torch.bfloat16, *, plain=False):
     t_l2, t_k2 = time_ms(torch.matmul, sets), time_ms(ops.gemm, sets)
     bound, by = gemm_bound(M, K, N, dtype)
     plan = gemm.launch_plan(N, K, dtype)
+    ctas = math.prod(plan.grid(M))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rec = {"phase": "kernels", "kernel": "gemm", "route": "cuda",
            "case": name, "shape": {"M": M, "K": K, "N": N},
            "dtype": str(dtype).split(".")[-1],
            "plan": {"block": [plan.block_m, plan.block_n, plan.block_k],
-                    "stages": plan.stages, "grid": list(plan.grid(M))},
+                    "stages": plan.stages, "ctas": ctas,
+                    "smem_bytes": plan.smem_bytes,
+                    # bf16: one CTA per SM at a time (its ring fills the SM)
+                    "waves": ctas / sms if plan.tma else None},
            "max_abs_err": err, "ok": ok,
            "kernel_ms": (t_k + t_k2) / 2, "library_ms": (t_l + t_l2) / 2,
            "kernel_ms_turns": [t_k, t_k2], "library_ms_turns": [t_l, t_l2],
@@ -709,6 +725,38 @@ def phase_gemm():
     check_gemm("f32_ragged", 37, 72, 40, torch.float32)
     check_gemm("bf16_ragged", 37, 72, 40)
     return main
+
+
+def phase_gemm_probe():
+    """Where the GEMM's time goes: the kernel against its probe build
+    (``GEMM_PROBE=1`` in csrc/gemm.cu: the TMA load path alone, the
+    consumers releasing each stage without their wgmmas; its output is
+    garbage), in turns on the same inputs (kernel, probe, kernel, probe):
+    a step's products at B = 1, 4 and 8 and the LM head at B = 4."""
+    probe = gemm.load_probe()
+    cases = [(f"step_B{B}_{name}", 129 * B, K, N)
+             for B in (1, 4, 8) for name, K, N, _ in LLADA_PRODUCTS]
+    cases.append(("head_B4", 32 * 4, *LLADA_HEAD))
+    for name, M, K, N in cases:
+        sets = []
+        for seed in range(n_copies((M * K + K * N) * 2)):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            sets.append((torch.randn((M, K), generator=g, device="cuda").to(
+                torch.bfloat16), (torch.randn((K, N), generator=g,
+                                              device="cuda")
+                                  / math.sqrt(K)).to(torch.bfloat16)))
+        y = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+
+        def timed(lib):
+            return time_ms(lambda x, w: gemm.launch(x, w, y, lib=lib), sets)
+
+        turns = [timed(None), timed(probe), timed(None), timed(probe)]
+        emit({"phase": "gemm_probe", "case": name,
+              "shape": {"M": M, "K": K, "N": N},
+              "kernel_ms": (turns[0] + turns[2]) / 2,
+              "load_only_ms": (turns[1] + turns[3]) / 2, "turns": turns})
+        del sets
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ model
@@ -1599,6 +1647,63 @@ def syncs_inside(prof, label):
                   and span.start <= e.time_range.start <= span.end)
 
 
+def encode_us(n: int = 20000) -> float:
+    """Host µs per ``cuTensorMapEncodeTiled`` of the map gemm.cu makes
+    for W at a (4096, 4096) product (bf16, 64 x 64 boxes, 128-byte
+    swizzle, zero fill), two of which it encodes per launch; called here
+    through ctypes, whose cost is included."""
+    fn = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
+    fn.restype = ctypes.c_int
+    w = torch.empty((4096, 4096), dtype=torch.bfloat16, device="cuda")
+    buf = ctypes.create_string_buffer(128 + 64)        # a 64-byte aligned map
+    args = [ctypes.c_void_p((ctypes.addressof(buf) + 63) & ~63),
+            ctypes.c_int(9), ctypes.c_uint32(2),      # bf16, rank 2
+            ctypes.c_void_p(w.data_ptr()), (ctypes.c_uint64 * 2)(4096, 4096),
+            (ctypes.c_uint64 * 1)(4096 * 2), (ctypes.c_uint32 * 2)(64, 64),
+            (ctypes.c_uint32 * 2)(1, 1), ctypes.c_int(0),
+            ctypes.c_int(3), ctypes.c_int(3),          # 128B swizzle, L2 256B
+            ctypes.c_int(0)]
+    if fn(*args) != 0:
+        raise AssertionError("cuTensorMapEncodeTiled failed")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host µs to issue one ``fn()``: n calls back to back without a
+    sync, fewer than the launch queue holds, so the host never waits for
+    the card; the least of three runs."""
+    fn()
+    best = math.inf
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / n * 1e6
+
+
+def host_costs() -> dict:
+    """What one eager launch of the host loop costs the host: a tensor-map
+    encode, ``gemm.launch`` (ctypes, two encodes, the launch),
+    ``ops.linear`` (its checks and output allocation besides), and one
+    PyTorch elementwise op, at a step's q/k/v/o shape at B = 4."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((516, 4096), generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn((4096, 4096), generator=g, device="cuda").to(
+        torch.bfloat16)
+    y = torch.empty((516, 4096), dtype=torch.bfloat16, device="cuda")
+    return {"encode_us": encode_us(),
+            "gemm_launch_us": host_us(lambda: gemm.launch(x, w, y)),
+            "linear_us": host_us(lambda: ops.linear(x, w)),
+            "torch_add_us": host_us(lambda: torch.add(x, x, out=y))}
+
+
 def phase_profile(cfg, dec, hdec, tokens):
     """Where a main-path block's time goes: the middle block of the same
     llada-8b streaming decode through its CUDA graph, once timed without
@@ -1607,7 +1712,8 @@ def phase_profile(cfg, dec, hdec, tokens):
     torch.profiler for device time by kernel and the blocking syncs
     inside the block. Idle share = 1 - kernel time / unprofiled wall.
     The same block through the host loop, timed and profiled the same
-    way, gives the per-kernel breakdown of the eager passes."""
+    way, gives the per-kernel breakdown of the eager passes, and
+    ``host_costs`` what one of its launches costs the host."""
     state = dec.prefill(tokens.copy())
     mid = GEN_LEN // BLOCK // 2
     while state.block_idx < mid:
@@ -1642,6 +1748,7 @@ def phase_profile(cfg, dec, hdec, tokens):
             "device_idle_share": 1 - busy / wall_us,
             "device_us_by_group": groups,
             "kernel_launches_traced": sum(c for _, _, c in kernels),
+            "wall_us_per_launch": wall_us / sum(c for _, _, c in kernels),
             "blocking_syncs_in_block": syncs_inside(prof, "decode_block"),
             "top": [{"name": k[:80], "device_us": us, "calls": c}
                     for us, k, c in kernels[:10]],
@@ -1651,6 +1758,7 @@ def phase_profile(cfg, dec, hdec, tokens):
         del twin
     same = bool((state.x == twins[1].x).all())
     rec["graph_block_equals_host_block"] = same
+    rec["host_costs"] = host_costs()
     rec["ok"] = same and len(rec["graph"]["blocking_syncs_in_block"]) == 1
     emit(rec)
     if not rec["ok"]:
@@ -1662,6 +1770,18 @@ def phase_profile(cfg, dec, hdec, tokens):
 
 # ------------------------------------------------------------------ main
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol
+    (the identifier after its length digits, so the file name in the
+    anonymous namespace's prefix does not match)."""
+    m = re.search(r"\d((?:attn|conf|gemm|set_if)_\w*?kernel)"
+                  r"(I(?:L\w+?E)+E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[a-z](\w+?)E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
 def ptxas_report(log: str):
     """Per kernel instantiation: registers, spills, static shared memory,
     from nvcc's ``-Xptxas -v`` output."""
@@ -1669,11 +1789,7 @@ def ptxas_report(log: str):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1)
-            short = re.search(r"((?:attn|conf|gemm)_\w+?_kernel)I(.*?)EEv",
-                              name)
-            funcs.append({"kernel": short.group(1) + "<" + short.group(2)
-                          + ">" if short else name, "registers": None,
+            funcs.append({"kernel": kernel_name(m.group(1)), "registers": None,
                           "spill_stores": 0, "spill_loads": 0,
                           "smem_static": 0})
             continue
@@ -1692,6 +1808,45 @@ def ptxas_report(log: str):
     return funcs
 
 
+def cuobjdump_path():
+    """The toolkit's cuobjdump, else the copy in Triton's package, else
+    None."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/cuobjdump"):
+        return "/usr/local/cuda/bin/cuobjdump"
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        cand = os.path.join(os.path.dirname(spec.origin), "backends",
+                            "nvidia", "bin", "cuobjdump")
+        if os.path.exists(cand):
+            return cand
+    return None
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_report(tool: str, lib) -> list:
+    """Per kernel of a built library: how many HGMMA (wgmma), UTMALDG
+    (TMA tensor loads) and HMMA (mma.sync) instructions its SASS holds."""
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs = []
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            funcs.append({"kernel": kernel_name(m.group(1)),
+                          **{op: 0 for op in SASS_OPS}})
+            continue
+        if funcs:
+            for op in SASS_OPS:
+                if re.search(r"\b" + op + r"\b", ln):
+                    funcs[-1][op] += 1
+    return funcs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1707,12 +1862,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # one nvcc per library, all started together: the port's kernel
-    # libraries and the two probe builds of each kernel
+    # libraries and their probe builds
     jobs = [("block_attention", ()), ("confidence", ()), ("graph_loop", ()),
             ("gemm", ()), ("block_attention", ("ATTN_PROBE=1",)),
             ("block_attention", ("ATTN_PROBE=2",)),
             ("confidence", ("CONF_PROBE=1",)),
-            ("confidence", ("CONF_PROBE=2",))]
+            ("confidence", ("CONF_PROBE=2",)), ("gemm", ("GEMM_PROBE=1",))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda j: build.compile_library(*j), jobs))
     build.load("block_attention")
@@ -1722,13 +1877,25 @@ def main() -> int:
     t_nvcc = time.perf_counter() - t0
     ptxas = [f for lib in libs[:4]
              for f in ptxas_report(lib.with_suffix(".log").read_text())]
+    tool = cuobjdump_path()
+    sass = ([dict(f, library=name) for (name, _), lib in zip(jobs[:4], libs)
+             for f in sass_report(tool, lib)] if tool
+            else "not available (no cuobjdump in the toolkit or Triton)")
     emit({"phase": "build", "nvcc_s": t_nvcc,
           "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:4]],
           "ptxas": ptxas,
-          "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas)})
+          "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas),
+          "cuobjdump": tool, "sass": sass})
+    if tool:
+        # the bf16 GEMM reaches wgmma and TMA, and no mma.sync is left
+        bf16 = [f for f in sass if f["kernel"].startswith("gemm_bf16")]
+        if not bf16 or not all(f["HGMMA"] and f["UTMALDG"] and not f["HMMA"]
+                               for f in bf16):
+            raise AssertionError(f"gemm_bf16_kernel SASS: {bf16}")
 
     step, conf = phase_kernels()
     gemm_main = phase_gemm()
+    phase_gemm_probe()
     phase_probe()
     phase_reference()
     phase_reference_llada()

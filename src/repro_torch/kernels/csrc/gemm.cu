@@ -9,216 +9,344 @@
 // the batch. The decoder's exactness contract (a row decodes to the same
 // bits whatever gang it sits in: compaction, merges, the prefix cache's
 // in-batch recompute) needs a sum whose order depends on (N, K) alone:
-//   - no split-K, no stream-K: one thread sums each output over all of K;
+//   - no split-K, no stream-K: one accumulator holds each output over all
+//     of K;
 //   - K is walked in one fixed order: BLOCK_K tiles ascending, then the
-//     tile's 16-wide mma k-steps ascending (bf16), or k ascending with one
-//     fma each (float32);
-//   - the tile configuration is a constant of the dtype (and so of
-//     (N, K, dtype): kernels/gemm.py:launch_plan takes no M);
-//   - rows past M are zeros in shared memory, never another variant;
-//     columns past N and the K tail likewise (a zero product adds +0).
+//     tile's k16 wgmma steps ascending, all into the same registers
+//     (bf16), or k ascending with one fma each (float32);
+//   - the tile configuration is a function of (N, K, dtype) only
+//     (kernels/gemm.py:launch_plan takes no M);
+//   - rows past M are zeros (TMA's out-of-bounds fill), never another
+//     variant; columns past N and the K tail likewise (a zero product
+//     adds +0). Which CTA computes a tile, and whether a warpgroup whose
+//     rows all lie past M skips its wgmmas, changes no sum.
 //
 // x: (M, K) row-major; W: (K, N) row-major (the JAX layout the port
 // keeps); y: (M, N) row-major in x's dtype; accumulation in float32.
 //
 // What bounds it on the H100, at the main path's shapes (llada-8b, B
-// requests of Sq = 129): the weight bytes at B <= 2, the bf16 tensor-core
-// rate above (a gate/up product at B = 4 is 51.9 GFLOP, 0.052 ms at
-// 989 TFLOP/s, against 100.7 MB of weights, 0.030 ms at 3.35 TB/s). The
-// design is the plain multistage one, kept simple:
-//   - bf16: a 128 x 128 output tile per CTA of 8 warps (2 x 4, each
-//     64 x 32: 4 x 4 mma.sync.m16n8k16 tiles, float32 accumulators);
-//     a 4-stage cp.async ring of 128 x 32 x-tiles and 32 x 128 W-tiles in
-//     shared memory, rows padded by 16 bytes so ldmatrix (x4 for x, x4.trans
-//     for W) is free of bank conflicts; the grid runs the row tiles of one
-//     column tile next to each other, so a W tile is read from device
-//     memory once and the small x is re-read from L2;
-//   - float32 (the `tiny` config): a plain 64 x 64 FFMA tile loop, 4 x 4
-//     outputs per thread, no TF32 (it would change the numbers).
-// mma.sync reaches only part of the card's bf16 rate, and the M tail of a
-// 129-row request is computed on zeros up to the next 128: wgmma with a
-// TMA ring is the next step (ROADMAP B 3).
+// requests of Sq = 129 rows, the head on 32 rows a request): the weight
+// bytes at B <= 2 and in the LM head, the bf16 tensor-core rate above (a
+// gate/up product at B = 4 is 51.9 GFLOP, 0.052 ms at 989 TFLOP/s,
+// against 100.7 MB of weights, 0.030 ms at 3.35 TB/s). Only wgmma reaches
+// that rate, and only if shared memory stays full without the math warps
+// spending issue slots on copies. The bf16 design:
+//   - TMA moves the tiles: x through a 2-D tensor map (K, M) in boxes of
+//     64 k x 128 rows, W through one (N, K) in boxes of 64 n x 64 k, both
+//     with the 128-byte swizzle wgmma reads (64 bf16 = 128 bytes); rows
+//     past M and columns past N are the hardware's zero fill. The maps are
+//     kernel parameters (__grid_constant__), so a CUDA graph records them
+//     with the launch; the host encodes them at each launch (a pure
+//     function of pointer, shape and box, cheap beside the launch);
+//   - a ring in shared memory of 128 x 64 x-boxes and 64 x 256 W-tiles,
+//     each stage with a "full" mbarrier (the producer's expect_tx; TMA
+//     completes it) and an "empty" one (each consumer warp arrives once
+//     its wgmmas on the stage have retired);
+//   - warp roles: one producer thread issues every copy; two consumer
+//     warpgroups own 64 rows x 256 columns each and issue, per stage, four
+//     wgmma.mma_async m64n256k16 in ascending k (A K-major, B N-major
+//     through the transpose-B bit), commit them, and retire the previous
+//     stage's group (wait_group 1), so the tensor cores hold one stage's
+//     work while the next is issued. setmaxnreg moves the producer
+//     warpgroup's registers to the consumers (128 accumulators each);
+//   - one tile for every product: 128 x 256, 4 stages of 48 KB, the
+//     widest wgmma, which moves the fewest bytes per operation from L2.
+//     Without split-K a product has only ceil(M / 128) * ceil(N / 256)
+//     tiles to spread over 132 SMs, and which width fills the SMs best
+//     depends on M (a 192-wide tile won at B <= 4 requests on N = 4096
+//     and lost at B = 6), which the tile may not see.
+//     One CTA per tile, the row tiles of one column tile next to each
+//     other (a W tile comes from device memory once, then from L2); the
+//     card hands out tiles as SMs free up, which kept the SMs at least as
+//     busy as persistent CTAs walking the tiles in a fixed order did;
+//   - the M tail: a request's 129 rows leave one live row in a second
+//     row tile. A consumer warpgroup whose 64 rows all lie past M waits
+//     and releases each stage without issuing its wgmmas, so the tail
+//     costs a warpgroup's 64 rows, not a tile's 128;
+//   - the epilogue rounds to bf16 (nearest even) and stores rows < M and
+//     columns < N straight from the accumulators.
+// The float32 route (the `tiny` config) is a plain 64 x 64 FFMA tile
+// loop, 4 x 4 outputs per thread, no TF32 (it would change the numbers).
+// Where the time goes: chip_smoke.py times the kernel beside cuBLAS and
+// its bound at every product of a step at B = 1..8, and its probe build
+// below against it. On the H100 the load path alone (probe 1)
+// takes most of the kernel's time from B = 4 on: the feed of x and W
+// boxes from L2 into shared memory, not the tensor cores, bounds it
+// there (each row tile reads all of its W column again), so a tile that
+// loads fewer bytes per operation is the next lever (PERF.md).
+#include <cuda.h>            // CUtensorMap and its enums; no -lcuda
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+// GEMM_PROBE=1 (chip_smoke.py only): the load path alone (the consumers
+// release each stage without their wgmmas; the output is garbage).
+#ifndef GEMM_PROBE
+#define GEMM_PROBE 0
+#endif
+
 namespace {
 
-// must match kernels/gemm.py
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 4, kThreads = 256;
-constexpr int kWM = kBM / 2, kMI = kWM / 16;  // warp rows, m16 tiles a warp
-constexpr int kAPitch = kBK + 8;             // bf16 per x-tile row (80 bytes)
-constexpr int kBPitch = kBN + 8;             // bf16 per W-tile row (272 bytes)
-constexpr int kAStage = kBM * kAPitch;       // bf16 per stage
-constexpr int kBStage = kBK * kBPitch;
-constexpr int kSmemBytes = kStages * (kAStage + kBStage) * 2;
-
+// must match kernels/gemm.py:_TILES and launch_plan
+constexpr int kBM = 128, kBN = 256, kBK = 64, kStages = 4, kThreads = 384;
 constexpr int kFBM = 64, kFBN = 64, kFBK = 16, kFThreads = 256;
+
+constexpr int kBox = 64;              // bf16 in a 128-byte swizzled row
+constexpr int kConsumers = 2;         // warpgroups of 64 rows each
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kABytes = kBM * kBK * 2;           // one x box
+constexpr int kBoxBytes = kBK * kBox * 2;        // one W box
+constexpr int kStageBytes = kABytes + kBN / kBox * kBoxBytes;
+// the ring, 1024 bytes to align it, and 2 mbarriers a stage
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+static_assert(kBN % kBox == 0 && kStageBytes % 1024 == 0,
+              "stages must hold whole 1024-byte swizzle atoms");
+static_assert(kSmemBytes <= 232448, "dynamic shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
+// Arrive and add `bytes` to the transaction count the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Returns once the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 2-D box of the tensor map at (c0 inner, c1 outer) into shared
+// memory; its bytes complete the barrier's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, LBO
+// and SBO in bytes (stored in 16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>(lbo >> 4) << 16
+         | static_cast<uint64_t>(sbo >> 4) << 32
+         | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One stage: the x tile rows [m0, m0+BM) x cols [k0, k0+BK) and the W
-// tile rows [k0, k0+BK) x cols [n0, n0+128), in 16-byte chunks spread
-// over the threads. Out-of-range chunks are zero-filled (K % 8 == 0 and
-// N % 8 == 0, so a chunk is wholly in or out).
-__device__ __forceinline__ void load_stage(
-    __nv_bfloat16* as, __nv_bfloat16* bs, const __nv_bfloat16* x,
-    const __nv_bfloat16* w, int M, int N, int K, int m0, int n0, int k0) {
-  constexpr int kAChunks = kBM * kBK / 8 / kThreads;
-  constexpr int kBChunks = kBK * kBN / 8 / kThreads;
+// Keeps the compiler from moving accumulator reads across a wgmma wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-  for (int i = 0; i < kAChunks; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c / (kBK / 8), col = (c % (kBK / 8)) * 8;
-    const bool in = (m0 + r < M) && (k0 + col < K);
-    const __nv_bfloat16* src =
-        in ? x + static_cast<long long>(m0 + r) * K + k0 + col : x;
-    cp_async16(as + r * kAPitch + col, src, in ? 16 : 0);
-  }
-#pragma unroll
-  for (int i = 0; i < kBChunks; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c >> 4, col = (c & 15) * 8;
-    const bool in = (k0 + r < K) && (n0 + col < N);
-    const __nv_bfloat16* src =
-        in ? w + static_cast<long long>(k0 + r) * N + n0 + col : w;
-    cp_async16(bs + r * kBPitch + col, src, in ? 16 : 0);
-  }
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ w,
+// d (64 x 256 f32, 128 a thread) += A (64 x 16, K-major) * B (16 x 256,
+// N-major: the transpose-B bit), both read from shared memory.
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The bf16 kernel: one CTA per 128 x 256 tile, of two consumer
+// warpgroups (warps 0-7) and a producer warpgroup (warps 8-11, of which
+// one thread works). CTA t computes row tile t % row_tiles of column tile
+// t / row_tiles.
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                 const __grid_constant__ CUtensorMap tmap_w,
                  __nv_bfloat16* __restrict__ y, int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* as_base = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* bs_base = as_base + kStages * kAStage;
+  constexpr int S = kStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  // stage s: the x box at ring + s * kStageBytes, then the W boxes; the
+  // full barriers, then the empty ones, after the last stage
+  const uint32_t ring = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t full = ring + S * kStageBytes;
+  const uint32_t empty = full + 8 * S;
 
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp & 1) * kWM, wn = (warp >> 1) * 32;
+  const int row_tiles = (M + kBM - 1) / kBM;
+  const int m0 = (blockIdx.x % row_tiles) * kBM;
+  const int n0 = (blockIdx.x / row_tiles) * kBN;
   const int ktiles = (K + kBK - 1) / kBK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  float acc[kMI][4][4];
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles)
-      load_stage(as_base + s * kAStage, bs_base + s * kBStage, x, w, M, N, K,
-                 m0, n0, s * kBK);
-    cp_async_commit();
-  }
-
-  // ldmatrix row addresses inside a stage: x rows (lane % 16) at k-column
-  // 8 * (lane / 16); W rows (k) lane % 8 + 8 * ((lane / 8) % 2) at
-  // n-column 8 * (lane / 16)
-  const int a_row = wm + (lane & 15), a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int b_col = wn + (lane >> 4) * 8;
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();   // tile kt landed; stage (kt - 1) % kStages is free
-    const int nk = kt + kStages - 1;
-    if (nk < ktiles)
-      load_stage(as_base + (nk % kStages) * kAStage,
-                 bs_base + (nk % kStages) * kBStage, x, w, M, N, K, m0, n0,
-                 nk * kBK);
-    cp_async_commit();
-
-    const __nv_bfloat16* as = as_base + (kt % kStages) * kAStage;
-    const __nv_bfloat16* bs = bs_base + (kt % kStages) * kBStage;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[kMI][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < kMI; ++mi)
-        ldmatrix_x4(a[mi], as + (a_row + mi * 16) * kAPitch + kk + a_col);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (kk + b_row) * kBPitch + b_col + nj * 16);
-        b[2 * nj][0] = r[0];
-        b[2 * nj][1] = r[1];
-        b[2 * nj + 1][0] = r[2];
-        b[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);                     // the producer's
+      mbar_init(empty + 8 * s, kConsumers * 4);       // each consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // accumulator layout: c0, c1 at (row g, cols 2t, 2t + 1), c2, c3 at
-  // row g + 8 (g = lane / 4, t = lane % 4)
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < kMI; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn + ni * 8 + 2 * t;
-      if (col >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + mi * 16 + g + h * 8;
-        if (row < M)
-          *reinterpret_cast<__nv_bfloat162*>(
-              y + static_cast<long long>(row) * N + col) =
-              __floats2bfloat162_rn(acc[mi][ni][2 * h],
-                                    acc[mi][ni][2 * h + 1]);
+  if (warp >= kConsumers * 4) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     kProducerRegs));
+    if (threadIdx.x != kConsumers * 128) return;
+    tma_prefetch(&tmap_x);
+    tma_prefetch(&tmap_w);
+    // W boxes with a live column (a box wholly past N is not loaded; the
+    // columns it would hold are never stored)
+    const int boxes = min(kBN / kBox, (N - n0 + kBox - 1) / kBox);
+    const int bytes = kABytes + boxes * kBoxBytes;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % S;
+      mbar_wait(empty + 8 * s, ((kt / S) & 1) ^ 1);
+      const uint32_t bar = full + 8 * s;
+      const uint32_t dst = ring + s * kStageBytes;
+      mbar_expect_tx(bar, bytes);
+      tma_load(dst, &tmap_x, bar, kt * kBK, m0);
+      for (int j = 0; j < boxes; ++j)
+        tma_load(dst + kABytes + j * kBoxBytes, &tmap_w, bar,
+                 n0 + j * kBox, kt * kBK);
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     kConsumerRegs));
+    const int wg = warp >> 2;
+    const int r0 = m0 + wg * 64;
+    if (r0 >= M || GEMM_PROBE == 1) {
+      // every row of this warpgroup lies past M (or the load-path probe):
+      // release the stages as they land
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % S;
+        mbar_wait(full + 8 * s, (kt / S) & 1);
+        if (lane == 0) mbar_arrive(empty + 8 * s);
       }
+      return;
+    }
+    float acc[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % S;
+      mbar_wait(full + 8 * s, (kt / S) & 1);
+      // A: this warpgroup's 64 rows of the x box (K-major, 128-byte rows,
+      // 8-row atoms 1024 bytes apart), a k16 step 32 bytes on. B: the W
+      // boxes (N-major: 64-column atoms kBoxBytes apart, 8-k groups 1024
+      // bytes apart), a k16 step 16 rows = 2048 bytes on.
+      const uint32_t a = ring + s * kStageBytes + wg * 64 * 128;
+      const uint32_t b = ring + s * kStageBytes + kABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_n256(acc, smem_desc(a + kk * 32, 16, 1024),
+                   smem_desc(b + kk * 2048, kBoxBytes, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();        // the previous stage's wgmmas have retired
+      if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % S));
+    }
+    wgmma_wait<0>();
+    fence_acc<kBN / 2>(acc);
+
+    // accumulator layout (m64nNk16, f32): warp w of the group holds rows
+    // 16 w + lane / 4 (acc[4 i], acc[4 i + 1]) and 8 below (acc[4 i + 2],
+    // acc[4 i + 3]), columns 8 i + 2 (lane % 4) and the next
+    const int ra = r0 + (warp & 3) * 16 + (lane >> 2), rb = ra + 8;
+    const int c0 = n0 + 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+      const int col = c0 + 8 * i;
+      if (col >= N) continue;
+      if (ra < M)
+        *reinterpret_cast<__nv_bfloat162*>(
+            y + static_cast<long long>(ra) * N + col) =
+            __floats2bfloat162_rn(acc[4 * i], acc[4 * i + 1]);
+      if (rb < M)
+        *reinterpret_cast<__nv_bfloat162*>(
+            y + static_cast<long long>(rb) * N + col) =
+            __floats2bfloat162_rn(acc[4 * i + 2], acc[4 * i + 3]);
     }
   }
 }
@@ -276,6 +404,70 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// cuTensorMapEncodeTiled is a driver call: reached through the runtime's
+// entry-point query, so the library links no -lcuda.
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D bf16 tensor map over a row-major (outer, inner) array, boxes of
+// (box_inner, box_outer), 128-byte swizzle, zeros out of bounds.
+cudaError_t tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner,
+                       uint64_t outer, uint32_t box_inner,
+                       uint32_t box_outer) {
+  EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * 2};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_bf16(const void* x, const void* w, void* y, int M, int N,
+                        int K, cudaStream_t s) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  CUtensorMap tx, tw;
+  cudaError_t e = tensor_map(&tx, x, K, M, kBox, kBM);
+  if (e == cudaSuccess) e = tensor_map(&tw, w, N, K, kBox, kBK);
+  if (e != cudaSuccess) return e;
+  const int grid = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  gemm_bf16_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+      tx, tw, static_cast<__nv_bfloat16*>(y), M, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
@@ -285,21 +477,12 @@ extern "C" int gemm_launch(const void* x, const void* w, void* y, int M,
   if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    // TMA: 16-byte row strides and base addresses
     if (K % 8 != 0 || N % 8 != 0) return cudaErrorInvalidValue;
-    static bool smem_set = false;
-    if (!smem_set) {
-      cudaError_t e = cudaFuncSetAttribute(
-          gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kSmemBytes);
-      if (e != cudaSuccess) return e;
-      smem_set = true;
-    }
-    dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-    gemm_bf16_kernel<<<grid, kThreads, kSmemBytes, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(y),
-        M, N, K);
-    return cudaGetLastError();
+    if (reinterpret_cast<uintptr_t>(x) % 16 != 0
+        || reinterpret_cast<uintptr_t>(w) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+    return launch_bf16(x, w, y, M, N, K, s);
   }
   if (dtype == 0) {
     dim3 grid((M + kFBM - 1) / kFBM, (N + kFBN - 1) / kFBN);

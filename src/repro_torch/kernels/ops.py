@@ -32,8 +32,9 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     an order that depends on (N, K, dtype) only (``kernels/gemm.py``).
     CPU tensors take the plain version (``ref.gemm_ref``); CUDA tensors
     the kernel: float32 or bfloat16, both contiguous, one dtype, one
-    device, and in bfloat16 K and N multiples of 8 with 16-byte aligned
-    rows. Anything else raises."""
+    device, and in bfloat16 (TMA tensor maps) K and N multiples of 8 and
+    16-byte aligned bases, so every row is 16-byte aligned. Anything else
+    raises."""
     _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
              f"gemm: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
     if x.device.type == "cpu":
@@ -176,10 +177,11 @@ def head_confidence_argmax(hidden, head, *, mask_id: int = -1,
     """LM-head projection + confidence/argmax (Eq. 4) over row chunks, so
     the full ``(..., V)`` logits never exist as one array. hidden:
     (..., d); head: (d, V). ``mask_id >= 0`` bans that token. The
-    projection is a plain ``torch.matmul`` in the hidden dtype; its
-    output goes to the kernel as it is (bf16 on the main path), and the
-    kernel widens it and bans ``mask_id`` as it reads it. A softcap, which
-    the kernel does not take, is applied in float32 first."""
+    projection is ``linear`` in the hidden dtype (``chunked_head_reduce``:
+    ``torch.matmul`` on the CPU, the GEMM kernel on the card); its output
+    goes to the kernel as it is (bf16 on the main path), and the kernel
+    widens it and bans ``mask_id`` as it reads it. A softcap, which the
+    kernel does not take, is applied in float32 first."""
     from repro_torch.core.schedule import chunked_head_reduce
 
     def reduce(logits):

@@ -14,6 +14,11 @@ so it runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
+import os
+import pathlib
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -433,11 +438,17 @@ def _gemm_ok(y, x, w):
 
 # (M, K, N): a llada-8b denoise step at B = 4 (q/k/v/o, gate/up, down),
 # a refresh of a middle block (4 rows of prefix 256 + 129), the LM head
+# at B = 4 and B = 1 (32 rows a request); the tails the bf16 kernel
+# treats apart: one request (M = 129: the second row tile has one live
+# row and a warpgroup that skips its wgmmas), one row, N and K that are
+# not multiples of 64 (a W box wholly past N, a zero-filled K tail)
 _GEMM_SHAPES = {"step_qkvo": (516, 4096, 4096), "step_gate_up": (516, 4096,
                                                                  12288),
                 "step_down": (516, 12288, 4096),
                 "refresh_gate_up": (1540, 4096, 12288),
-                "head": (128, 4096, 126464), "ragged": (37, 72, 40)}
+                "head": (128, 4096, 126464), "head_b1": (32, 4096, 126464),
+                "request_b1": (129, 4096, 4096), "one_row": (1, 4096, 4096),
+                "ragged_n136_k72": (129, 72, 136), "ragged": (37, 72, 40)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -456,34 +467,38 @@ def test_gemm_kernel_matches_plain(cuda, shape, dtype):
     assert _gemm_ok(y, x, w)
 
 
-@pytest.mark.parametrize("KN", [(4096, 4096), (4096, 12288), (12288, 4096)],
-                         ids=["qkvo", "gate_up", "down"])
+@pytest.mark.parametrize("KNR", [(4096, 4096, 129), (4096, 12288, 129),
+                                 (12288, 4096, 129), (4096, 126464, 32)],
+                         ids=["qkvo", "gate_up", "down", "head"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gemm_row_is_bit_equal_at_every_batch_size_and_position(cuda, KN,
+def test_gemm_row_is_bit_equal_at_every_batch_size_and_position(cuda, KNR,
                                                                 dtype):
-    """129 rows (one request's denoise step) multiplied alone (B = 1) and
-    placed at every request slot j < B of a batch of B = 1..8 requests
-    (M = 129 * B, the other rows random): their outputs are bit-equal."""
-    K, N = KN
+    """A request's rows (129 for a denoise step's products, 32 for the LM
+    head) multiplied alone (B = 1) and placed at every request slot
+    j < B of a batch of B = 1..8 requests (M = rows * B, the other rows
+    random): their outputs are bit-equal."""
+    K, N, R = KNR
     g = torch.Generator(device=cuda).manual_seed(1)
     w = (torch.randn((K, N), generator=g, device=cuda) / K ** 0.5).to(dtype)
-    x0 = torch.randn((129, K), generator=g, device=cuda).to(dtype)
+    x0 = torch.randn((R, K), generator=g, device=cuda).to(dtype)
     y0 = ops.gemm(x0, w)
     for B in range(2, 9):
-        x = torch.randn((129 * B, K), generator=g, device=cuda).to(dtype)
+        x = torch.randn((R * B, K), generator=g, device=cuda).to(dtype)
         for j in range(B):
             xj = x.clone()
-            xj[129 * j:129 * (j + 1)] = x0
+            xj[R * j:R * (j + 1)] = x0
             y = ops.gemm(xj, w)
-            assert torch.equal(y[129 * j:129 * (j + 1)], y0), (B, j)
+            assert torch.equal(y[R * j:R * (j + 1)], y0), (B, j)
 
 
 def test_gemm_captures_in_a_cuda_graph(cuda):
+    """A captured launch replays with its TMA tensor maps (kernel
+    parameters) on new contents of the same buffers."""
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn((258, 4096), generator=g, device=cuda).to(torch.bfloat16)
     w = (torch.randn((4096, 4096), generator=g, device=cuda)
          / 64).to(torch.bfloat16)
-    ops.gemm(x, w)                       # first use: builds, sets smem
+    ops.gemm(x, w)             # first use: builds, sets smem, encodes maps
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -492,6 +507,43 @@ def test_gemm_captures_in_a_cuda_graph(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(y, ops.gemm(x, w))
+
+
+_TAIL_CHILD = """
+import itertools, sys, torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import ops
+from test_torch_cuda import _gemm_ok
+g = torch.Generator(device="cuda").manual_seed(4)
+bad = []
+for M, K, N in itertools.product((1, 63, 64, 65, 127, 128, 129, 257),
+                                 (8, 72, 4104), (8, 40, 136, 264, 4104)):
+    x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=g, device="cuda")
+         / K ** 0.5).to(torch.bfloat16)
+    if not _gemm_ok(ops.gemm(x, w), x, w):
+        bad.append((M, K, N))
+torch.cuda.synchronize()
+print("bad", bad)
+"""
+
+
+def test_gemm_ring_finishes_at_every_tail(cuda):
+    """The bf16 kernel at every kind of tail of its 128 x 256 x 64 tile
+    (rows past M in one or both warpgroups, W boxes partly or wholly past
+    N, a K shorter than one box or one past a whole tile) finishes and
+    matches its plain version. It runs in a child process under a time
+    limit, so a ring whose barriers never complete (an ``expect_tx`` that
+    differs from what the boxes deliver) fails the test instead of
+    hanging the run."""
+    tests = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tests.parent / "src"), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", _TAIL_CHILD, str(tests)],
+                         capture_output=True, text=True, timeout=300,
+                         env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "bad []", out.stdout
 
 
 def test_gemm_wrapper_refuses_what_the_kernel_does_not_take(cuda):

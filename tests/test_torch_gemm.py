@@ -9,6 +9,7 @@ runs only on the card: ``tests/test_torch_cuda.py`` and
 import ast
 import inspect
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -51,12 +52,68 @@ def test_launch_plan_takes_no_row_count():
         # runs the same k loop
         for B in range(1, 9):
             M = 129 * B
-            assert plan.grid(M) == (-(-M // plan.block_m), plan.n_tiles)
-    bf = gemm.launch_plan(126464, 4096, torch.bfloat16)
-    assert (bf.block_m, bf.block_n, bf.block_k, bf.stages) == (128, 128, 32, 4)
-    assert bf.smem_bytes == 75776 and bf.n_tiles == 988
+            rows = -(-M // plan.block_m)
+            assert plan.row_tiles(M) == rows
+            want = (rows * plan.n_tiles,) if plan.tma else \
+                (rows, plan.n_tiles)
+            assert plan.grid(M) == want
+    head = gemm.launch_plan(126464, 4096, torch.bfloat16)
+    assert (head.block_m, head.block_n, head.block_k, head.stages,
+            head.threads) == (128, 256, 64, 4, 384)
+    assert head.smem_bytes == 197696 and head.n_tiles == 494
+    qkvo = gemm.launch_plan(4096, 4096, torch.bfloat16)
+    assert (qkvo.block_m, qkvo.block_n, qkvo.block_k, qkvo.stages) == \
+        (128, 256, 64, 4)
+    assert qkvo.smem_bytes == 197696 and qkvo.n_tiles == 16
     with pytest.raises(ValueError):
         gemm.launch_plan(64, 64, torch.float16)
+
+
+# (K, N) of every product: llada-8b's q/k/v, o, gate/up, down and LM
+# head; tiny's q/o, k/v, gate/up, down and head
+_PRODUCTS = {"llada_qkv": (4096, 4096), "llada_o": (4096, 4096),
+             "llada_gate_up": (4096, 12288), "llada_down": (12288, 4096),
+             "llada_head": (4096, 126464), "tiny_qo": (256, 256),
+             "tiny_kv": (256, 128), "tiny_gate_up": (256, 768),
+             "tiny_down": (768, 256), "tiny_head": (256, 320)}
+
+
+@pytest.mark.parametrize("product", list(_PRODUCTS))
+def test_bf16_plan_fits_the_card(product):
+    """The bf16 plan of each product: its ring fits the 227 KB a block
+    may use; every TMA box starts on a 1024-byte swizzle atom and has an
+    inner row of 128 bytes (the 128-byte swizzle's limit); the tile is
+    whole warpgroups of 64 rows, whole k16 wgmma steps and whole 64-wide
+    W boxes (wgmma takes N <= 256), the same tile for every N."""
+    K, N = _PRODUCTS[product]
+    plan = gemm.launch_plan(N, K, torch.bfloat16)
+    assert plan.tma
+    assert plan.smem_bytes <= 232448     # what an H100 block may use
+    x_box = plan.block_m * plan.block_k * 2
+    w_box = plan.block_k * gemm.BOX * 2
+    assert plan.stage_bytes == x_box + plan.block_n // gemm.BOX * w_box
+    boxes = [s * plan.stage_bytes + off for s in range(plan.stages)
+             for off in [0] + [x_box + j * w_box
+                               for j in range(plan.block_n // gemm.BOX)]]
+    assert all(off % 1024 == 0 for off in boxes)
+    assert gemm.BOX * 2 == 128 and plan.block_k == gemm.BOX
+    assert plan.block_m % 64 == 0 and plan.block_m // 64 == 2
+    assert plan.block_k % 16 == 0
+    assert plan.block_n % gemm.BOX == 0 and plan.block_n <= 256
+    assert plan.threads == 3 * 128       # two consumer groups, a producer
+    assert plan.block_n == 256 and plan.n_tiles == -(-N // 256)
+
+
+def test_gemm_cu_constants_match_the_plan():
+    """Every ``constexpr int`` of csrc/gemm.cu that ``_TILES`` names has
+    the value ``_TILES`` gives it, so the source and the plan cannot
+    drift apart."""
+    src = (PORT / "kernels" / "csrc" / "gemm.cu").read_text()
+    found = {}
+    for decl in re.findall(r"constexpr int ([^;]+);", src):
+        for name, value in re.findall(r"(k\w+) = (\d+)\b", decl):
+            found[name] = int(value)
+    assert {k: found.get(k) for k in gemm._TILES} == gemm._TILES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
