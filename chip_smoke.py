@@ -67,6 +67,16 @@ package. Phases, each printing JSON lines:
               waves through ``ContinuousEngine`` at gang sizes 1, 2 and 4
               with a preempt and resume, each request equal to its cold
               decode bit for bit (``phase_prefix_cache``).
+12. http    — the port's front end on the same weights, in this process:
+              ``HttpFrontend`` over ``EngineLoop`` with the prefix cache,
+              the shadow auditor (host and cold lanes), the block
+              profiler, the metrics recorder, the SLO watchdog and the
+              flight recorder, driven over loopback by
+              ``repro_torch.server.client``: two timed bursts (JSON and
+              SSE, a shared system prompt, a deadline, a disconnect),
+              every endpoint, a burst above max_pending (429) and the
+              drain; every finished request equal to its decode alone
+              (``phase_http``, ``http_traffic``).
 
 Then the kernels summary line (launches counted
 on the continuous phase's timed run; the GEMM has no TPU kernel behind
@@ -79,6 +89,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -1603,6 +1614,572 @@ def phase_prefix_cache(cfg, params):
     return rec
 
 
+# ------------------------------------------------------------ http
+
+HTTP_PROMPT, HTTP_SHARED, HTTP_GEN = 256, 192, 128
+HTTP_MAX_PENDING = 4
+# the deadline request's timeout_s. It is sent first, to an idle loop,
+# so its prefill and first block run in the step that admits it, before
+# the loop checks a deadline; 0.5 s is less than that step at llada-8b
+# (~1 s at B = 1), so the deadline ends it after its first block (after
+# two on a card twice as fast), never before one or after all four
+HTTP_TIMEOUT_S = 0.5
+PROM_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+PROM_SAMPLE = re.compile(rf"^({PROM_NAME})(?:\{{(.*)\}})?\s(\S+)$")
+PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prometheus(text):
+    """Strict parse of Prometheus text format 0.0.4: HELP, then TYPE,
+    then samples per family; known types; label sets and float values
+    that parse; no sample twice. Returns {family: [(name, labels,
+    value)]}; raises on any breach."""
+    fams, types, seen = {}, {}, set()
+    for ln in text.splitlines():
+        if not ln.strip():
+            continue
+        if ln.startswith("# HELP "):
+            name = ln.split()[2]
+            if name in fams or not re.fullmatch(PROM_NAME, name):
+                raise AssertionError(f"/metrics: bad or repeated HELP {ln!r}")
+            fams[name], types[name] = [], None
+        elif ln.startswith("# TYPE "):
+            _, _, name, mtype = ln.split()
+            if name not in fams or types[name] is not None or mtype not in (
+                    "counter", "gauge", "summary", "histogram"):
+                raise AssertionError(f"/metrics: bad TYPE line {ln!r}")
+            types[name] = mtype
+        else:
+            m = PROM_SAMPLE.match(ln)
+            if ln.startswith("#") or not m:
+                raise AssertionError(f"/metrics: bad sample line {ln!r}")
+            name, labels, value = m.groups()
+            fam = next((name[:-len(s)] for s in ("_bucket", "_sum", "_count")
+                        if name.endswith(s) and types.get(name[:-len(s)])
+                        in ("summary", "histogram")), name)
+            if fam not in fams or (labels and PROM_LABEL.sub(
+                    "", labels).strip(", ")) or (name, labels) in seen:
+                raise AssertionError(f"/metrics: bad sample {ln!r}")
+            seen.add((name, labels))
+            fams[fam].append((name, labels or "", float(value)))
+    if None in types.values():
+        raise AssertionError("/metrics: a family without TYPE")
+    return fams
+
+
+def http_prompts(seed):
+    """The http phase's prompts, strings of 256 one-byte tokens: 4 that
+    share their first 192 characters (as requests behind a chat front
+    end share a system prompt; built as ``prefix_waves`` builds its
+    waves), 4 distinct ones, a warm-up and the burst above max_pending."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz .,0123456789"))
+
+    def text(n):
+        return "".join(rng.choice(alphabet, n))
+
+    shared = text(HTTP_SHARED)
+    return {"S": [shared + text(HTTP_PROMPT - HTTP_SHARED)
+                  for _ in range(4)],
+            "D": [text(HTTP_PROMPT) for _ in range(4)],
+            "warmup": text(HTTP_PROMPT),
+            "burst": [text(HTTP_PROMPT) for _ in range(HTTP_MAX_PENDING + 1)]}
+
+
+class HttpServerThread:
+    """The front end's asyncio loop on a thread of its own; the phase's
+    client runs on the main thread's loop."""
+
+    def __init__(self, frontend):
+        import asyncio
+        import threading
+        self.frontend = frontend
+        self.loop = asyncio.new_event_loop()
+        self.ready = threading.Event()
+        self.error = None
+        self.thread = threading.Thread(target=self._run, name="http-asyncio")
+
+    def _run(self):
+        import asyncio
+        asyncio.set_event_loop(self.loop)
+        try:
+            self.loop.run_until_complete(self.frontend.start())
+        except BaseException as err:       # reported by start()
+            self.error = err
+            self.ready.set()
+            return
+        self.ready.set()
+        self.loop.run_forever()
+
+    def start(self):
+        self.thread.start()
+        if not self.ready.wait(120) or self.error is not None:
+            raise AssertionError(f"http front end did not start: {self.error}")
+        return self
+
+    async def shutdown(self, drain: bool = True):
+        import asyncio
+        await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+            self.frontend.shutdown(drain=drain, timeout_s=300), self.loop))
+
+    def stop(self):
+        if self.thread.is_alive():
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(60)
+        if not self.thread.is_alive():
+            self.loop.close()
+
+
+async def http_traffic(host, port, server, prompts, mark):
+    """The http phase's client (``repro_torch.server.client`` on this
+    thread's event loop): a warm-up request and its audit; then, timed,
+    burst 1 (D1 with a deadline, sent first; once it decodes, S0 SSE, S1,
+    D0 SSE) and burst 2 (S2 SSE,
+    S3, D2, D3 SSE dropped after its first chunk; S2 and S3 find S0's
+    and S1's 192-token prefix in the cache); the endpoints once at least
+    two audits completed; then a burst of max_pending + 1 requests, and
+    the drain while the admitted ones are in flight. ``mark(name)`` is
+    called at the timed window's ends. Returns the responses, the
+    endpoints' answers and the client's clock readings."""
+    import asyncio
+    from repro_torch.server import client as C
+    perf = time.perf_counter
+
+    async def json_req(name, prompt, **kw):
+        t0 = perf()
+        st, hd, doc = await C.complete(host, port, {
+            "prompt": prompt, "max_tokens": HTTP_GEN, **kw})
+        return name, {"stream": False, "status": st, "headers": hd,
+                      "doc": doc, "prompt": prompt, "latency_s": perf() - t0,
+                      "ttfb_s": None}
+
+    async def sse_req(name, prompt, drop_after=None):
+        t0 = perf()
+        stream = await C.SSEStream.open(host, port, {
+            "prompt": prompt, "max_tokens": HTTP_GEN})
+        events, first = [], None
+        if stream.status == 200:
+            async for ev in stream.events():
+                first = perf() - t0 if first is None else first
+                events.append(ev)
+                if drop_after is not None and len(events) >= drop_after:
+                    stream.abort()
+                    break
+        if drop_after is None or stream.status != 200:
+            await stream.close()
+        finals = [e for e in events if "finish_reason" in e]
+        return name, {"stream": True, "status": stream.status,
+                      "doc": finals[0] if finals else None,
+                      "events": events, "prompt": prompt,
+                      "dropped": drop_after is not None,
+                      "latency_s": perf() - t0, "ttfb_s": first}
+
+    async def get(path):
+        st, hd, body = await C.request(host, port, "GET", path)
+        return st, hd, body
+
+    async def audits_done(n, timeout_s=600.0):
+        """Poll /debug/vars until n audits completed (and /metrics every
+        second meanwhile: scrapes while the decode thread decodes and
+        captures the audit lanes)."""
+        t0, scrapes = perf(), 0
+        while perf() - t0 < timeout_s:
+            st, _, body = await get("/debug/vars")
+            assert st == 200
+            if json.loads(body)["engines"][0]["audit"]["completed"] >= n:
+                return scrapes
+            st, _, _ = await get("/metrics")
+            assert st == 200
+            scrapes += 1
+            await asyncio.sleep(1.0)
+        raise AssertionError(f"fewer than {n} audits after {timeout_s} s")
+
+    out, clock = {}, {}
+    out.update([await json_req("warmup", prompts["warmup"])])
+    clock["scrapes_while_auditing"] = await audits_done(1)
+    mark("t0")
+    clock["window_t0"] = perf()
+    d1 = asyncio.create_task(json_req("D1", prompts["D"][1],
+                                      timeout_s=HTTP_TIMEOUT_S))
+    while not json.loads((await get("/debug/vars"))[2])[
+            "engines"][0]["scheduler"]["live_rows"]:
+        assert not d1.done() and perf() - clock["window_t0"] < 60
+        await asyncio.sleep(0.005)
+    out.update(await asyncio.gather(
+        sse_req("S0", prompts["S"][0]), json_req("S1", prompts["S"][1]),
+        sse_req("D0", prompts["D"][0]), d1))
+    out.update(await asyncio.gather(
+        sse_req("S2", prompts["S"][2]), json_req("S3", prompts["S"][3]),
+        json_req("D2", prompts["D"][2]),
+        sse_req("D3", prompts["D"][3], drop_after=1)))
+    clock["window_t1"] = perf()
+    mark("t1")
+    clock["scrapes_while_auditing"] += await audits_done(2)
+    endpoints = {}
+    for path in ("/healthz", "/debug/vars", "/debug/timeline?window=600",
+                 "/console", "/metrics", "/debug/flight"):
+        st, hd, body = await get(path)
+        endpoints[path] = (st, hd, body.decode())
+    t0 = perf()
+    while json.loads((await get("/healthz"))[2])["inflight"]:
+        assert perf() - t0 < 120, "requests still in flight"
+        await asyncio.sleep(0.05)
+    # the burst above max_pending; drain once it is refused and the
+    # admitted requests are in flight
+    tasks = [asyncio.create_task(json_req(f"B{i}", p))
+             for i, p in enumerate(prompts["burst"])]
+    while not any(t.done() for t in tasks):
+        await asyncio.sleep(0.01)
+    clock["inflight_at_drain"] = sum(not t.done() for t in tasks)
+    await server.shutdown(drain=True)
+    out.update(await asyncio.gather(*tasks))
+    return out, endpoints, clock
+
+
+def phase_http(cfg, params, device="cuda"):
+    """The port's front end at llada-8b full width and depth (the serve
+    phase's weights), in this process: ``DecodeConfig(method="streaming",
+    gen_len=256, block_size=32, window=96, prefix_cache=True)``,
+    ``ContinuousEngine(max_slots=8, max_gang=4)`` with a prefix store,
+    prewarmed for the traffic's bucket (256-token prompts, 128 tokens) at
+    gang sizes 1-4; a ``Tracer``, a ``ShadowAuditor`` at
+    ``AuditConfig(sample_rate=0.5, oracle="auto")`` (host and cold lanes),
+    a ``BlockProfiler`` over 2 blocks, a ``MetricsRecorder`` at 0.5 s, a
+    loose ``SLOWatchdog`` and a ``FlightRecorder``, all wired by
+    ``repro_torch.server.http._front``; ``HttpFrontend`` on
+    127.0.0.1:0 on its own asyncio thread, driven by ``http_traffic``.
+
+    Checks (any failure raises): every request that finished equals its
+    decode alone on the card (B = 1, cold, bit for bit in tokens and
+    commit confidences), and the deadline's partial completion the same
+    decode's first blocks; SSE chunks in block order whose joined text is
+    the final text; the cache hits of S2 and S3; the disconnect's
+    cancel; /healthz, /debug/vars, /debug/timeline, /console and
+    /debug/flight answer 200; /metrics parses as Prometheus text and
+    holds the device's bytes in use and the five prefix-cache series
+    (hits >= 1); at least 2 audits completed through both lanes with no
+    error and no divergence but a near-tie (printed on its own line); no
+    serving capture after prewarm (the cold lane's counted apart); the
+    profiler's trace names the three kernels; a 429 with Retry-After on
+    the burst above max_pending; the drain finishes the admitted requests
+    and the loop thread joins; every kernel launched. Timed window:
+    bursts 1 and 2, with the client's tok/s, TTFB (first SSE event) and
+    latency beside the engine's ``ServeMetrics`` for the same requests,
+    and the card's idle share (1 - the CUDA-event spans of every prefill
+    and decode_block on the decode thread, serving and audit lanes, over
+    the window's wall)."""
+    import asyncio
+    import tempfile
+
+    from repro_torch.cache import PrefixKVCache, device_placement
+    from repro_torch.obs import (AuditConfig, BlockProfiler, FlightRecorder,
+                                 SLOWatchdog, Tracer, device_memory_stats)
+    from repro_torch.server import HttpFrontend
+    from repro_torch.server.http import _front
+    from repro_torch.serving import ContinuousEngine
+    from repro_torch.serving.metrics import percentile
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+
+    def bytes_in_use():
+        mem = device_memory_stats().get("cuda:0")
+        return int(mem["bytes_in_use"]) if mem else 0
+
+    class RecordingWatchdog(SLOWatchdog):
+        """Keeps every completion the loop observes (the engine's
+        ``Completion`` objects: tokens, commit confidences)."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.comps = []
+
+        def observe(self, comp):
+            self.comps.append(comp)
+            super().observe(comp)
+
+    mem_before = bytes_in_use()
+    dcfg = DecodeConfig(method="streaming", gen_len=GEN_LEN, block_size=BLOCK,
+                        window=WINDOW, use_kernels=True, prefix_cache=True,
+                        cache_chunk=PC_CHUNK)
+    prompts = http_prompts(SEED + 11)
+    eng = ContinuousEngine(cfg, params, dcfg, max_slots=MAX_SLOTS,
+                           max_gang=MAX_GANG, device=device,
+                           prefix_cache=PrefixKVCache(
+                               chunk_tokens=PC_CHUNK, max_bytes=4 << 30,
+                               placement=device_placement(device)))
+    t0 = time.perf_counter()
+    warm = eng.prewarm([(HTTP_PROMPT, HTTP_GEN)])
+    prewarm_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    tracer = Tracer()
+    flight = FlightRecorder(os.path.join(tmp, "flight"), tracer=tracer)
+    watchdog = RecordingWatchdog(ttfb_p50_s=600.0, token_latency_s=60.0,
+                                 flight=flight)
+    eng.profiler = BlockProfiler(tmp, 2)
+    loop = _front(eng, HTTP_MAX_PENDING, tracer, steal=False,
+                  audit=AuditConfig(sample_rate=0.5, oracle="auto"),
+                  watchdog=watchdog, flight=flight, metrics_interval_s=0.5)
+    frontend = HttpFrontend(loop, host="127.0.0.1", port=0, tracer=tracer,
+                            flight=flight, watchdog=watchdog)
+
+    # CUDA-event spans around every prefill and decode_block (the decode
+    # thread's device work: serving and the audit lanes), each tagged
+    # with its loop: a host-loop block's span also covers the gaps its
+    # eager launches leave, so it counts as busy time the card idles
+    spans, patched = [], {}
+
+    def spanned(fn):
+        def run(self, *a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(self, *a, **kw)
+            ev[1].record()
+            spans.append((*ev, self.dcfg.fused))
+            return out
+        return run
+
+    if on_card:
+        for name in ("prefill", "decode_block"):
+            patched[name] = getattr(DiffusionDecoder, name)
+            setattr(DiffusionDecoder, name, spanned(patched[name]))
+    marks = {}
+    ops.reset_launches()
+    server = HttpServerThread(frontend).start()
+    try:
+        out, endpoints, clock = asyncio.run(asyncio.wait_for(http_traffic(
+            frontend.host, frontend.port, server, prompts,
+            lambda name: marks.setdefault(name, len(spans))), 1200))
+    finally:
+        server.stop()
+        for name, fn in patched.items():
+            setattr(DiffusionDecoder, name, fn)
+    launches = dict(ops.LAUNCHES)
+    loop_joined = not loop.running
+    window = clock["window_t1"] - clock["window_t0"]
+    # device busy in the window: the spans that ended inside it, split
+    # by loop (graph: serving and the cold lane; host: the host lane)
+    busy = {True: 0.0, False: 0.0}
+    if on_card:
+        torch.cuda.synchronize()
+        for a, b, fused in spans[marks["t0"]:marks["t1"]]:
+            busy[fused] += a.elapsed_time(b) / 1e3
+    auditor = eng.auditor
+    astats = auditor.stats()
+    snap = eng.metrics.snapshot()
+    comps = {c.uid: c for c in watchdog.comps}
+    by_name = {n: r for n, r in out.items()}
+    uid_of = {n: r["doc"]["uid"] for n, r in by_name.items()
+              if r["doc"] is not None and "uid" in r["doc"]}
+    # the disconnected stream's uid comes from its first chunk
+    for n, r in by_name.items():
+        if n not in uid_of and r.get("events"):
+            uid_of[n] = r["events"][0]["uid"]
+
+    # the reference: each request decoded alone (B = 1) by a cold
+    # decoder; the audit's cold lane is one, with its graphs captured
+    ref_dec = auditor._lane_decoders.get(("cold", HTTP_GEN)) or \
+        DiffusionDecoder(cfg, params, dataclasses.replace(
+            dcfg, gen_len=HTTP_GEN), device=device)
+    tok = eng.tok
+    alone, equal = {}, {}
+    t_ref = time.perf_counter()
+    for n, uid in sorted(uid_of.items()):
+        c = comps.get(uid)
+        if c is None:
+            continue
+        r = ref_dec.generate(tok.encode(by_name[n]["prompt"])[None].copy())
+        conf = np.concatenate([bs.commit_conf[0] for bs in r.block_stats])
+        k = len(c.tokens)
+        alone[n] = r
+        equal[n] = bool(np.array_equal(c.tokens, r.tokens[0][:k])
+                        and (c.commit_conf is None or np.array_equal(
+                            c.commit_conf, conf[:len(c.commit_conf)]))
+                        and (c.cancelled or k == HTTP_GEN))
+    ref_s = time.perf_counter() - t_ref
+
+    timed = ("S0", "S1", "D0", "D1", "S2", "S3", "D2", "D3")
+    finished = [n for n, u in uid_of.items()
+                if u in comps and not comps[u].cancelled]
+    sse_ok = {}
+    for n in ("S0", "D0", "S2"):
+        r = by_name[n]
+        blocks = [e for e in r["events"] if "block" in e]
+        sse_ok[n] = bool(
+            r["doc"] is not None
+            and [b["block"] for b in blocks] == list(range(len(blocks)))
+            and blocks[-1]["finished"]
+            and "".join(b["text"] for b in blocks) == r["doc"]["text"])
+    d1, d3 = by_name["D1"]["doc"], comps.get(uid_of.get("D3"))
+    burst = [r for n, r in by_name.items() if n.startswith("B")]
+    refused = [r for r in burst if r["status"] == 429]
+    admitted = [r for r in burst if r["status"] == 200]
+
+    # endpoints
+    st = {p: v[0] for p, v in endpoints.items()}
+    fams = parse_prometheus(endpoints["/metrics"][2])
+
+    def sample(fam, labels=""):
+        rows = [v for _, lab, v in fams.get(fam, ()) if lab == labels]
+        return rows[0] if rows else None
+
+    dev_bytes = sample("repro_device_bytes_in_use", 'device="cuda:0"')
+    cache_series = {f: sample(f) for f in (
+        "repro_prefix_cache_hits_total", "repro_prefix_cache_hit_tokens_total",
+        "repro_prefix_cache_evictions_total", "repro_prefix_cache_bytes",
+        "repro_prefix_cache_chunks")}
+    flight_doc = json.loads(endpoints["/debug/flight"][2])
+    flight_files = sorted(os.listdir(flight_doc["path"])) \
+        if flight_doc.get("path") else []
+
+    # audits: a divergence is excused only as a near-tie at the flipped
+    # decision (as compare_runs judges one)
+    near_ties, real = [], []
+    for res in auditor.results:
+        if res.matched:
+            continue
+        c = comps.get(res.uid)
+        blk, j = divmod(res.position, BLOCK)
+        gap = math.inf
+        if c is not None and c.commit_conf is not None \
+                and res.position < len(c.commit_conf):
+            conf = c.commit_conf[blk * BLOCK:(blk + 1) * BLOCK]
+            gap = float(np.abs(np.delete(conf, j) - conf[j]).min())
+        row = {"phase": "http_near_tie", **res.to_dict(), "gap": gap,
+               "is_near_tie": gap < NEAR_TIE}
+        print(json.dumps(row), flush=True)
+        (near_ties if gap < NEAR_TIE else real).append(row)
+
+    # the profiler's trace
+    trace_path = eng.profiler.trace_path
+    kernels_traced = {}
+    if os.path.exists(trace_path):
+        with open(trace_path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        kernels_traced = {k: sum(k in nm for nm in names)
+                          for k in ("attn_", "conf_", "gemm")}
+
+    def pct(vals, p):
+        return percentile(list(vals), p) if vals else None
+
+    timed_uids = {uid_of[n] for n in timed if n in uid_of}
+    em = [r for r in eng.metrics.requests if r.uid in timed_uids]
+    done_docs = [by_name[n]["doc"] for n in timed
+                 if by_name[n]["doc"] is not None]
+    client_tokens = sum(d["n_tokens"] for d in done_docs)
+    rec = {
+        "phase": "http", "arch": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "method": dcfg.method,
+        "prompt_len": HTTP_PROMPT, "shared_prefix": HTTP_SHARED,
+        "max_tokens": HTTP_GEN, "max_slots": MAX_SLOTS, "max_gang": MAX_GANG,
+        "max_pending": HTTP_MAX_PENDING, "prewarm": warm,
+        "prewarm_s": prewarm_s, "bytes_in_use_before": mem_before,
+        "window_s": window,
+        "client": {
+            "requests": len(done_docs), "tokens": client_tokens,
+            "tok_s": client_tokens / window,
+            "ttfb_p50_s": pct([by_name[n]["ttfb_s"] for n in timed
+                               if by_name[n]["ttfb_s"] is not None], 50),
+            "ttfb_p90_s": pct([by_name[n]["ttfb_s"] for n in timed
+                               if by_name[n]["ttfb_s"] is not None], 90),
+            "latency_p50_s": pct([by_name[n]["latency_s"] for n in timed
+                                  if by_name[n]["doc"] is not None], 50),
+            "latency_p90_s": pct([by_name[n]["latency_s"] for n in timed
+                                  if by_name[n]["doc"] is not None], 90)},
+        "engine": {
+            "requests": len(em), "tokens": sum(r.n_tokens for r in em),
+            "tok_s": sum(r.n_tokens for r in em) / window,
+            "ttfb_p50_s": pct([r.ttfb_s for r in em], 50),
+            "ttfb_p90_s": pct([r.ttfb_s for r in em], 90),
+            "latency_p50_s": pct([r.latency_s for r in em], 50),
+            "latency_p90_s": pct([r.latency_s for r in em], 90),
+            "throughput_tok_s_all": snap["throughput_tok_s"],
+            "mean_occupancy": snap["mean_occupancy"]},
+        "device_busy_s": {"graph_loop": busy[True],
+                          "host_loop_lane": busy[False]}
+        if on_card else None,
+        "device_idle_share": 1 - (busy[True] + busy[False]) / window
+        if on_card else None,
+        "device_spans_in_window": marks["t1"] - marks["t0"],
+        "audit": astats, "audit_near_ties": len(near_ties),
+        "lane_graphs": auditor.lane_graphs(),
+        "serving_graphs": eng.graph_cache_size(),
+        "post_warm_captures": snap["post_warm_compiles"],
+        "scrapes_while_auditing": clock["scrapes_while_auditing"],
+        "deadline": {k: d1[k] for k in ("n_tokens", "n_blocks",
+                                         "finish_reason", "cancelled")},
+        "cache_hit_tokens": {n: by_name[n]["doc"]["cache_hit_tokens"]
+                             for n in ("S0", "S1", "S2", "S3")},
+        "burst": {"refused": len(refused), "admitted": len(admitted),
+                  "inflight_at_drain": clock["inflight_at_drain"],
+                  "retry_after": [r["headers"].get("retry-after")
+                                  for r in refused]},
+        "status": st, "metrics_families": len(fams),
+        "device_bytes_in_use_metric": dev_bytes,
+        "prefix_cache_series": cache_series,
+        "flight": {"dumps": flight_doc.get("dumps"), "files": flight_files},
+        "profiler": {"trace": os.path.exists(trace_path),
+                     "kernels": kernels_traced},
+        "launches": launches, "equals_alone_b1": equal,
+        "reference_s": ref_s}
+    checks = {
+        "prewarm_gang_sizes_1_4": warm["batch_sizes"] == [1, 2, 3, 4],
+        "finished_equal_alone_b1": bool(finished) and all(
+            equal.get(n, False) for n in finished)
+        and set(finished) >= {"warmup", "S0", "S1", "D0", "S2", "S3", "D2"},
+        "deadline_partial": d1["cancelled"]
+        and d1["finish_reason"] == "deadline"
+        and 0 < d1["n_tokens"] < HTTP_GEN and equal.get("D1", False),
+        "disconnect_cancelled": d3 is not None and d3.cancelled,
+        "sse_in_block_order_joined_equals_final": all(sse_ok.values()),
+        "cache_hits": all(by_name[n]["doc"]["cache_hit_tokens"]
+                          == HTTP_SHARED for n in ("S2", "S3")),
+        "endpoints_200": all(v == 200 for v in st.values()),
+        "metrics_device_bytes": (dev_bytes or 0) > 0 or not on_card,
+        "metrics_cache_series": None not in cache_series.values()
+        and cache_series["repro_prefix_cache_hits_total"] >= 1,
+        "flight_dump": set(flight_files) >= {"trace.json", "metrics.json",
+                                             "state.json"},
+        "audits": astats["completed"] >= 2 and astats["errors"] == 0
+        and {r.lane for r in auditor.results} == {"host", "cold"},
+        "audit_no_divergence_but_near_ties": not real,
+        "no_capture_after_prewarm": snap["post_warm_compiles"] == 0,
+        "profiler_trace": os.path.exists(trace_path) and (
+            not on_card or all(kernels_traced.values())),
+        "refused_429_retry_after": len(refused) >= 1 and all(
+            int(r["headers"].get("retry-after", 0)) >= 1 for r in refused),
+        "drain_finished_inflight": bool(admitted) and all(
+            not r["doc"]["cancelled"] and r["doc"]["n_tokens"] == HTTP_GEN
+            for r in admitted) and clock["inflight_at_drain"] >= 1,
+        "loop_thread_joined": loop_joined,
+        "kernels_launched": not on_card or all(
+            v > 0 for v in launches.values())}
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    # the engine is held by the loop, the front end, the server thread
+    # and the flight recorder's state provider (cycles: gc)
+    del eng, loop, frontend, server, auditor, ref_dec, alone, watchdog
+    del comps, flight, tracer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rec["bytes_in_use_after"] = bytes_in_use()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(tmp, ignore_errors=True)
+    for name, keys in (
+            ("http_timing", ("window_s", "client", "engine")),
+            ("http_idle", ("device_busy_s", "device_idle_share")),
+            ("http_audit", ("audit", "audit_near_ties", "lane_graphs",
+                            "post_warm_captures")),
+            ("http_memory", ("bytes_in_use_before", "bytes_in_use_after"))):
+        print(json.dumps({"phase": name, **{k: rec[k] for k in keys}}),
+              flush=True)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"http phase failed: {checks}")
+    return rec
+
+
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
 
@@ -1908,6 +2485,11 @@ def main() -> int:
     phase_profile(*model)
     cont = phase_continuous(model[0], model[1].params, inv["batch_invariant"])
     phase_prefix_cache(model[0], model[1].params)
+    # the serve phase's decoders and their graphs go before the front end
+    cfg, params = model[0], model[1].params
+    del model
+    torch.cuda.empty_cache()
+    phase_http(cfg, params)
 
     kernels = [
         {"name": "block_attention", "route": "cuda",

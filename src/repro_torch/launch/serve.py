@@ -9,6 +9,9 @@ serves with ``--train-steps 0``).
         --device cpu --dtype float32 --mode continuous --max-slots 2 --stream
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny \\
         --device cpu --dtype float32 --mode batch --method dkv --host-loop
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \\
+        --gen-len 256 --window 96 --prewarm 12:256 --http 8000 \\
+        --audit-rate 0.05 --trace-dir /tmp/trace
 
 Runs on CUDA unless ``--device cpu``; on CUDA attention and confidence
 go through the kernels, and each block is one CUDA graph replay
@@ -17,12 +20,23 @@ captures the graphs of prompt length P and generation length G for every
 gang size before serving (a capture otherwise stalls the first block of
 each new shape). ``--prefix-cache`` (with ``--cache-chunk`` and
 ``--cache-bytes``) reuses prompt KV across requests in continuous mode.
-``--ckpt`` and training wait for ROADMAP A12, ``--http`` for A8.
+``--http PORT`` serves ``POST /v1/completions`` (JSON or SSE),
+``/healthz``, ``/metrics``, ``/debug/vars``, ``/debug/flight``,
+``/debug/timeline`` and ``/console`` through ``repro_torch.server``
+instead of the synthetic workload, in continuous mode, after
+``--prewarm``'s captures; Ctrl-C drains what is in flight. The auditor,
+flight recorder, metrics log and SLO watchdog (``--audit-rate``,
+``--flight-dir``, ``--metrics-log``, ``--slo-*``) ride the HTTP loop;
+``--trace-dir`` and ``--profile-blocks`` also serve the synthetic
+continuous workload.
+``--ckpt`` and training wait for ROADMAP A12; ``--engines``, ``--pool``
+and ``--no-steal`` for A10.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -66,7 +80,13 @@ def parse_prewarm(s: str):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="There is no --compile-cache-dir: the JAX package's "
+        "persistent compilation cache has no counterpart here, because "
+        "the port's block programs are CUDA graphs captured in-process "
+        "and not persisted; --prewarm captures them before serving "
+        "(ROADMAP A9).")
     ap.add_argument("--arch", default="tiny")
     ap.add_argument("--method", default="streaming", choices=METHODS)
     ap.add_argument("--mode", default="continuous",
@@ -106,10 +126,88 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--http", type=int, default=0, metavar="PORT",
+                    help="serve over HTTP on this port instead of the "
+                    "synthetic in-process workload (continuous mode; "
+                    "Ctrl-C drains gracefully)")
+    ap.add_argument("--http-host", default="127.0.0.1")
+    ap.add_argument("--max-pending", type=int, default=64,
+                    help="HTTP mode: bounded admission queue; beyond this, "
+                    "POSTs get 429 + Retry-After")
+    ap.add_argument("--trace-dir", default="", metavar="DIR",
+                    help="record request span trees + decode timelines and "
+                    "write Chrome-trace JSON (Perfetto-loadable) into DIR "
+                    "at the end (continuous or HTTP mode)")
+    ap.add_argument("--audit-rate", type=float, default=0.0,
+                    metavar="FRAC",
+                    help="shadow-audit this fraction of completed requests: "
+                    "re-decode on a low-priority lane through the host-loop "
+                    "oracle and/or a cold (cache-bypass) path and compare "
+                    "tokens bit for bit (repro_torch.obs.audit; 0 = off)")
+    ap.add_argument("--audit-oracle", default="auto",
+                    choices=["host", "cold", "both", "auto"],
+                    help="audit lanes: 'host' flips the graph loop to the "
+                    "host loop, 'cold' bypasses the prefix cache, 'both' "
+                    "runs each, 'auto' picks every lane the engine config "
+                    "supports")
+    ap.add_argument("--flight-dir", default="", metavar="DIR",
+                    help="flight recorder: on SLO breach, audit divergence, "
+                    "crash, or GET /debug/flight, dump trace ring buffers "
+                    "+ metrics snapshot + scheduler/gang state under DIR")
+    ap.add_argument("--metrics-log", default="", metavar="PATH",
+                    help="append every time-series recorder sample "
+                    "(repro_torch.obs.series) as a JSON line to PATH (HTTP "
+                    "mode; the in-memory ring behind /debug/timeline and "
+                    "/console is always on)")
+    ap.add_argument("--metrics-interval-s", type=float, default=0.5,
+                    metavar="S",
+                    help="recorder sampling interval (0 disables the "
+                    "recorder)")
+    ap.add_argument("--slo-ttfb-p50-ms", type=float, default=0.0,
+                    help="SLO watchdog: rolling TTFB p50 target in ms "
+                    "(breach dumps a flight recording; 0 = off)")
+    ap.add_argument("--slo-token-latency-ms", type=float, default=0.0,
+                    help="SLO watchdog: rolling per-token latency p50 "
+                    "target in ms (0 = off)")
+    ap.add_argument("--slo-goodput-tok-s", type=float, default=0.0,
+                    help="SLO watchdog: rolling completed-tokens/s floor "
+                    "(0 = off)")
+    ap.add_argument("--profile-blocks", type=int, default=0, metavar="N",
+                    help="capture a torch.profiler trace (CPU + CUDA) over "
+                    "the first N decoded blocks, written under "
+                    "--trace-dir/torch_profile (or results/torch/profile)")
+    ap.add_argument("--log-json", action="store_true",
+                    help="JSON-lines log records instead of text")
     args = ap.parse_args(argv)
+
+    from repro_torch.obs.log import setup_logging
+    setup_logging(json_mode=args.log_json)
+    # flag validation up front, before any weights are made
     if args.prefix_cache and args.method == "vanilla":
         raise SystemExit("--prefix-cache has no effect with --method "
                          "vanilla (no KV cache to reuse)")
+    slo_targets = {"ttfb_p50_s": args.slo_ttfb_p50_ms / 1e3,
+                   "token_latency_s": args.slo_token_latency_ms / 1e3,
+                   "goodput_tok_s": args.slo_goodput_tok_s}
+    if not args.http:
+        for flag, on in (("--audit-rate", args.audit_rate > 0),
+                         ("--flight-dir", bool(args.flight_dir)),
+                         ("--slo-*", any(slo_targets.values())),
+                         ("--metrics-log", bool(args.metrics_log))):
+            if on:
+                raise SystemExit(f"{flag} needs --http (the audit/SLO/"
+                                 "flight layer rides the HTTP serving "
+                                 "loop)")
+    if not 0.0 <= args.audit_rate <= 1.0:
+        raise SystemExit(f"--audit-rate wants [0, 1], got "
+                         f"{args.audit_rate}")
+    if args.http and args.mode != "continuous":
+        raise SystemExit("--http serves through the continuous engine: "
+                         "drop --mode batch")
+    if (args.trace_dir or args.profile_blocks) and args.mode != "continuous":
+        raise SystemExit("--trace-dir and --profile-blocks need continuous "
+                         "mode")
+    prewarm_buckets = parse_prewarm(args.prewarm) if args.prewarm else []
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, dtype=args.dtype, param_dtype=args.dtype)
@@ -137,12 +235,31 @@ def main(argv=None):
     summary = {"arch": args.arch, "method": args.method, "mode": args.mode,
                "device": (torch.cuda.get_device_name(device)
                           if device.type == "cuda" else "cpu")}
-    if args.prewarm:
+    tracer = None
+    if args.trace_dir:
+        from repro_torch.obs.trace import Tracer
+        tracer = Tracer()
+    if args.profile_blocks > 0:
+        from repro_torch.obs.profiler import BlockProfiler
+        eng.profiler = BlockProfiler(
+            args.trace_dir or os.path.join("results", "torch", "profile"),
+            args.profile_blocks)
+    if prewarm_buckets:
         if args.mode != "continuous":
             raise SystemExit("--prewarm needs --mode continuous")
-        summary["prewarm"] = eng.prewarm(parse_prewarm(args.prewarm))
+        summary["prewarm"] = eng.prewarm(prewarm_buckets)
+    if args.http:
+        summary.update(serve_http(args, eng, tracer, slo_targets))
+        print(json.dumps(summary))
+        return summary
+    if tracer is not None:
+        eng.set_tracer(tracer, "engine-0")
     for prompt in make_prompts(args.n, args.seed):
-        eng.submit(prompt, max_tokens=args.gen_len)
+        if tracer is not None:
+            eng.submit(prompt, max_tokens=args.gen_len,
+                       trace_id=tracer.new_trace_id())
+        else:
+            eng.submit(prompt, max_tokens=args.gen_len)
     if args.stream and args.mode == "continuous":
         eng.on_chunk(None, lambda ch: print(
             f"  uid={ch.uid} block={ch.block_idx} "
@@ -180,8 +297,52 @@ def main(argv=None):
                 "prefix_cache_hit_tokens": snap["prefix_cache_hit_tokens"],
                 "prefix_cache_nodes": snap["prefix_cache_nodes"]})
     summary["launches"] = dict(kops.LAUNCHES)
+    export_trace(tracer, args.trace_dir)
     print(json.dumps(summary))
     return summary
+
+
+def export_trace(tracer, trace_dir: str) -> None:
+    if tracer is not None:
+        path = os.path.join(trace_dir, "trace.json")
+        tracer.export(path)
+        print(f"chrome trace written to {path} (open in ui.perfetto.dev)")
+
+
+def serve_http(args, eng, tracer, slo_targets) -> dict:
+    """Serve ``eng`` over HTTP until SIGINT, then drain (blocking).
+    Returns the engine's serving counters for the summary line."""
+    from repro_torch.server import run as run_http
+    audit = None
+    if args.audit_rate > 0:
+        from repro_torch.obs import AuditConfig
+        audit = AuditConfig(sample_rate=args.audit_rate,
+                            oracle=args.audit_oracle)
+    watchdog = None
+    if any(slo_targets.values()):
+        from repro_torch.obs import SLOWatchdog
+        watchdog = SLOWatchdog(
+            **{k: (v or None) for k, v in slo_targets.items()})
+    flight = None
+    if args.flight_dir:
+        from repro_torch.obs import FlightRecorder
+        flight = FlightRecorder(args.flight_dir, tracer=tracer)
+    try:
+        run_http(eng, host=args.http_host, port=args.http,
+                 max_pending=args.max_pending, tracer=tracer, audit=audit,
+                 watchdog=watchdog, flight=flight,
+                 metrics_interval_s=args.metrics_interval_s,
+                 metrics_log=args.metrics_log or None)
+    finally:
+        export_trace(tracer, args.trace_dir)
+    snap = eng.metrics.snapshot()
+    out = {"http": args.http, "served": snap["requests"],
+           "tokens": snap["tokens"], "cancelled": snap["cancelled"],
+           "admission_rejects": snap["admission_rejects"],
+           "post_warm_captures": snap["post_warm_compiles"]}
+    if eng.auditor is not None:
+        out["audit"] = eng.auditor.stats()
+    return out
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ a reader renders the exposition — and cheap enough for the
 per-request/per-block call rates here (a bisect plus three int adds).
 
 ``device_memory_stats`` reads ``torch.cuda.memory_stats`` for every CUDA
-device; with no CUDA device it returns ``{}`` rather than raising, so a
-metrics reader works everywhere.
+device and reports it under the JAX package's keys (``bytes_in_use``,
+``peak_bytes_in_use``, ``bytes_limit``) beside PyTorch's own; with no
+CUDA device it returns ``{}`` rather than raising, so a metrics reader
+works everywhere.
 """
 from __future__ import annotations
 
@@ -95,16 +97,39 @@ class Histogram:
         return lines
 
 
+# the card's total memory per device index, read once: a device
+# property, so /metrics needs no CUDA API call to report it
+_BYTES_LIMIT: Dict[int, int] = {}
+
+
+def _bytes_limit(i: int) -> int:
+    if i not in _BYTES_LIMIT:
+        _BYTES_LIMIT[i] = int(torch.cuda.get_device_properties(i)
+                              .total_memory)
+    return _BYTES_LIMIT[i]
+
+
 def device_memory_stats() -> Dict[str, Dict[str, float]]:
-    """Per-device allocator stats keyed ``"cuda:<index>"``
-    (``torch.cuda.memory_stats``: bytes in use, peaks, allocation
-    counts). Empty without a CUDA device."""
+    """Per-device allocator stats keyed ``"cuda:<index>"``, under the
+    keys the front end's ``repro_device_*`` series read (the JAX
+    package's names): ``bytes_in_use`` and ``peak_bytes_in_use`` from the
+    caching allocator's ``allocated_bytes.all.current`` / ``.peak``,
+    ``bytes_limit`` the card's total memory; beside them every numeric
+    ``torch.cuda.memory_stats`` entry under PyTorch's own key. Reads the
+    allocator's host-side counters only (no ``mem_get_info``, no
+    synchronize), so a metrics scrape on another thread cannot disturb a
+    graph capture on the decode thread. Empty without a CUDA device."""
     if not torch.cuda.is_available():
         return {}
     out: Dict[str, Dict[str, float]] = {}
     for i in range(torch.cuda.device_count()):
         stats = torch.cuda.memory_stats(i)
-        if stats:
-            out[f"cuda:{i}"] = {k: float(v) for k, v in stats.items()
-                                if isinstance(v, (int, float))}
+        if not stats:
+            continue
+        row = {k: float(v) for k, v in stats.items()
+               if isinstance(v, (int, float))}
+        row["bytes_in_use"] = row.get("allocated_bytes.all.current", 0.0)
+        row["peak_bytes_in_use"] = row.get("allocated_bytes.all.peak", 0.0)
+        row["bytes_limit"] = float(_bytes_limit(i))
+        out[f"cuda:{i}"] = row
     return out

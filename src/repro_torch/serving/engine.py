@@ -23,11 +23,15 @@ With ``DecodeConfig(prefix_cache=True)`` the engine reuses prompt KV
 across requests through its scheduler's ``PrefixKVCache``
 (``expected_prefix_hit``, the ``prefix_cache_*`` metrics).
 
+Observability: ``set_tracer`` claims the engine's trace track (the
+``EngineLoop`` calls it), ``attach_auditor`` takes a
+``repro_torch.obs.audit.ShadowAuditor`` whose counters ``step`` and
+``audit_tick`` mirror into ``metrics``, and ``profiler`` (a
+``repro_torch.obs.profiler.BlockProfiler``) is ticked with the blocks
+each ``step`` decoded.
+
 Not ported yet: ``prefill_only`` and host budgets (ROADMAP A10; the
-scheduler's stealing and handoff raise too), executor placement (A11),
-the shadow auditor and the profiler window (A9:
-``attach_auditor`` raises; ``audit_tick``/``drain_audits`` do nothing
-while no auditor exists).
+scheduler's stealing and handoff raise too), executor placement (A11).
 """
 from __future__ import annotations
 
@@ -89,6 +93,22 @@ class ContinuousEngine:
         self.prefix_cache = self.scheduler.prefix_cache
         self.router = StreamRouter()
         self.stats = defaultdict(float)    # ServingEngine's keys
+        # torch.profiler window over the first N decoded blocks
+        # (repro_torch.obs.profiler.BlockProfiler); ticked from step()
+        self.profiler = None
+        self._prof_blocks_seen = 0
+        # shadow auditor (repro_torch.obs.audit): attached by the owning
+        # loop or front end; its counters mirror into metrics each step
+        self.auditor = None
+
+    def set_tracer(self, tracer, label: str) -> None:
+        """Attach (or re-attach) a tracer and claim a named track for
+        this engine — called by the owning EngineLoop/front end, which
+        knows the engine's index in the fleet."""
+        self.tracer = tracer
+        self.obs_pid = tracer.process(label)
+        self.scheduler.tracer = tracer
+        self.scheduler.pid = self.obs_pid
 
     # ------------------------------------------------------ submission
 
@@ -240,6 +260,11 @@ class ContinuousEngine:
             self.metrics.prefix_cache_bytes = st["bytes"]
             self.metrics.prefix_cache_evictions = st["evictions"]
             self.metrics.prefix_cache_nodes = st["nodes"]
+        if self.profiler is not None:
+            blocks = self.telemetry.blocks
+            self.profiler.tick(blocks - self._prof_blocks_seen)
+            self._prof_blocks_seen = blocks
+        self._mirror_audit()
         return completions
 
     def _record(self, comp: Completion) -> None:
@@ -262,19 +287,56 @@ class ContinuousEngine:
         self.stats["tokens"] += comp.n_tokens
         if not comp.cancelled:
             # goodput: tokens from completions a client actually kept
+            # (the repro_torch.obs.series rate decomposition tok_s vs
+            # goodput_tok_s reads these two counters)
             self.stats["good_tokens"] += comp.n_tokens
+        if self.auditor is not None:
+            self.auditor.on_completion(comp)
 
-    # ------------------------------------------------------ audit (A9)
+    # ------------------------------------------------------ audit
 
     def attach_auditor(self, auditor) -> None:
-        _not_ported("the shadow auditor", "A9")
+        """Attach a :class:`repro_torch.obs.audit.ShadowAuditor`. Decode
+        thread only from then on — the auditor's counters share the
+        metrics mirror's single-writer contract."""
+        self.auditor = auditor
 
     def audit_tick(self) -> bool:
-        """No auditor exists before ROADMAP A9: nothing runs."""
-        return False
+        """Advance the audit lane by at most one decoder call (no-op
+        without an auditor or when paying traffic is active — the
+        auditor itself defers to the scheduler's admission signals).
+        Returns True when audit work ran."""
+        if self.auditor is None:
+            return False
+        ran = self.auditor.tick()
+        if ran:
+            # audits finish between scheduler steps — mirror here too,
+            # or counters go stale once the engine idles
+            self._mirror_audit()
+        return ran
+
+    def _mirror_audit(self) -> None:
+        if self.auditor is None:
+            return
+        a = self.auditor
+        self.metrics.audits_sampled = a.sampled
+        self.metrics.audits_completed = a.completed
+        self.metrics.audit_dropped = a.dropped
+        self.metrics.audit_divergences = a.divergences_total()
+        self.metrics.audit_backlog = a.backlog
+        self.metrics.audit_regret = a.regret
+
+    @property
+    def audit_pending(self) -> bool:
+        return self.auditor is not None and self.auditor.pending
 
     def drain_audits(self) -> None:
-        """No auditor exists before ROADMAP A9: nothing to drain."""
+        """Run the audit backlog to empty (offline/test convenience;
+        the serving loop instead interleaves single ``audit_tick``
+        calls between scheduler ticks)."""
+        while self.audit_pending:
+            if not self.audit_tick():
+                break
 
     # ------------------------------------------------------ driving
 

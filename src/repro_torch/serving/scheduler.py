@@ -273,12 +273,18 @@ class BlockScheduler:
 
     def debug_state(self) -> dict:
         """JSON-safe snapshot of scheduler occupancy for operator
-        inspection. ``list()`` snapshots keep iteration safe against a
-        decode thread mutating; fields can be one tick stale."""
+        inspection (``/debug/vars``, flight dumps). ``list()`` snapshots
+        keep iteration safe against a decode thread mutating; fields can
+        be one tick stale. The keys are the JAX scheduler's, with
+        ``graph_cache_size`` (captured block graphs) where it has
+        ``jit_cache_size``; ``prefill_only`` and ``handoff_ready`` stay
+        False and 0 until the disaggregated pools (ROADMAP A10)."""
         gangs = list(self.gangs)
         return {
             "waiting": len(self.waiting),
             "paused": len(self.paused),
+            "prefill_only": False,
+            "handoff_ready": 0,
             "prefill_wall_s": round(self.prefill_wall_s, 6),
             "decode_wall_s": round(self.decode_wall_s, 6),
             "slots_used": self.slots_used,

@@ -7,7 +7,9 @@ interleaved, no new capture at known shapes, launch counts under
 replay), and continuous serving's use of it (compacted and merged states
 on graphs of a new batch, a dkv row parked and resumed, no capture after
 ``ContinuousEngine.prewarm``, gangs of several sizes that compact and
-merge with every request equal to its B = 1 decode). Each kernel against its plain version
+merge with every request equal to its B = 1 decode), and the HTTP front
+end's threads (scrapes during a capture on the decode thread, the shadow
+auditor's lanes). Each kernel against its plain version
 at the main path's shapes, and llada-8b through the graphs, are checked
 by ``chip_smoke.py``. Needs a CUDA card; skips without one. Imports no JAX,
 so it runs where JAX is absent:
@@ -410,6 +412,152 @@ def test_card_compacts_and_merges_gangs_of_several_sizes(tiny_cuda):
         assert (c.tokens == ref.tokens[0]).all(), c.uid
         assert np.array_equal(c.commit_conf, np.concatenate(
             [b.commit_conf[0] for b in ref.block_stats])), c.uid
+
+
+# ----------------------------------------------------- HTTP front end
+
+def test_scrapes_during_a_capture_on_the_decode_thread(tiny_cuda,
+                                                       monkeypatch):
+    """The decode thread is the only thread that runs CUDA work (T1):
+    while it captures the graphs of a bucket that was not prewarmed, the
+    asyncio thread scrapes ``/metrics`` (the allocator's
+    ``torch.cuda.memory_stats``) and ``/debug/vars`` in a loop; the
+    captures and every scrape succeed and the request equals its decode
+    alone. Graphs that ``prewarm`` captured on this thread replay on the
+    loop's thread and give the same tokens (T2)."""
+    import asyncio
+    import dataclasses
+    import threading
+    import time
+
+    import numpy as np
+
+    from repro_torch.core.decoder import DecodeConfig, DiffusionDecoder
+    from repro_torch.server import EngineLoop, HttpFrontend
+    from repro_torch.server import client as C
+    from repro_torch.serving import ContinuousEngine
+    cfg, params, _ = tiny_cuda
+    d = DecodeConfig(**{**_BASE, "early_exit": False})
+    eng = ContinuousEngine(cfg, params, d, max_slots=2, device="cuda")
+    prompt = "Q:12+34=? A:"
+    eng.prewarm([(len(prompt), 16)])         # gen_len 64 is not prewarmed
+    captures, capture = [], DiffusionDecoder._capture
+
+    def timed_capture(self, prog):
+        t0 = time.perf_counter()
+        capture(self, prog)
+        captures.append((t0, time.perf_counter(),
+                         threading.current_thread().name))
+
+    monkeypatch.setattr(DiffusionDecoder, "_capture", timed_capture)
+
+    async def main():
+        fe = await HttpFrontend(EngineLoop(eng, max_pending=4,
+                                           idle_poll_s=0.005),
+                                port=0).start()
+        scrapes, done = [], []
+
+        async def scrape():
+            while not done:
+                for path in ("/metrics", "/debug/vars"):
+                    t0 = time.perf_counter()
+                    st, _, body = await C.request(fe.host, fe.port, "GET",
+                                                  path)
+                    scrapes.append((t0, time.perf_counter(), path, st,
+                                    body.decode()))
+
+        task = asyncio.create_task(scrape())
+        try:
+            docs = [(await C.complete(fe.host, fe.port, {
+                "prompt": prompt, "max_tokens": mt}))[2] for mt in (64, 16)]
+        finally:
+            done.append(True)
+            await task
+            await fe.shutdown(drain=True, timeout_s=60)
+        return docs, scrapes
+
+    docs, scrapes = asyncio.run(asyncio.wait_for(main(), 300))
+    assert len(captures) == 64 // 8
+    assert {name for _, _, name in captures} == {"repro-torch-engine-loop"}
+    assert eng.metrics.snapshot()["post_warm_compiles"] == len(captures)
+    assert all(st == 200 for _, _, _, st, _ in scrapes)
+    during = [sc for sc in scrapes
+              if any(a <= sc[0] and sc[1] <= b for a, b, _ in captures)]
+    assert {sc[2] for sc in during} == {"/metrics", "/debug/vars"}, \
+        (len(scrapes), captures)
+    last = [sc[4] for sc in scrapes if sc[2] == "/metrics"][-1]
+    line = [ln for ln in last.splitlines()
+            if ln.startswith('repro_device_bytes_in_use{device="cuda:0"}')]
+    assert line and int(line[0].split()[-1]) > 0
+    toks = eng.tok.encode(prompt)[None]
+    for doc, gen in zip(docs, (64, 16)):
+        ref = DiffusionDecoder(cfg, params, dataclasses.replace(
+            d, gen_len=gen), device="cuda").generate(toks.copy())
+        assert doc["text"] == eng.tok.decode(ref.tokens[0])
+        assert doc["n_tokens"] == gen and not doc["cancelled"]
+    assert np.all(ref.tokens != cfg.mask_token_id)
+
+
+def test_audit_both_lanes_clean_and_catches_an_injected_flip(tiny_cuda):
+    """The shadow auditor on the card (T3): at rate 1.0 with
+    ``oracle="both"``, requests served through the loop's thread (the
+    prefix cache on, the second one a cache hit) re-decode through the
+    host loop and through a cold graph-loop decoder with 0 divergences;
+    the lanes' captures stay out of the serving ledger; a token flipped
+    through ``auditor.inject`` is caught and attributed to its block."""
+    import time
+
+    from repro_torch.cache import PrefixKVCache, device_placement
+    from repro_torch.core.decoder import DecodeConfig
+    from repro_torch.obs import AuditConfig, ShadowAuditor
+    from repro_torch.server import EngineLoop, ServerRequest
+    from repro_torch.serving import ContinuousEngine
+    cfg, params, _ = tiny_cuda
+    d = DecodeConfig(**{**_BASE, "gen_len": 16, "prefix_cache": True,
+                        "cache_chunk": 8})
+    eng = ContinuousEngine(cfg, params, d, max_slots=2, device="cuda",
+                           prefix_cache=PrefixKVCache(
+                               chunk_tokens=8,
+                               placement=device_placement("cuda")))
+    auditor = ShadowAuditor(eng, AuditConfig(sample_rate=1.0,
+                                             oracle="both"))
+    eng.attach_auditor(auditor)
+    prompt = "Q:12+34=? Answer:"             # two chunks and a tail
+    eng.prewarm([(len(prompt), 16)])
+    comps = []
+    loop = EngineLoop(eng, max_pending=4, idle_poll_s=0.005).start()
+    for _ in range(2):
+        done = []
+        loop.submit(ServerRequest(prompt=prompt, max_tokens=16),
+                    lambda ev: ev[0] == "done" and done.append(ev[1]))
+        t0 = time.monotonic()
+        while not done and time.monotonic() - t0 < 120:
+            time.sleep(0.01)
+        comps += done
+    t0 = time.monotonic()
+    while (auditor.completed < 2 or auditor.pending) \
+            and time.monotonic() - t0 < 120:
+        time.sleep(0.01)
+    assert loop.close(drain=True, timeout_s=60)
+    assert [c.cancelled for c in comps] == [False, False]
+    assert comps[1].cache_hit_tokens == 16
+    assert auditor.completed == auditor.sampled == 2
+    assert auditor.errors == 0 and auditor.divergences_total() == 0
+    assert {r.lane for r in auditor.results} == {"host", "cold"}
+    assert auditor.lane_graphs() == 16 // 8     # the cold lane's own
+    assert eng.metrics.snapshot()["post_warm_compiles"] == 0
+
+    def flip(tokens, lane):
+        tokens[9] = (tokens[9] + 1) % cfg.vocab_size
+        return tokens
+
+    auditor.inject = flip
+    auditor.on_completion(comps[1])
+    eng.drain_audits()
+    assert auditor.divergences["fused-vs-host"] == 1
+    assert auditor.divergences["cached-vs-cold"] == 1
+    bad = [r for r in auditor.results if not r.matched]
+    assert [(r.position, r.block) for r in bad] == [(9, 1), (9, 1)]
 
 
 # ------------------------------------------------------------------ GEMM

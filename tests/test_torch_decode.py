@@ -235,17 +235,24 @@ def test_unported_paths_raise(kw, item):
 
 
 def test_unported_engine_paths_raise():
-    """Continuous serving and the prefix cache are ported (ROADMAP A6,
-    A7); what they do not have yet raises naming its item: stealing and
-    handoff (A10), executor placement (A11), the auditor (A9)."""
+    """Continuous serving, the prefix cache, the HTTP front end and the
+    auditor are ported (ROADMAP A6-A9); what they do not have yet raises
+    naming its item: stealing and handoff, and a router that would
+    reach them (A10), executor placement (A11)."""
+    from repro_torch.server import EngineLoop, EngineRouter
     from repro_torch.serving import BlockScheduler, ContinuousEngine
     d = DecodeConfig(**BASE)
     eng = ContinuousEngine(CFG, PARAMS, d, device="cpu")
+    loops = [EngineLoop(eng), EngineLoop(ContinuousEngine(
+        CFG, PARAMS, d, device="cpu"))]
     for call, item in ((eng.scheduler.steal_waiting, "A10"),
                        (eng.scheduler.take_handoffs, "A10"),
-                       (lambda: eng.attach_auditor(object()), "A9")):
+                       (lambda: EngineRouter(loops), "A10")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    auditor = object()
+    eng.attach_auditor(auditor)
+    assert eng.auditor is auditor
     for kw, item in ((dict(executor=object()), "A11"),
                      (dict(prefill_only=True), "A10")):
         with pytest.raises(NotImplementedError, match=item):
@@ -279,12 +286,18 @@ def test_defaulted_device_raises_without_cuda(monkeypatch):
 # not import from there
 NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.cache.store", "repro_torch.cache.slicing",
-                 "repro_torch.kernels.gemm")
+                 "repro_torch.kernels.gemm", "repro_torch.server",
+                 "repro_torch.server.types", "repro_torch.server.wire",
+                 "repro_torch.server.loop", "repro_torch.server.router",
+                 "repro_torch.server.http", "repro_torch.server.client",
+                 "repro_torch.server.console", "repro_torch.obs.series",
+                 "repro_torch.obs.audit", "repro_torch.obs.profiler")
 
 
 def test_import_leaves_jax_out():
-    """Importing the port and every submodule (the prefix cache and the
-    GEMM binding among them) loads no jax and nothing of the JAX package
+    """Importing the port and every submodule (the prefix cache, the
+    GEMM binding, the HTTP front end and the auditor among them) loads
+    no jax and nothing of the JAX package
     (the test process itself has jax, so this runs in a fresh
     interpreter)."""
     code = (

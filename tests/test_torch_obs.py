@@ -181,6 +181,84 @@ def test_device_memory_stats_without_a_card():
     assert device_memory_stats() == {}
 
 
+def _tiny_engine():
+    from repro_torch.models import init_params
+    cfg = get_config("tiny")
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    return ContinuousEngine(cfg, params, DecodeConfig(
+        method="streaming", gen_len=32, block_size=8, window=4),
+        max_slots=2, device="cpu")
+
+
+def test_device_memory_stats_reference_keys_on_a_faked_allocator(
+        monkeypatch):
+    """On a card the reader reports the keys the front end's
+    ``repro_device_*`` series read (the JAX package's names), beside
+    PyTorch's own, and takes ``bytes_limit`` from the device properties
+    once (never ``mem_get_info``, a CUDA call that a graph capture on
+    the decode thread would refuse). The allocator is faked here."""
+    from types import SimpleNamespace
+
+    from repro_torch.obs import metrics
+    from repro_torch.server import EngineLoop, HttpFrontend
+    stats = {"allocated_bytes.all.current": 123, "allocated_bytes.all.peak":
+             456, "num_alloc_retries": 0, "requested_bytes.all.current": 120}
+    props = []
+
+    def fake_props(i):
+        props.append(i)
+        return SimpleNamespace(total_memory=80 << 30)
+
+    def no_mem_get_info(*a, **kw):
+        raise AssertionError("mem_get_info must not be called")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "memory_stats", lambda i: dict(stats))
+    monkeypatch.setattr(torch.cuda, "get_device_properties", fake_props)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", no_mem_get_info)
+    monkeypatch.setattr(metrics, "_BYTES_LIMIT", {})
+    for _ in range(2):
+        mem = metrics.device_memory_stats()
+        assert set(mem) == {"cuda:0"}
+        row = mem["cuda:0"]
+        assert (row["bytes_in_use"], row["peak_bytes_in_use"],
+                row["bytes_limit"]) == (123.0, 456.0, float(80 << 30))
+        assert row["allocated_bytes.all.current"] == 123.0
+    assert props == [0]                      # read once, then cached
+    text = HttpFrontend(EngineLoop(_tiny_engine()))._metrics_text()
+    assert 'repro_device_bytes_in_use{device="cuda:0"} 123' in text
+    assert 'repro_device_peak_bytes_in_use{device="cuda:0"} 456' in text
+    assert f'repro_device_bytes_limit{{device="cuda:0"}} {80 << 30}' in text
+
+
+def test_block_profiler_writes_a_trace_over_n_blocks_on_the_cpu(tmp_path):
+    """``BlockProfiler`` (``torch.profiler``, the CPU activity here)
+    starts at the first decoded block, stops itself once N blocks are
+    decoded and writes a Chrome trace under ``<dir>/torch_profile``; a
+    later tick does nothing."""
+    from repro_torch.obs import BlockProfiler
+    eng = _tiny_engine()
+    eng.profiler = prof = BlockProfiler(str(tmp_path), 2)
+    eng.submit(np.arange(10, dtype=np.int32), max_tokens=32)
+    seen = []
+    while not eng.scheduler.idle:
+        eng.step()
+        seen.append((prof.active, prof.done))
+    assert seen[0] == (True, False)          # one block decoded
+    assert seen[1] == (False, True)          # the second stops it
+    assert prof.seen == 2 and eng.telemetry.blocks == 4
+    path = tmp_path / "torch_profile" / "trace.json"
+    assert str(path) == prof.trace_path
+    doc = json.loads(path.read_text())
+    names = {e.get("name") for e in doc["traceEvents"]}
+    assert any(n and n.startswith("aten::") for n in names)
+    mtime = path.stat().st_mtime_ns
+    prof.tick(1)
+    prof.close()
+    assert path.stat().st_mtime_ns == mtime and not prof.active
+
+
 def test_json_logging_under_repro_torch():
     buf = io.StringIO()
     setup_logging(level="debug", json_mode=True, stream=buf)
