@@ -77,6 +77,17 @@ package. Phases, each printing JSON lines:
               every endpoint, a burst above max_pending (429) and the
               drain; every finished request equal to its decode alone
               (``phase_http``, ``http_traffic``).
+13. fleet   — several engines on the card, each on its own CUDA stream
+              and ``EngineLoop`` thread, on the same weights: a steal
+              fleet of two engines under ``EngineRouter(steal=True)``
+              (every request sent to loop 0; a parked row and waiting
+              requests stolen), one engine alone as the baseline, and a
+              ``prefill:1,decode:1`` pool fleet over one shared prefix
+              store; every completion equal to the baseline's bit for
+              bit, handoffs out = in, and one block graph captured on one
+              engine's thread while another engine decodes; launches
+              counted per run and per engine, and the card's idle share
+              bracketed by CUDA-event spans (``phase_fleet``).
 
 Then the kernels summary line (launches counted
 on the continuous phase's timed run; the GEMM has no TPU kernel behind
@@ -1836,6 +1847,88 @@ async def http_traffic(host, port, server, prompts, mark):
     return out, endpoints, clock
 
 
+def union_ms(ref, spans, lo=-math.inf, hi=math.inf) -> float:
+    """Milliseconds covered by the union of ``spans`` (pairs of recorded
+    CUDA events, on any streams), read against ``ref`` on the card's
+    clock and clipped to [lo, hi]."""
+    iv = sorted((max(ref.elapsed_time(a), lo), min(ref.elapsed_time(b), hi))
+                for a, b in spans)
+    busy, cur = 0.0, None
+    for a, b in iv:
+        if cur is None or a > cur[1]:
+            busy += max(cur[1] - cur[0], 0.0) if cur else 0.0
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return busy + (max(cur[1] - cur[0], 0.0) if cur else 0.0)
+
+
+class DeviceSpans:
+    """CUDA events around every call of the named ``DiffusionDecoder``
+    methods, recorded on the calling engine's current stream; each span
+    is ``(start, end, method, the decoder's dcfg.fused)``. Device busy is
+    read as a union of spans on the card's clock (two engines' spans
+    overlap, and a method may call another), so a gap inside a span
+    counts as busy."""
+
+    def __init__(self, on_card,
+                 names=("prefill", "prime_prompt_kv", "decode_block")):
+        self.on_card, self.names, self.spans, self.saved = \
+            on_card, names, [], {}
+
+    def __enter__(self):
+        if not self.on_card:
+            return self
+
+        def spanned(fn, name):
+            def run(dec, *a, **kw):
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+                out = fn(dec, *a, **kw)
+                ev[1].record()
+                self.spans.append((*ev, name, dec.dcfg.fused))
+                return out
+            return run
+
+        for name in self.names:
+            self.saved[name] = getattr(DiffusionDecoder, name)
+            setattr(DiffusionDecoder, name, spanned(self.saved[name], name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(DiffusionDecoder, name, fn)
+
+    def mark(self):
+        """(reference event, index of the next span)."""
+        if not self.on_card:
+            return None, len(self.spans)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev, len(self.spans)
+
+    def idle_share(self, start, end):
+        """The card's idle share between two marks, bracketed: ``low``
+        counts every span as busy (a gap inside one, such as the decode
+        engine's KV assembly from host memory, counts as busy); ``high``
+        counts only the block graphs' spans (``decode_block``: a graph
+        runs its ~56k kernels back to back) and every prefill and prime
+        as idle."""
+        if not self.on_card:
+            return None
+        torch.cuda.synchronize()
+        (ref, i0), (stop, i1) = start, end
+        window = ref.elapsed_time(stop)
+        inside = self.spans[i0:i1]
+        every = union_ms(ref, [(a, b) for a, b, *_ in inside], 0.0, window)
+        blocks = union_ms(ref, [(a, b) for a, b, name, _ in inside
+                                if name == "decode_block"], 0.0, window)
+        return {"window_ms": window, "busy_ms": every, "block_ms": blocks,
+                "idle_share_low": 1 - every / window,
+                "idle_share_high": 1 - blocks / window, "spans": i1 - i0}
+
+
 def phase_http(cfg, params, device="cuda"):
     """The port's front end at llada-8b full width and depth (the serve
     phase's weights), in this process: ``DecodeConfig(method="streaming",
@@ -1926,43 +2019,30 @@ def phase_http(cfg, params, device="cuda"):
     # thread's device work: serving and the audit lanes), each tagged
     # with its loop: a host-loop block's span also covers the gaps its
     # eager launches leave, so it counts as busy time the card idles
-    spans, patched = [], {}
-
-    def spanned(fn):
-        def run(self, *a, **kw):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = fn(self, *a, **kw)
-            ev[1].record()
-            spans.append((*ev, self.dcfg.fused))
-            return out
-        return run
-
-    if on_card:
-        for name in ("prefill", "decode_block"):
-            patched[name] = getattr(DiffusionDecoder, name)
-            setattr(DiffusionDecoder, name, spanned(patched[name]))
     marks = {}
     ops.reset_launches()
     server = HttpServerThread(frontend).start()
-    try:
-        out, endpoints, clock = asyncio.run(asyncio.wait_for(http_traffic(
-            frontend.host, frontend.port, server, prompts,
-            lambda name: marks.setdefault(name, len(spans))), 1200))
-    finally:
-        server.stop()
-        for name, fn in patched.items():
-            setattr(DiffusionDecoder, name, fn)
+    with DeviceSpans(on_card, ("prefill", "decode_block")) as spans:
+        try:
+            out, endpoints, clock = asyncio.run(asyncio.wait_for(
+                http_traffic(frontend.host, frontend.port, server, prompts,
+                             lambda name: marks.setdefault(
+                                 name, len(spans.spans))), 1200))
+        finally:
+            server.stop()
     launches = dict(ops.LAUNCHES)
     loop_joined = not loop.running
     window = clock["window_t1"] - clock["window_t0"]
-    # device busy in the window: the spans that ended inside it, split
+    # device busy in the window: the spans that started inside it, split
     # by loop (graph: serving and the cold lane; host: the host lane)
     busy = {True: 0.0, False: 0.0}
     if on_card:
         torch.cuda.synchronize()
-        for a, b, fused in spans[marks["t0"]:marks["t1"]]:
-            busy[fused] += a.elapsed_time(b) / 1e3
+        inside = spans.spans[marks["t0"]:marks["t1"]]
+        for fused in busy:
+            group = [(a, b) for a, b, _, f in inside if f == fused]
+            if group:
+                busy[fused] = union_ms(group[0][0], group) / 1e3
     auditor = eng.auditor
     astats = auditor.stats()
     snap = eng.metrics.snapshot()
@@ -2177,6 +2257,512 @@ def phase_http(cfg, params, device="cuda"):
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"http phase failed: {checks}")
+    return rec
+
+
+# ------------------------------------------------------------ fleet
+
+FLEET_PROMPT, FLEET_SHARED, FLEET_GEN = 256, 192, 128
+FLEET_SLOTS, FLEET_GANG = 4, 2
+FLEET_NEW_BUCKET = 128          # the capture under load's prompt length
+FLEET_WAVE1 = 5                 # wave 1 fills 2 gangs of 2 and queues 1
+FLEET_WAIT_S = 600
+
+
+def fleet_prompts(seed):
+    """The fleet phase's 8 prompts, strings of 256 one-byte tokens: S0-S3
+    share their first 192 characters, D0-D3 are distinct (as the http
+    phase builds them), in arrival order: wave 1 S0 D0 S1 D1 S2, wave 2
+    D2 S3 D3."""
+    p = http_prompts(seed)
+    names = ("S0", "D0", "S1", "D1", "S2", "D2", "S3", "D3")
+    return [(n, p[n[0]][int(n[1])]) for n in names]
+
+
+class FleetClient:
+    """Submits requests to a loop or a router and times each on the
+    caller's side: TTFB to the first chunk event, latency to the done
+    event (a stolen request keeps its first submission's clock)."""
+
+    def __init__(self):
+        self.recs = []
+
+    def submit(self, target, name, prompt):
+        import threading
+
+        from repro_torch.server.types import ServerRequest
+        rec = {"name": name, "prompt": prompt, "t_first": None,
+               "t_done": None, "comp": None, "dones": 0,
+               "done": threading.Event()}
+
+        def deliver(ev, rec=rec):
+            now = time.perf_counter()
+            if ev[0] == "chunk" and rec["t_first"] is None:
+                rec["t_first"] = now
+            elif ev[0] == "done":
+                rec["t_done"], rec["comp"] = now, ev[1]
+                rec["dones"] += 1
+                rec["done"].set()
+
+        rec["t_submit"] = time.perf_counter()
+        t = target.submit(ServerRequest(prompt=prompt,
+                                        max_tokens=FLEET_GEN), deliver)
+        if t.loop is None:
+            t.loop = target
+        rec["ticket"], rec["first_loop"] = t, t.loop
+        self.recs.append(rec)
+        return rec
+
+    def wait(self, timeout_s=FLEET_WAIT_S):
+        t0 = time.perf_counter()
+        for rec in self.recs:
+            left = timeout_s - (time.perf_counter() - t0)
+            if not rec["done"].wait(max(left, 0.0)):
+                raise AssertionError(f"fleet: {rec['name']} never finished")
+
+    def timing(self) -> dict:
+        from repro_torch.serving.metrics import percentile
+        t0 = min(r["t_submit"] for r in self.recs)
+        t1 = max(r["t_done"] for r in self.recs)
+        toks = sum(r["comp"].n_tokens for r in self.recs)
+        ttfb = [r["t_first"] - r["t_submit"] for r in self.recs
+                if r["t_first"] is not None]
+        lat = [r["t_done"] - r["t_submit"] for r in self.recs]
+        return {"requests": len(self.recs), "tokens": toks,
+                "window_s": t1 - t0, "tok_s": toks / (t1 - t0),
+                "ttfb_p50_s": percentile(ttfb, 50),
+                "ttfb_p90_s": percentile(ttfb, 90),
+                "latency_p50_s": percentile(lat, 50),
+                "latency_p90_s": percentile(lat, 90)}
+
+
+class ThreadLaunches:
+    """While open, every ``ops.count`` (the wrappers' and a replay's)
+    also adds to its thread's row, so a run's launches split by engine
+    (each engine counts on its loop's thread)."""
+
+    def __enter__(self):
+        import threading
+        self.rows, self.saved = {}, ops.count
+
+        def count(counts):
+            self.saved(counts)
+            row = self.rows.setdefault(threading.get_ident(),
+                                       dict.fromkeys(ops.LAUNCHES, 0))
+            for name, n in counts.items():
+                row[name] += n
+
+        ops.count = count
+        return self
+
+    def __exit__(self, *exc):
+        ops.count = self.saved
+
+    def of(self, lp) -> dict:
+        return self.rows.get(lp._thread.ident, dict.fromkeys(ops.LAUNCHES, 0))
+
+
+def preempt_after_first_block(eng, out):
+    """Wrap ``eng.step`` (called on its loop's thread): after the first
+    step that leaves a gang past its first block, preempt that gang's
+    first live row, once. The row parks at the next block boundary."""
+    step = eng.step
+
+    def wrapped():
+        comps = step()
+        if not out:
+            for g in eng.scheduler.gangs:
+                rows = g.live_rows()
+                if 1 <= g.state.block_idx < g.state.n_blocks - 1 and rows:
+                    eng.preempt(g.requests[rows[0]].uid)
+                    out.append(g.requests[rows[0]].uid)
+                    break
+        return comps
+
+    eng.step = wrapped
+
+
+def engine_busy(engines):
+    return [(e.metrics.prefill_busy_s, e.metrics.decode_busy_s)
+            for e in engines]
+
+
+def run_fleet(loops, target, prompts, spans, wave2, preempt_eng):
+    """Start ``loops``, submit wave 1 (the first ``FLEET_WAVE1`` of
+    ``prompts``) to ``target``, then the rest once ``wave2(t0)`` returns,
+    and wait for every request; one row of ``preempt_eng`` is preempted
+    after its first block. The launch counts are zeroed just before the
+    run and read just after it, in all and by engine. Returns the run's
+    record (client, preempted uid, span marks, busy seconds and launches
+    per engine) and the wave-2 offset."""
+    engines = [lp.engine for lp in loops]
+    busy0 = engine_busy(engines)
+    client, preempted = FleetClient(), []
+    preempt_after_first_block(preempt_eng, preempted)
+    for lp in loops:
+        if not lp.running:
+            lp.start()
+    ops.reset_launches()
+    with ThreadLaunches() as by_thread:
+        start = spans.mark()
+        for name, p in prompts[:FLEET_WAVE1]:
+            client.submit(target, name, p)
+        t0 = client.recs[0]["t_submit"]
+        wave2(t0)
+        offset = time.perf_counter() - t0
+        for name, p in prompts[FLEET_WAVE1:]:
+            client.submit(target, name, p)
+        client.wait()
+        end = spans.mark()
+    launches = dict(ops.LAUNCHES)
+    del preempt_eng.step
+    busy = [(a1 - a0, b1 - b0) for (a0, b0), (a1, b1)
+            in zip(busy0, engine_busy(engines))]
+    by_engine = [by_thread.of(lp) for lp in loops]
+    return {"client": client, "busy": busy, "preempted": preempted,
+            "engines": engines, "marks": (start, end), "launches": launches,
+            "launches_by_engine": by_engine,
+            "launches_on_engine_threads": {
+                k: sum(r[k] for r in by_engine) for k in launches}}, offset
+
+
+def run_summary(run) -> dict:
+    t = run["client"].timing()
+    return {"timing": t, "engines": [
+        {"prefill_busy_s": a, "decode_busy_s": b} for a, b in run["busy"]],
+        "busy_sum_over_window": sum(a + b for a, b in run["busy"])
+        / t["window_s"],
+        "graphs": [e.graph_cache_size() for e in run["engines"]],
+        "concluded_once": all(r["dones"] == 1 for r in run["client"].recs),
+        "launches": run["launches"],
+        "launches_by_engine": run["launches_by_engine"]}
+
+
+def phase_fleet(cfg, params, device="cuda"):
+    """Several engines on one card (ROADMAP A10): llada-8b at full width
+    and depth on the serve phase's weights, ``DecodeConfig(method=
+    "streaming", gen_len=128, block_size=32, window=96, prefix_cache=True,
+    cache_chunk=16)``, every engine ``ContinuousEngine(max_slots=4,
+    max_gang=2)`` with gangs padded to 2 rows (one set of 4 graphs an
+    engine), each on its own CUDA stream and ``EngineLoop`` thread. The 8
+    requests of ``fleet_prompts`` arrive in two waves, of 5 (two gangs
+    and one queued) and 3; one row of the first decode engine is
+    preempted after its first block. Each run's launch counts are zeroed
+    just before it and read just after it, in all and by engine (the
+    loop thread that counted them); CUDA-event spans on every engine's
+    stream bracket the card's idle share (``DeviceSpans.idle_share``).
+    Runs:
+
+    - steal fleet: two loops of role "both", each engine with its own
+      store, under ``EngineRouter(steal=True)`` after ``prewarm_all``;
+      every request goes to loop 0, so loop 1 serves only what it
+      steals: the queued request at once, then the parked row; wave 2
+      follows loop 1's adoption of the parked row. Then,
+      while loop 0 decodes two more requests, loop 1's engine captures
+      one block graph of a new bucket (128-token prompts) on its own
+      thread, checked against the host loop;
+    - baseline: one engine alone behind an ``EngineLoop``, wave 2 at the
+      steal fleet's offset: the reference tokens and timings;
+    - pool fleet: ``prefill:1,decode:1`` through the router over one
+      shared ``PrefixKVCache(shared=True)``: a prefill-only engine and
+      the baseline's engine (its store cleared), wave 2 at that offset.
+
+    Checks (any failure raises): loop 1 stole at least 2 requests, one a
+    parked row; every ticket concluded once; every completion of every
+    run equals the baseline's tokens bit for bit; no capture after
+    prewarm on a serving engine; handoffs out = in = the requests routed
+    to the prefill pool; the prefill engine decoded nothing and holds no
+    graph; every prime on the decode engine hit all 256 prompt tokens (16
+    chunks: no remainder to compute); no pin left in the shared store;
+    the capture under load made one graph whose block equals the host
+    loop's, and loop 0's requests in its window equal the baseline; each
+    run and the capture's window launched every kernel, every engine that
+    decodes launched every kernel in its run, the prefill engine the GEMM
+    and attention, and every launch was counted on an engine's thread."""
+    import threading
+
+    from repro_torch.cache import PrefixKVCache, device_placement
+    from repro_torch.launch.serve import prewarm_all
+    from repro_torch.obs import device_memory_stats
+    from repro_torch.server import EngineLoop, EngineRouter
+    from repro_torch.serving import ContinuousEngine
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+
+    def bytes_in_use():
+        mem = device_memory_stats().get("cuda:0")
+        return int(mem["bytes_in_use"]) if mem else 0
+
+    mem_before = bytes_in_use()
+    dcfg = DecodeConfig(method="streaming", gen_len=FLEET_GEN,
+                        block_size=BLOCK, window=WINDOW, use_kernels=True,
+                        prefix_cache=True, cache_chunk=PC_CHUNK)
+    prompts = fleet_prompts(SEED + 19)
+
+    def store(shared=False):
+        return PrefixKVCache(chunk_tokens=PC_CHUNK, max_bytes=4 << 30,
+                             placement=device_placement(device),
+                             shared=shared)
+
+    def engine(st, prefill_only=False):
+        return ContinuousEngine(cfg, params, dcfg, max_slots=FLEET_SLOTS,
+                                max_gang=FLEET_GANG,
+                                batch_multiple=FLEET_GANG, prefix_cache=st,
+                                prefill_only=prefill_only, device=device)
+
+    def loop(e, i, role="both"):
+        return EngineLoop(e, max_pending=16, idle_poll_s=0.002, index=i,
+                          role=role)
+
+    shared = store(shared=True)
+    base = engine(shared)                     # baseline, then pool decode
+    steal_engines = [engine(store()), engine(store())]
+    pre = engine(shared, prefill_only=True)
+    t0 = time.perf_counter()
+    bucket = [(FLEET_PROMPT, FLEET_GEN)]
+    warm = {"steal": prewarm_all(steal_engines, bucket),
+            "baseline": base.prewarm(bucket), "prefill": pre.prewarm(bucket)}
+    prewarm_s = time.perf_counter() - t0
+    graphs_warm = {"baseline": base.graph_cache_size(),
+                   "steal": [e.graph_cache_size() for e in steal_engines],
+                   "prefill": pre.graph_cache_size()}
+    streams = [str(e.cuda_stream) for e in (base, *steal_engines, pre)]
+
+    with DeviceSpans(on_card) as spans:
+        # ------------------------------------------------- steal fleet
+        sloops = [loop(e, i) for i, e in enumerate(steal_engines)]
+        router = EngineRouter(sloops, steal=True)
+        eng0, eng1 = steal_engines
+
+        def after_paused_steal(t_wave1):
+            # until loop 1 adopts the parked row (its second steal), or
+            # loop 0 has nothing left that it could steal
+            while eng1.metrics.steals_in < 2 and sloops[0].inflight \
+                    and time.perf_counter() - t_wave1 < 120:
+                time.sleep(0.005)
+
+        steal_run, offset = run_fleet(sloops, sloops[0], prompts, spans,
+                                      after_paused_steal, eng0)
+        recs = steal_run["client"].recs
+        steal_run.update(
+            steals_in=[e.metrics.steals_in for e in steal_engines],
+            steals_out=[e.metrics.steals_out for e in steal_engines],
+            post_warm=[e.metrics.post_warm_compiles for e in steal_engines],
+            paused_stolen=sum(bool(r["comp"].stolen) for r in recs),
+            served_by_loop1=sum(r["ticket"].loop is sloops[1] for r in recs))
+
+        # capture under load: loop 1's thread captures one graph of a
+        # new bucket while loop 0 decodes two more requests
+        trigger, captured, cap = threading.Event(), threading.Event(), {}
+        small = np.stack([eng1.tok.encode(prompts[i][1])[:FLEET_NEW_BUCKET]
+                          for i in (1, 3)]).astype(np.int32)
+
+        def capture_once():
+            if not trigger.is_set() or captured.is_set():
+                return False
+            try:
+                dec = eng1.scheduler.decoder_for(FLEET_GEN)
+                with eng1.on_stream():
+                    g0, t_c = eng1.graph_cache_size(), time.perf_counter()
+                    st = dec.prefill(small.copy(), cache=eng1.pool.acquire(
+                        small.shape[0], small.shape[1] + FLEET_GEN))
+                    dec.decode_block(st)
+                    cap.update(t0=t_c, t1=time.perf_counter(),
+                               graphs=eng1.graph_cache_size() - g0,
+                               x=st.x.copy(),
+                               thread=threading.current_thread().name)
+                    eng1.scheduler._release(dec, st)
+            except Exception as err:               # reported by a check
+                cap["error"] = repr(err)
+            captured.set()
+            return True
+
+        eng1.audit_tick = capture_once            # runs on loop 1's thread
+        load = FleetClient()
+        ops.reset_launches()
+        for i in (0, 1):
+            load.submit(sloops[0], *prompts[i])
+        t = time.perf_counter()
+        while not eng0.scheduler.gangs and time.perf_counter() - t < 60:
+            time.sleep(0.002)
+        trigger.set()
+        load.wait()
+        captured.wait(FLEET_WAIT_S)
+        load_launches = dict(ops.LAUNCHES)
+        del eng1.audit_tick
+        if not router.close(drain=True, timeout_s=120):
+            raise AssertionError("fleet: the steal fleet did not drain")
+        steal_run["post_warm_after_capture"] = [
+            e.metrics.post_warm_compiles for e in steal_engines]
+
+        # ------------------------------------------------- baseline
+        bloop = loop(base, 0)
+
+        def at_offset(t_wave1):
+            time.sleep(max(0.0, t_wave1 + offset - time.perf_counter()))
+
+        base_run, _ = run_fleet([bloop], bloop, prompts, spans, at_offset,
+                                base)
+        if not bloop.close(drain=True, timeout_s=120):
+            raise AssertionError("fleet: the baseline loop did not drain")
+        base_run["post_warm"] = base.metrics.post_warm_compiles
+
+        # ------------------------------------------------- pool fleet
+        cleared = shared.clear()
+        dec = base.scheduler.decoder_for(FLEET_GEN)
+        hits, prime = [], dec.prime_prompt_kv
+
+        def recording_prime(state):
+            out = prime(state)
+            hits.extend(int(h) for h in state.prefix_hit_tokens)
+            return out
+
+        dec.prime_prompt_kv = recording_prime
+        ploops = [loop(pre, 0, "prefill"), loop(base, 1, "decode")]
+        prouter = EngineRouter(ploops)
+        hand0 = base.metrics.handoffs_in
+        pool_run, _ = run_fleet(ploops, prouter, prompts, spans, at_offset,
+                                base)
+        if not prouter.close(drain=True, timeout_s=120):
+            raise AssertionError("fleet: the pool fleet did not drain")
+        del dec.prime_prompt_kv
+        precs = pool_run["client"].recs
+        pool_run.update(
+            handoffs_out=pre.metrics.handoffs_out,
+            handoffs_in=base.metrics.handoffs_in - hand0,
+            to_prefill_pool=sum(r["first_loop"] is ploops[0]
+                                for r in precs),
+            handed_off=sum(bool(r["comp"].handed_off) for r in precs),
+            prefill_decode_wall_s=pre.scheduler.decode_wall_s,
+            prefill_graphs=pre.graph_cache_size(),
+            decode_primes=len(hits), decode_prime_hits=sorted(set(hits)),
+            store_cleared_chunks=cleared,
+            pins_left=sum(n.refs for n in shared.tree.nodes),
+            post_warm=base.metrics.post_warm_compiles)
+        idle = {name: spans.idle_share(*r["marks"]) for name, r in (
+            ("steal", steal_run), ("baseline", base_run),
+            ("pool", pool_run))}
+
+    # the reference: the baseline's tokens for each prompt
+    ref = {r["name"]: r["comp"].tokens for r in base_run["client"].recs}
+
+    def equal(client):
+        return {r["name"]: bool(np.array_equal(r["comp"].tokens,
+                                               ref[r["name"]])
+                                and not r["comp"].cancelled)
+                for r in client.recs}
+
+    # the captured graph's first block against the host loop's
+    host = DiffusionDecoder(cfg, params, dataclasses.replace(
+        dcfg, fused=False), device=device)
+    hst = host.prefill(small.copy())
+    host.decode_block(hst)
+    blk = slice(FLEET_NEW_BUCKET, FLEET_NEW_BUCKET + BLOCK)
+    cap_equal = "x" in cap and bool(np.array_equal(cap["x"][:, blk],
+                                                   hst.x[:, blk]))
+    load_eq = equal(load)
+    overlap = "t0" in cap and cap["t0"] < max(
+        r["t_done"] for r in load.recs) and cap["t1"] > min(
+        r["t_submit"] for r in load.recs)
+    steal_eq, pool_eq = equal(steal_run["client"]), equal(pool_run["client"])
+    rec = {"phase": "fleet", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "method": dcfg.method,
+           "prompt_len": FLEET_PROMPT, "shared_prefix": FLEET_SHARED,
+           "max_tokens": FLEET_GEN, "max_slots": FLEET_SLOTS,
+           "max_gang": FLEET_GANG, "streams": streams, "prewarm": warm,
+           "prewarm_s": prewarm_s, "graphs_after_prewarm": graphs_warm,
+           "bytes_in_use_before": mem_before, "wave2_offset_s": offset,
+           "baseline": run_summary(base_run),
+           "steal": {**run_summary(steal_run), "equal_baseline": steal_eq,
+                     **{k: steal_run[k] for k in (
+                         "steals_in", "steals_out", "paused_stolen",
+                         "served_by_loop1", "post_warm",
+                         "post_warm_after_capture")}},
+           "idle": idle,
+           "pool": {**run_summary(pool_run), "equal_baseline": pool_eq,
+                    **{k: pool_run[k] for k in (
+                        "handoffs_out", "handoffs_in", "to_prefill_pool",
+                        "handed_off", "prefill_decode_wall_s",
+                        "prefill_graphs", "decode_primes",
+                        "decode_prime_hits", "store_cleared_chunks",
+                        "pins_left")}},
+           "capture_under_load": {
+               **{k: cap.get(k) for k in ("graphs", "thread", "error")},
+               "seconds": cap["t1"] - cap["t0"] if "t0" in cap else None,
+               "equals_host_loop": cap_equal, "overlapped_load": overlap,
+               "load_equal_baseline": load_eq,
+               "launches": load_launches}}
+    runs = (steal_run, base_run, pool_run)
+    # every engine that decodes: both steal engines, the baseline's, the
+    # pool's decode engine; the prefill engine runs prefill's kernels
+    decoders = [*steal_run["launches_by_engine"],
+                *base_run["launches_by_engine"],
+                pool_run["launches_by_engine"][1]]
+    prefiller = pool_run["launches_by_engine"][0]
+    checks = {
+        "prewarm_graphs_4_4_4_0": not on_card or graphs_warm == {
+            "baseline": 4, "steal": [4, 4], "prefill": 0},
+        "steals_in_ge_2_one_paused": steal_run["steals_in"][1] >= 2
+        and steal_run["paused_stolen"] >= 1,
+        "concluded_once": all(rec[n]["concluded_once"]
+                              for n in ("baseline", "steal", "pool")),
+        "steal_equal_baseline": all(steal_eq.values()),
+        "pool_equal_baseline": all(pool_eq.values()),
+        "no_capture_after_prewarm": steal_run["post_warm"] == [0, 0]
+        and steal_run["post_warm_after_capture"] == [0, 0]
+        and base_run["post_warm"] == 0 and pool_run["post_warm"] == 0,
+        "preempted_in_each_run": all(len(r["preempted"]) == 1 for r in (
+            steal_run, base_run, pool_run)),
+        "handoffs_out_eq_in_eq_routed": pool_run["handoffs_out"]
+        == pool_run["handoffs_in"] == pool_run["to_prefill_pool"]
+        == pool_run["handed_off"] >= 1,
+        "prefill_engine_decoded_nothing":
+        pool_run["prefill_decode_wall_s"] == 0.0
+        and pool_run["prefill_graphs"] == 0,
+        "decode_primes_hit_every_aligned_token":
+        pool_run["decode_primes"] >= 1 and pool_run["decode_prime_hits"]
+        == [FLEET_PROMPT // PC_CHUNK * PC_CHUNK],
+        "no_pin_leak": pool_run["pins_left"] == 0,
+        "capture_under_load": cap.get("graphs") == 1 and "error" not in cap
+        and cap_equal and overlap and all(load_eq.values()),
+        "kernels_launched_in_each_run": not on_card or all(
+            v > 0 for r in runs for v in r["launches"].values())
+        and all(v > 0 for v in load_launches.values()),
+        "kernels_launched_by_each_decode_engine": not on_card or all(
+            v > 0 for row in decoders for v in row.values()),
+        "prefill_engine_launched_its_kernels": not on_card or (
+            prefiller["gemm"] > 0 and prefiller["block_attention"] > 0),
+        "launches_only_on_engine_threads": all(
+            r["launches_on_engine_threads"] == r["launches"] for r in runs)}
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    # the engines are held by the loops, the clients' tickets and the
+    # closures that drove them
+    del base, pre, steal_engines, eng0, eng1, sloops, ploops, router
+    del prouter, bloop, host, hst, shared, dec, steal_run, base_run
+    del pool_run, runs, load, recs, precs, prime, recording_prime
+    del capture_once
+    del after_paused_steal, at_offset
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rec["bytes_in_use_after"] = bytes_in_use()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    for name in ("baseline", "steal", "pool"):
+        r = rec[name]
+        print(json.dumps({"phase": f"fleet_{name}", **r["timing"],
+                          "engines": r["engines"],
+                          "busy_sum_over_window": r["busy_sum_over_window"],
+                          "idle": idle[name], "graphs": r["graphs"],
+                          "launches": r["launches"],
+                          "launches_by_engine": r["launches_by_engine"]}),
+              flush=True)
+    print(json.dumps({"phase": "fleet_memory", **{k: rec[k] for k in (
+        "bytes_in_use_before", "bytes_in_use_after", "phase_s")}}),
+        flush=True)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"fleet phase failed: {checks}")
     return rec
 
 
@@ -2490,6 +3076,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_http(cfg, params)
+    phase_fleet(cfg, params)
 
     kernels = [
         {"name": "block_attention", "route": "cuda",

@@ -12,8 +12,9 @@ Consumed by ``DiffusionDecoder.prime_prompt_kv`` (chunk-aligned
 prefill: assemble the longest cached prefix, compute only the novel
 tail) and ``BlockScheduler`` (hit-aware admission grouping). Distinct
 from ``repro_torch.serving.PrefixKVPool``, which recycles *buffers* by
-shape; this store reuses *content*. The router's cache affinity is
-ROADMAP A8/A10.
+shape; this store reuses *content*. ``EngineRouter`` routes a request
+to the engine whose store holds its longest prefix (cache affinity); a
+prefill/decode pool fleet shares one store (``shared=True``).
 """
 from repro_torch.cache.radix import ChunkNode, RadixTree, chunk_key
 from repro_torch.cache.slicing import (assemble_batch, assemble_rows,

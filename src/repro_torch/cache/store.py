@@ -20,9 +20,13 @@ JAX package's executor) is ROADMAP A11.
 
 Sharing: ``shared=True`` turns on internal locking, for several engine
 threads that match, insert and evict concurrently (pins protect chunks
-across multi-call spans, the lock protects the tree within each call).
-The disaggregated prefill/decode pools that share one store are ROADMAP
-A10.
+across multi-call spans, the lock protects the tree within each call):
+one ``PrefixKVCache(shared=True, placement=device_placement(device))``
+serves every engine of a prefill/decode pool fleet on one card. A slice
+is copied to the host before ``insert`` returns (``slicing.extract_row``
+waits for its copy on the inserting engine's stream), so a chunk the
+prefill engine publishes is complete before a decode engine can match
+it.
 
 Eviction: ref-counted LRU over leaf chunks with a byte budget
 (``max_bytes``). ``match`` pins the returned chain; the caller unpins
@@ -167,6 +171,19 @@ class PrefixKVCache:
                 self.tree.remove(victim)
                 self.bytes -= victim.nbytes
                 self.evictions += 1
+
+    def clear(self) -> int:
+        """Drop every chunk that is not pinned (a pinned chunk keeps its
+        ancestors), as eviction would, and count them as evictions.
+        Returns the chunks dropped."""
+        with self._lock:
+            before = self.evictions
+            budget, self.max_bytes = self.max_bytes, 0
+            try:
+                self._evict_to_budget()
+            finally:
+                self.max_bytes = budget
+            return self.evictions - before
 
     # ------------------------------------------------------ reporting
 

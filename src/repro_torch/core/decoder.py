@@ -641,7 +641,7 @@ class DiffusionDecoder:
                         cache=state.cache, skip_head=True,
                         use_kernels=d.use_kernels)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         state.prefill_time = time.perf_counter() - tp0
         state.nfe += 1
         state.host_syncs += 1
@@ -708,7 +708,7 @@ class DiffusionDecoder:
                     state.kv_tokens += B * (t1 - t0) * t1
             if spans:
                 if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                    torch.cuda.current_stream(self.device).synchronize()
                 state.host_syncs += 1
             # publish the chunks this gang computed (above what each row
             # already had cached); rows repeating an earlier row's prompt
@@ -894,17 +894,20 @@ class DiffusionDecoder:
         t0 = time.perf_counter()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            prog.prologue()
-            prog.body()
-            prog.epilogue()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        prog.graph = graph_loop.BlockGraph(prog.prologue, prog.body,
-                                           prog.epilogue, prog.b.pred,
-                                           prog.n_iter, self._pool)
+        # one capture at a time across engine threads, warm-up included
+        with graph_loop.capture_guard():
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                prog.prologue()
+                prog.body()
+                prog.epilogue()
+            current.wait_stream(side)
+            current.synchronize()
+            prog.graph = graph_loop.BlockGraph(prog.prologue, prog.body,
+                                               prog.epilogue, prog.b.pred,
+                                               prog.n_iter, self._pool)
         self.capture_time += time.perf_counter() - t0
 
     def _decode_block_fused(self, state: DecodeState) -> DecodeState:

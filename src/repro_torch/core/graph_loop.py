@@ -17,12 +17,23 @@ after the loop closes skip their body. The graphs need CUDA 12.4 or
 later (conditional nodes) and a PyTorch whose ``CUDAGraph`` takes
 ``keep_graph``; without either, ``require_support`` raises and says
 which.
+
+Several engine threads share the card. ``capture_guard`` is the one
+process-wide capture lock: it admits one capture at a time and, for its
+length, holds the cyclic collector off (a graph freed mid-capture
+invalidates it), restoring the collector's state once, when the
+outermost guard exits. Each part is captured in ``thread_local`` error
+mode, so an allocation or a sync of its own stream that another engine's
+thread makes meanwhile does not invalidate it (a device-wide sync would,
+in any mode: the serving paths sync their own stream only).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
+import threading
 
 import torch
 
@@ -75,16 +86,53 @@ def require_support() -> None:
             f"{torch.__version__}): {err}") from err
 
 
-def _capture(fn, pool):
+_CAPTURE_LOCK = threading.RLock()
+_hold = {"depth": 0, "collecting": False}
+_capture_streams = {}
+
+
+@contextlib.contextmanager
+def capture_guard():
+    """One capture at a time across the process (re-entrant on its own
+    thread), with the cyclic collector held off from the outermost entry
+    to the outermost exit and then put back as it was."""
+    with _CAPTURE_LOCK:
+        if _hold["depth"] == 0:
+            gc.collect()
+            _hold["collecting"] = gc.isenabled()
+            gc.disable()
+        _hold["depth"] += 1
+        try:
+            yield
+        finally:
+            _hold["depth"] -= 1
+            if _hold["depth"] == 0 and _hold["collecting"]:
+                gc.enable()
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream captures of ``device`` run on (one per device: the
+    guard lets one capture run at a time)."""
+    if device.index not in _capture_streams:
+        _capture_streams[device.index] = torch.cuda.Stream(device)
+    return _capture_streams[device.index]
+
+
+def _capture(fn, pool, device):
     """``fn()`` captured into a kept (not instantiated) CUDA graph, with
-    the launches it counted: capture launches nothing, so the counts are
-    put back and returned."""
-    before = dict(kops.LAUNCHES)
+    the launches it counted (capture launches nothing, so they go to this
+    thread's tally, not ``kops.LAUNCHES``). Call inside
+    ``capture_guard``. ``thread_local`` mode: only this thread's unsafe
+    CUDA calls can invalidate the capture."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, pool=pool):
-        fn()
-    counted = {k: kops.LAUNCHES[k] - before[k] for k in before}
-    kops.LAUNCHES.update(before)
+    stream = _capture_stream(device)
+    stream.synchronize()
+    with torch.cuda.stream(stream), kops.capturing() as counted:
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
     return graph, counted
 
 
@@ -100,21 +148,12 @@ class BlockGraph:
         lib = _lib()
         self._parts = []
         self.launches = {}
-        # A graph freed during a capture (a dead decoder's, by the cycle
-        # collector) would invalidate it: collect first, then hold the
-        # collector off until the captures end.
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
+        with capture_guard():
             for name, fn in (("prologue", prologue), ("body", body),
                              ("epilogue", epilogue)):
-                graph, counted = _capture(fn, pool)
+                graph, counted = _capture(fn, pool, pred.device)
                 self._parts.append(graph)      # keeps the pool's memory
                 self.launches[name] = counted
-        finally:
-            if collecting:
-                gc.enable()
         pro, bod, epi = (ctypes.c_void_p(g.raw_cuda_graph())
                          for g in self._parts)
         self._graph = ctypes.c_void_p()
@@ -161,10 +200,10 @@ class BlockGraph:
         """Count one replay's kernel launches in ``kops.LAUNCHES``: the
         prologue's and epilogue's, and the body's times the bodies that
         ran (the device's step counter says how many)."""
-        for k in kops.LAUNCHES:
-            kops.LAUNCHES[k] += (self.launches["prologue"][k]
-                                 + bodies_run * self.launches["body"][k]
-                                 + self.launches["epilogue"][k])
+        kops.count({k: self.launches["prologue"][k]
+                    + bodies_run * self.launches["body"][k]
+                    + self.launches["epilogue"][k]
+                    for k in self.launches["body"]})
 
     def __del__(self):
         if getattr(self, "_lib", None) is not None:

@@ -93,18 +93,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_COUNTERS = {}
-
-
 def _counters(device: torch.device, N: int) -> torch.Tensor:
-    """The per-row arrival counters of (device, N): zeros once, and the
-    kernel leaves them zero. Kept for the life of the process, so a
-    captured CUDA graph keeps a valid pointer; launches that share them
-    run on one stream."""
-    key = (device.index, N)
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(N, dtype=torch.int32, device=device)
-    return _COUNTERS[key]
+    """Fresh per-row arrival counters (zeros; the kernel leaves them
+    zero) for one launch. Allocated with the launch, like the partials,
+    so launches on several streams (one per engine) never share them; in
+    a captured CUDA graph they are a memset node and a buffer of the
+    graph's own pool."""
+    return torch.zeros(N, dtype=torch.int32, device=device)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -4,22 +4,57 @@ A CPU tensor goes to the plain PyTorch version (``kernels.ref``). A CUDA
 tensor goes to the kernel — after its device, dtype, shape and
 contiguity are checked — or the wrapper raises; nothing falls back.
 ``LAUNCHES`` counts each wrapper's kernel launches (and nothing else),
-so a run can show that its path went through the kernels.
+so a run can show that its path went through the kernels. Several engine
+threads count into it at once: ``count`` adds under a lock, and a thread
+inside ``capturing()`` (a CUDA graph capture, which launches nothing)
+counts into its own tally instead, so a capture never rewinds the
+shared counts.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
 from repro_torch.kernels import ref
 
 LAUNCHES = {"block_attention": 0, "confidence_argmax": 0, "gemm": 0}
+_LOCK = threading.Lock()
+_TALLY = threading.local()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count(counts: dict) -> None:
+    """Add ``{name: n}`` launches: to this thread's capture tally inside
+    ``capturing()``, else to ``LAUNCHES`` under the lock."""
+    tally = getattr(_TALLY, "tally", None)
+    if tally is not None:
+        for name, n in counts.items():
+            tally[name] += n
+        return
+    with _LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def capturing():
+    """While open, this thread's launches go to the yielded tally (one
+    count per wrapper, like ``LAUNCHES``) and not to ``LAUNCHES``; other
+    threads count as before."""
+    prev = getattr(_TALLY, "tally", None)
+    _TALLY.tally = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _TALLY.tally
+    finally:
+        _TALLY.tally = prev
 
 
 def _require(cond: bool, what: str) -> None:
@@ -57,7 +92,7 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                  "gemm: x and w must be 16-byte aligned")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     kernel.launch(x, w, y)
-    LAUNCHES["gemm"] += 1
+    count({"gemm": 1})
     return y
 
 
@@ -126,7 +161,7 @@ def block_attention(q, k, v, q_pos, kv_pos, kv_mask, *, scale=None,
         else kernel.launch_simple
     launch(q, k, v, q_pos, kv_pos, kv_mask, out, scale=scale,
            softcap=softcap, window=window)
-    LAUNCHES["block_attention"] += 1
+    count({"block_attention": 1})
     return out
 
 
@@ -156,7 +191,7 @@ def _confidence_2d(logits: torch.Tensor, mask_id: int):
     conf = torch.empty((N,), dtype=torch.float32, device=logits.device)
     idx = torch.empty((N,), dtype=torch.int32, device=logits.device)
     kernel.launch(logits, conf, idx, mask_id=mask_id)
-    LAUNCHES["confidence_argmax"] += 1
+    count({"confidence_argmax": 1})
     return conf, idx
 
 

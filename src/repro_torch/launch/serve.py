@@ -29,8 +29,26 @@ flight recorder, metrics log and SLO watchdog (``--audit-rate``,
 ``--flight-dir``, ``--metrics-log``, ``--slo-*``) ride the HTTP loop;
 ``--trace-dir`` and ``--profile-blocks`` also serve the synthetic
 continuous workload.
-``--ckpt`` and training wait for ROADMAP A12; ``--engines``, ``--pool``
-and ``--no-steal`` for A10.
+
+A fleet on one card, behind the HTTP front end's ``EngineRouter``
+(each engine on its own CUDA stream; the weights are shared):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \
+        --gen-len 128 --window 96 --prewarm 256:128 --http 8000 \
+        --engines 2 [--no-steal] [--host-threads-per-engine T]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \
+        --gen-len 128 --window 96 --prewarm 256:128 --http 8000 \
+        --prefix-cache --pool prefill:1,decode:1
+
+``--engines N`` serves with N engines (work stealing between them at
+block boundaries unless ``--no-steal``); ``--pool prefill:N,decode:M``
+primes prompts on N prefill-only engines into one shared prefix store
+and decodes them on M engines. ``--host-threads-per-engine`` sizes the
+process's intra-op pool (``repro_torch.launch.host``; default cores //
+engines). ``--prewarm`` captures every engine's graphs, one engine after
+another, before admission opens.
+``--ckpt`` and training wait for ROADMAP A12; ``--mesh`` and
+``--force-host-devices`` for A11.
 """
 from __future__ import annotations
 
@@ -77,6 +95,29 @@ def parse_prewarm(s: str):
                 f"--prewarm wants 'P:G[,P:G...]' ints, got {part!r}")
         buckets.append((p, g))
     return buckets
+
+
+def parse_pool(s: str):
+    """``"prefill:N,decode:M"`` -> {"prefill": N, "decode": M}."""
+    sizes = {"prefill": 0, "decode": 0}
+    for part in s.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            role, n = part.split(":")
+            sizes[role.strip()] += int(n)
+        except (ValueError, KeyError):
+            raise SystemExit(
+                f"--pool wants 'prefill:N,decode:M', got {part!r}")
+    if sizes["decode"] < 1:
+        raise SystemExit("--pool needs at least one decode engine "
+                         "(prefill-only engines can never finish a "
+                         "request)")
+    if sizes["prefill"] < 1:
+        raise SystemExit("--pool without a prefill engine is plain "
+                         "--engines; drop the flag")
+    return sizes
 
 
 def main(argv=None):
@@ -178,14 +219,59 @@ def main(argv=None):
                     "--trace-dir/torch_profile (or results/torch/profile)")
     ap.add_argument("--log-json", action="store_true",
                     help="JSON-lines log records instead of text")
+    ap.add_argument("--engines", type=int, default=1, metavar="N",
+                    help="engine loops on the card, each on its own CUDA "
+                    "stream, behind one HTTP front end (cache affinity, "
+                    "then least-loaded routing; HTTP mode only for N > 1)")
+    ap.add_argument("--pool", default="", metavar="prefill:N,decode:M",
+                    help="disaggregated engine pools: N prefill-only "
+                    "engines prime prompt KV into ONE shared prefix "
+                    "store and hand each request off to one of M decode "
+                    "engines (implies --engines N+M; needs --http and "
+                    "--prefix-cache)")
+    ap.add_argument("--no-steal", action="store_true",
+                    help="disable block-boundary work stealing between "
+                    "engine loops (--engines > 1)")
+    ap.add_argument("--host-threads-per-engine", type=int, default=0,
+                    metavar="T",
+                    help="PyTorch intra-op threads (process-wide); 0 = "
+                    "cores // engines (repro_torch.launch.host)")
+    ap.add_argument("--mesh", default="", metavar="DATA,MODEL",
+                    help="per-engine mesh placement (ROADMAP A11: not "
+                    "ported, raises)")
+    ap.add_argument("--force-host-devices", type=int, default=0,
+                    help="fake host devices (ROADMAP A11: not ported, "
+                    "raises)")
     args = ap.parse_args(argv)
 
     from repro_torch.obs.log import setup_logging
     setup_logging(json_mode=args.log_json)
     # flag validation up front, before any weights are made
+    if args.mesh or args.force_host_devices:
+        raise NotImplementedError(
+            "--mesh and --force-host-devices (mesh placement) are "
+            "ROADMAP A11")
+    if args.engines > 1 and not args.http:
+        raise SystemExit("--engines N > 1 needs --http (the router lives "
+                         "in the HTTP front end)")
     if args.prefix_cache and args.method == "vanilla":
         raise SystemExit("--prefix-cache has no effect with --method "
                          "vanilla (no KV cache to reuse)")
+    pool_sizes = parse_pool(args.pool) if args.pool else None
+    if pool_sizes is not None:
+        if not args.http:
+            raise SystemExit("--pool needs --http (the prefill->decode "
+                             "handoff rides the EngineRouter in the "
+                             "HTTP front end)")
+        if not args.prefix_cache:
+            raise SystemExit("--pool needs --prefix-cache (primed "
+                             "prompt KV travels through the shared "
+                             "prefix store)")
+        n_pool = pool_sizes["prefill"] + pool_sizes["decode"]
+        if args.engines not in (1, n_pool):
+            raise SystemExit(f"--pool {args.pool} implies --engines "
+                             f"{n_pool}, got --engines {args.engines}")
+        args.engines = n_pool
     slo_targets = {"ttfb_p50_s": args.slo_ttfb_p50_ms / 1e3,
                    "token_latency_s": args.slo_token_latency_ms / 1e3,
                    "goodput_tok_s": args.slo_goodput_tok_s}
@@ -208,7 +294,21 @@ def main(argv=None):
         raise SystemExit("--trace-dir and --profile-blocks need continuous "
                          "mode")
     prewarm_buckets = parse_prewarm(args.prewarm) if args.prewarm else []
+    if prewarm_buckets and args.mode != "continuous":
+        raise SystemExit("--prewarm needs --mode continuous")
 
+    # a fleet (or an explicit --host-threads-per-engine) sizes the
+    # process's intra-op pool; one engine keeps PyTorch's own default
+    budget = pool_budgets = None
+    if args.engines > 1 or args.host_threads_per_engine > 0:
+        from repro_torch.launch import host as host_budgeting
+        budget = host_budgeting.apply_host_budget(
+            host_budgeting.compute_host_budget(
+                args.engines, args.host_threads_per_engine))
+        if pool_sizes is not None:
+            pool_budgets = host_budgeting.compute_pool_budgets(
+                pool_sizes, args.host_threads_per_engine)
+        print(f"host budget: {budget.describe()}")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, dtype=args.dtype, param_dtype=args.dtype)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -221,17 +321,42 @@ def main(argv=None):
                      fused=not args.host_loop,
                      prefix_cache=args.prefix_cache,
                      cache_chunk=args.cache_chunk)
-    if args.mode == "batch":
-        eng = ServingEngine(cfg, params, d, mode="batch", device=device)
-    else:
-        store = None
-        if args.prefix_cache:
+    roles = None
+    if pool_sizes is not None:
+        roles = (["prefill"] * pool_sizes["prefill"]
+                 + ["decode"] * pool_sizes["decode"])
+    # pool fleets share ONE store: the prefill pool publishes chunk KV
+    # into it and the decode pool's admission prefill finds the full hit
+    shared_store = None
+    if pool_sizes is not None:
+        shared_store = PrefixKVCache(chunk_tokens=args.cache_chunk,
+                                     max_bytes=args.cache_bytes,
+                                     placement=device_placement(device),
+                                     shared=True)
+
+    def make_engine(role: str = "both"):
+        store = shared_store
+        if args.prefix_cache and store is None:
+            # one store per engine otherwise: the router's cache
+            # affinity relies on that split
             store = PrefixKVCache(chunk_tokens=args.cache_chunk,
                                   max_bytes=args.cache_bytes,
                                   placement=device_placement(device))
-        eng = ContinuousEngine(cfg, params, d, max_slots=args.max_slots,
-                               pad_pow2=args.pad_pow2, prefix_cache=store,
-                               device=device)
+        return ContinuousEngine(
+            cfg, params, d, max_slots=args.max_slots,
+            pad_pow2=args.pad_pow2, prefix_cache=store,
+            prefill_only=(role == "prefill"),
+            host_budget=(pool_budgets[role] if pool_budgets is not None
+                         else budget),
+            device=device)
+
+    if args.mode == "batch":
+        eng = ServingEngine(cfg, params, d, mode="batch", device=device)
+        engines = [eng]
+    else:
+        engines = [make_engine(roles[i] if roles else "both")
+                   for i in range(args.engines)]
+        eng = engines[0]
     summary = {"arch": args.arch, "method": args.method, "mode": args.mode,
                "device": (torch.cuda.get_device_name(device)
                           if device.type == "cuda" else "cpu")}
@@ -240,16 +365,17 @@ def main(argv=None):
         from repro_torch.obs.trace import Tracer
         tracer = Tracer()
     if args.profile_blocks > 0:
+        # torch.profiler is process-wide: one engine owns the window
         from repro_torch.obs.profiler import BlockProfiler
         eng.profiler = BlockProfiler(
             args.trace_dir or os.path.join("results", "torch", "profile"),
             args.profile_blocks)
     if prewarm_buckets:
-        if args.mode != "continuous":
-            raise SystemExit("--prewarm needs --mode continuous")
-        summary["prewarm"] = eng.prewarm(prewarm_buckets)
+        reports = prewarm_all(engines, prewarm_buckets)
+        summary["prewarm"] = reports if len(reports) > 1 else reports[0]
     if args.http:
-        summary.update(serve_http(args, eng, tracer, slo_targets))
+        summary.update(serve_http(args, engines, tracer, slo_targets,
+                                  roles))
         print(json.dumps(summary))
         return summary
     if tracer is not None:
@@ -302,6 +428,19 @@ def main(argv=None):
     return summary
 
 
+def prewarm_all(engines, buckets) -> list:
+    """Prewarm every engine, one after another, before admission opens:
+    every graph steady traffic reaches is captured now, and no engine
+    captures inside another's serving window. One report per engine."""
+    reports = []
+    for i, eng in enumerate(engines):
+        rep = eng.prewarm(buckets)
+        print(f"engine-{i} prewarmed {rep['graphs']} graph(s) over "
+              f"{len(rep['buckets'])} bucket(s) in {rep['seconds']:.1f}s")
+        reports.append(rep)
+    return reports
+
+
 def export_trace(tracer, trace_dir: str) -> None:
     if tracer is not None:
         path = os.path.join(trace_dir, "trace.json")
@@ -309,9 +448,10 @@ def export_trace(tracer, trace_dir: str) -> None:
         print(f"chrome trace written to {path} (open in ui.perfetto.dev)")
 
 
-def serve_http(args, eng, tracer, slo_targets) -> dict:
-    """Serve ``eng`` over HTTP until SIGINT, then drain (blocking).
-    Returns the engine's serving counters for the summary line."""
+def serve_http(args, engines, tracer, slo_targets, roles=None) -> dict:
+    """Serve ``engines`` (one, or a fleet behind ``EngineRouter`` with
+    ``roles`` for pools) over HTTP until SIGINT, then drain (blocking).
+    Returns the fleet's serving counters for the summary line."""
     from repro_torch.server import run as run_http
     audit = None
     if args.audit_rate > 0:
@@ -328,20 +468,27 @@ def serve_http(args, eng, tracer, slo_targets) -> dict:
         from repro_torch.obs import FlightRecorder
         flight = FlightRecorder(args.flight_dir, tracer=tracer)
     try:
-        run_http(eng, host=args.http_host, port=args.http,
-                 max_pending=args.max_pending, tracer=tracer, audit=audit,
-                 watchdog=watchdog, flight=flight,
+        run_http(engines if len(engines) > 1 else engines[0],
+                 host=args.http_host, port=args.http,
+                 max_pending=args.max_pending, tracer=tracer,
+                 steal=not args.no_steal, audit=audit,
+                 watchdog=watchdog, flight=flight, roles=roles,
                  metrics_interval_s=args.metrics_interval_s,
                  metrics_log=args.metrics_log or None)
     finally:
         export_trace(tracer, args.trace_dir)
-    snap = eng.metrics.snapshot()
-    out = {"http": args.http, "served": snap["requests"],
-           "tokens": snap["tokens"], "cancelled": snap["cancelled"],
-           "admission_rejects": snap["admission_rejects"],
-           "post_warm_captures": snap["post_warm_compiles"]}
-    if eng.auditor is not None:
-        out["audit"] = eng.auditor.stats()
+    snaps = [e.metrics.snapshot() for e in engines]
+    out = {"http": args.http, "engines": len(engines)}
+    for key, snap_key in (("served", "requests"), ("tokens", "tokens"),
+                          ("cancelled", "cancelled"),
+                          ("admission_rejects", "admission_rejects"),
+                          ("post_warm_captures", "post_warm_compiles"),
+                          ("steals", "steals_in"),
+                          ("handoffs", "handoffs_in")):
+        out[key] = sum(s[snap_key] for s in snaps)
+    if engines[0].auditor is not None:
+        out["audit"] = [e.auditor.stats() for e in engines] \
+            if len(engines) > 1 else engines[0].auditor.stats()
     return out
 
 

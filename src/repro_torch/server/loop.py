@@ -4,12 +4,12 @@
 On the card the decode thread is the only thread that runs CUDA work:
 graph captures (a bucket that was not prewarmed, the auditor's cold
 lane), replays, the host copies around each block and the audit lanes
-all happen inside ``engine.step()`` / ``engine.audit_tick()`` here. The
-any-thread API below and ``debug_vars`` touch Python state only, so a
-scrape from the asyncio thread never issues a CUDA call that a capture
-in progress would refuse. Graphs captured by ``prewarm`` on another
-thread replay here on this thread's current stream, which is the
-device's default stream as it is on every thread.
+all happen inside ``engine.step()`` / ``engine.audit_tick()`` here, on
+the engine's own stream (``ContinuousEngine.cuda_stream``), so the loops of a
+fleet on one card queue their blocks apart. The any-thread API below
+and ``debug_vars`` touch Python state only; a steal or a handoff moves
+host arrays and requests, never a device tensor. Graphs captured by
+``prewarm`` on another thread replay here on the same engine stream.
 
 The continuous batcher is a synchronous pull loop: someone must call
 ``engine.step()`` for blocks to decode. ``EngineLoop`` owns that call
@@ -46,9 +46,7 @@ pool-acquire + radix-re-prime path. Ticket ownership (``ticket.loop``)
 moves with the request so cancels and deadlines keep routing to
 whichever engine currently holds it; in-flight accounting transfers
 under both loops' locks. This unfreezes the at-admission load split
-that placement-only routing produces. In the port stealing and the
-prefill/decode handoff are ROADMAP A10: ``EngineRouter`` refuses a
-fleet that would reach them, so the commands below stay unreached.
+that placement-only routing produces.
 """
 from __future__ import annotations
 

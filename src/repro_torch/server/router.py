@@ -1,12 +1,6 @@
 """Multi-engine routing: N ``EngineLoop``s (one per device/mesh)
 behind one front end (a copy of ``repro.server.router``).
 
-Not ported yet (ROADMAP A10): block-boundary work stealing and the
-disaggregated prefill/decode pools. A router over more than one loop
-with ``steal=True``, or over loops with a pool role, raises
-``NotImplementedError`` when it is built; the stealing and handoff code
-below is kept as the reference has it and is unreachable until then.
-
 ``EngineRouter`` presents the same any-thread surface as a single
 ``EngineLoop`` (``submit`` / ``cancel`` / ``start`` / ``close`` /
 ``inflight``), so ``HttpFrontend`` drives either interchangeably. Each
@@ -79,17 +73,6 @@ PREFILL_PENDING_WEIGHT = 0.25
 class EngineRouter:
     def __init__(self, loops: List[EngineLoop], steal: bool = True):
         assert loops, "EngineRouter needs at least one EngineLoop"
-        # the port's engines cannot steal, hand off or run prefill-only
-        # yet: refuse such a fleet here, at construction, and never
-        # later inside a decode thread
-        if steal and len(loops) > 1:
-            raise NotImplementedError(
-                "work stealing between engine loops is ROADMAP A10: "
-                "build the router with steal=False")
-        if any(lp.role != "both" for lp in loops):
-            raise NotImplementedError(
-                "prefill/decode pool roles are ROADMAP A10: every loop "
-                "must have role 'both'")
         self.loops = list(loops)
         self.prefill_pool = [lp for lp in self.loops
                              if lp.role == "prefill"]

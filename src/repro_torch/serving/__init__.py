@@ -15,8 +15,9 @@ Layering:
 Built on the resumable ``DiffusionDecoder.prefill`` / ``decode_block`` /
 ``take_rows`` / ``merge_rows`` API in ``repro_torch.core.decoder``. The
 synchronous path is ``repro_torch.core.engine.ServingEngine(mode="batch")``.
-The JAX package's ``DecodeExecutor`` (ROADMAP A11) and ``PrefixKVCache``
-(A7) are not ported yet.
+The prefix KV store is ``repro_torch.cache``; fleets of engines (work
+stealing, prefill/decode pools) are ``repro_torch.server.EngineRouter``.
+The JAX package's ``DecodeExecutor`` (ROADMAP A11) is not ported yet.
 """
 from repro_torch.serving.engine import ContinuousEngine
 from repro_torch.serving.metrics import RequestMetrics, ServeMetrics, percentile

@@ -30,18 +30,36 @@ Observability: ``set_tracer`` claims the engine's trace track (the
 ``repro_torch.obs.profiler.BlockProfiler``) is ticked with the blocks
 each ``step`` decoded.
 
-Not ported yet: ``prefill_only`` and host budgets (ROADMAP A10; the
-scheduler's stealing and handoff raise too), executor placement (A11).
+Fleets (``repro_torch.server.EngineRouter``): ``steal_waiting`` /
+``steal_paused`` / ``adopt_paused`` move work between sibling engines at
+block boundaries, and a ``prefill_only`` engine primes prompts into a
+shared ``PrefixKVCache`` and hands the requests to a decode engine
+(``take_handoffs`` / ``adopt_handoff``). ``host_budget`` (a
+``repro_torch.launch.host.HostBudget``) is recorded in ``metrics`` and
+on the engine's trace track.
+
+Streams: on the card each engine owns one CUDA stream (``cuda_stream``),
+and its device work (``prewarm``, ``step``, ``audit_tick``: prefill,
+prime, block replays, captures) runs on it from whichever thread calls
+them, so the engines of a fleet on one card queue their work apart. The
+weights, made before any engine, are shared and only read; nothing else
+on the device crosses engines (a stolen row is host arrays, a handoff is
+a request plus the store's host-staged chunk KV). On the CPU
+``cuda_stream`` is None.
+
+Not ported yet: executor placement (ROADMAP A11) raises.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
 from typing import Iterator, List, Optional, Union
 
 import numpy as np
+import torch
 
-from repro_torch.core.decoder import DecodeConfig
+from repro_torch.core.decoder import DecodeConfig, DecodeState
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -49,9 +67,9 @@ from repro_torch.obs.telemetry import TelemetryAggregator
 from repro_torch.obs.trace import span
 from repro_torch.serving.metrics import RequestMetrics, ServeMetrics
 from repro_torch.serving.pool import PrefixKVPool
-from repro_torch.serving.scheduler import BlockScheduler, _not_ported
+from repro_torch.serving.scheduler import BlockScheduler
 from repro_torch.serving.stream import RequestStream, StreamRouter
-from repro_torch.serving.types import (BlockChunk, Completion,
+from repro_torch.serving.types import (BlockChunk, Completion, ServeRequest,
                                        round_up_blocks)
 
 
@@ -65,11 +83,22 @@ class ContinuousEngine:
                  executor=None, prefix_cache=None, tracer=None,
                  host_budget=None, prefill_only: bool = False,
                  device=None):
-        if host_budget is not None:
-            _not_ported("per-engine host budgets", "A10")
         self.cfg = cfg
         self.dcfg = dcfg
         self.device = resolve_device(device)
+        # prefill-pool member (disaggregated serving): primes prompt KV
+        # into the shared store and hands rows to the decode pool instead
+        # of decoding blocks (BlockScheduler.prefill_only)
+        self.prefill_only = prefill_only
+        # the per-engine host budget (repro_torch.launch.host applies it
+        # process-wide; the engine carries it for /metrics and the trace)
+        self.host_budget = host_budget
+        self.cuda_stream = None
+        if self.device.type == "cuda":
+            self.cuda_stream = torch.cuda.Stream(self.device)
+            # work queued before the engine (the weights) comes first
+            self.cuda_stream.wait_stream(
+                torch.cuda.current_stream(self.device))
         self.tok = tokenizer or ByteTokenizer(cfg.vocab_size)
         self.pool = pool if pool is not None \
             else PrefixKVPool(cfg, device=self.device)
@@ -100,6 +129,15 @@ class ContinuousEngine:
         # shadow auditor (repro_torch.obs.audit): attached by the owning
         # loop or front end; its counters mirror into metrics each step
         self.auditor = None
+        if host_budget is not None:
+            self.metrics.host_threads = host_budget.intra_op
+
+    def on_stream(self):
+        """Context that makes this engine's stream the calling thread's
+        current one (nothing on the CPU)."""
+        if self.cuda_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.cuda_stream)
 
     def set_tracer(self, tracer, label: str) -> None:
         """Attach (or re-attach) a tracer and claim a named track for
@@ -109,6 +147,14 @@ class ContinuousEngine:
         self.obs_pid = tracer.process(label)
         self.scheduler.tracer = tracer
         self.scheduler.pid = self.obs_pid
+        if self.host_budget is not None:
+            # the effective budget on the engine's track, so a trace
+            # always records what it ran under
+            tracer.instant("host_budget", pid=self.obs_pid,
+                           intra_op=self.host_budget.intra_op,
+                           cores=self.host_budget.cores,
+                           engines=self.host_budget.engines,
+                           source=self.host_budget.source)
 
     # ------------------------------------------------------ submission
 
@@ -165,12 +211,13 @@ class ContinuousEngine:
                            | {sched._pad_batch(1)})
         t0 = time.perf_counter()
         before = sched.graph_cache_size()
-        for (P, gen_len) in buckets:
-            decoder = sched.decoder_for(gen_len)
-            for B in sizes:
-                with span(self.tracer, "prewarm", pid=self.obs_pid,
-                          batch=B, prompt_len=P, gen_len=gen_len):
-                    self._prewarm_one(decoder, P, gen_len, B)
+        with self.on_stream():
+            for (P, gen_len) in buckets:
+                decoder = sched.decoder_for(gen_len)
+                for B in sizes:
+                    with span(self.tracer, "prewarm", pid=self.obs_pid,
+                              batch=B, prompt_len=P, gen_len=gen_len):
+                        self._prewarm_one(decoder, P, gen_len, B)
         graphs = sched.graph_cache_size() - before
         wall = time.perf_counter() - t0
         sched.compile_watch.mark_warm()
@@ -192,6 +239,11 @@ class ContinuousEngine:
             lambda: decoder.prefill(prompts, cache=cache),
             sched.graph_cache_size, "prewarm_prefill",
             tracer=self.tracer, pid=self.obs_pid)
+        if self.prefill_only:
+            # a prefill-pool engine never decodes a block: it warms the
+            # pool acquire and the prefill only, and captures no graph
+            sched._release(decoder, state)
+            return
         while state.block_idx < state.n_blocks:
             watch.watched(
                 lambda: decoder.decode_block(state),
@@ -202,6 +254,83 @@ class ContinuousEngine:
             # every later block's graph getting captured too
             state.done[:] = False
         sched._release(decoder, state)
+
+    # ------------------------------------------------------ stealing
+
+    def steal_waiting(self) -> Optional[ServeRequest]:
+        """Give up the newest waiting request to an idle sibling (see
+        ``BlockScheduler.steal_waiting``); closes this engine's "request"
+        span: the thief's re-submission opens a fresh one on its own
+        track with the same trace id."""
+        req = self.scheduler.steal_waiting()
+        if req is not None:
+            self._close_stolen_span(req)
+            self.metrics.steals_out += 1
+        return req
+
+    def steal_paused(self):
+        """Give up one parked row of host arrays as ``(req, state)`` (or
+        None); the same span discipline as ``steal_waiting``."""
+        out = self.scheduler.steal_paused()
+        if out is not None:
+            self._close_stolen_span(out[0])
+            self.metrics.steals_out += 1
+        return out
+
+    def _close_stolen_span(self, req: ServeRequest) -> None:
+        if self.tracer is not None and req.trace_id:
+            self.tracer.async_end(req.trace_id, "request",
+                                  pid=self.obs_pid, uid=req.uid,
+                                  stolen=True)
+
+    def adopt_paused(self, req: ServeRequest, state: DecodeState) -> int:
+        """Adopt a stolen mid-decode row: reopens the request's span pair
+        on this engine's track and parks it for the normal resume path.
+        Returns the fresh uid."""
+        self.metrics.steals_in += 1
+        t_ns = time.perf_counter_ns()
+        uid = self.scheduler.adopt_paused(req, state)
+        if self.tracer is not None and req.trace_id:
+            # "request" reopens just before the scheduler's "queue" span
+            # (an explicit earlier timestamp keeps the nesting sound)
+            self.tracer.async_begin(req.trace_id, "request",
+                                    pid=self.obs_pid, t_ns=t_ns,
+                                    uid=uid, stolen=True)
+        return uid
+
+    # ------------------------------------------------------ handoff
+
+    def take_handoffs(self) -> List[ServeRequest]:
+        """Drain the rows the last prefill-only step primed (their chunk
+        KV already in the shared store). Closes each request's "request"
+        span on this engine's track tagged ``handoff=True``; the
+        decode-pool adopter reopens it, as for stealing."""
+        out = self.scheduler.take_handoffs()
+        for req in out:
+            self.metrics.handoffs_out += 1
+            if self.tracer is not None and req.trace_id:
+                self.tracer.async_end(req.trace_id, "request",
+                                      pid=self.obs_pid, uid=req.uid,
+                                      handoff=True)
+        return out
+
+    def adopt_handoff(self, req: ServeRequest,
+                      wait_s: Optional[float] = None) -> int:
+        """Adopt a request primed on a prefill-pool engine onto this
+        engine's waiting queue (its prompt KV comes out of the shared
+        store at admission). ``wait_s`` is the extraction-to-adoption gap
+        the owning loop measured. Returns the fresh uid."""
+        self.metrics.handoffs_in += 1
+        if wait_s is not None:
+            self.metrics.handoff_wait_s += wait_s
+            self.metrics.hist_handoff.observe(wait_s)
+        t_ns = time.perf_counter_ns()
+        uid = self.scheduler.adopt_handoff(req)
+        if self.tracer is not None and req.trace_id:
+            self.tracer.async_begin(req.trace_id, "request",
+                                    pid=self.obs_pid, t_ns=t_ns,
+                                    uid=uid, handoff=True)
+        return uid
 
     # ------------------------------------------------------ control
 
@@ -235,7 +364,8 @@ class ContinuousEngine:
     def step(self) -> List[Completion]:
         """One scheduler tick: every live gang advances one block."""
         t0 = time.perf_counter()
-        chunks, completions = self.scheduler.tick()
+        with self.on_stream():
+            chunks, completions = self.scheduler.tick()
         dt = time.perf_counter() - t0
         # occupancy uses the row count whose decode this tick paid for
         # (sampled pre-harvest), not the post-compaction remainder
@@ -308,7 +438,8 @@ class ContinuousEngine:
         Returns True when audit work ran."""
         if self.auditor is None:
             return False
-        ran = self.auditor.tick()
+        with self.on_stream():
+            ran = self.auditor.tick()
         if ran:
             # audits finish between scheduler steps — mirror here too,
             # or counters go stale once the engine idles

@@ -48,9 +48,16 @@ the one it is given), groups admission by (shape bucket, hit depth) so a
 gang's prefill computes from a common depth, re-primes a resumed state's
 prompt KV from the store, and reports each request's hit tokens.
 
-Not ported yet, each raising ``NotImplementedError`` naming its item:
-``prefill_only`` and block-boundary stealing / handoff (ROADMAP A10),
-``executor``/``mesh`` placement (A11).
+Fleets (several engines, ``repro_torch.server.EngineRouter``): an idle
+sibling steals waiting requests and parked rows at block boundaries
+(``steal_waiting`` / ``steal_paused`` / ``adopt_paused``); a parked
+state holds only host arrays (dkv rows, which carry their gathered KV,
+never leave). A ``prefill_only`` scheduler primes gangs into the shared
+prefix store and hands the requests, not their states, to a decode
+engine (``take_handoffs`` / ``adopt_handoff``).
+
+Not ported yet: ``executor``/``mesh`` placement (ROADMAP A11) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -138,12 +145,19 @@ class BlockScheduler:
                  block_hist=None, device=None):
         if executor is not None or mesh is not None:
             _not_ported("executor / mesh placement", "A11")
-        if prefill_only:
-            _not_ported("prefill_only (disaggregated pools)", "A10")
         self.cfg = cfg
         self.params = params
         self.dcfg = dcfg
         self.device = resolve_device(device)
+        # Disaggregated serving: a prefill-only scheduler admits and
+        # prefills gangs exactly like a co-located one (hit-homogeneous
+        # grouping included) but never decodes a block: each primed gang
+        # is dismantled into ``handoff_ready`` the same tick, its chunk
+        # KV already published to the (shared) prefix store, and the
+        # owning EngineLoop migrates the requests to a decode-pool engine
+        # (``take_handoffs`` / ``adopt_handoff``).
+        self.prefill_only = prefill_only
+        self.handoff_ready: List[ServeRequest] = []
         # busy-seconds split by phase (prefill = prefill passes, decode =
         # decode_block walls)
         self.prefill_wall_s = 0.0
@@ -269,7 +283,8 @@ class BlockScheduler:
 
     @property
     def idle(self) -> bool:
-        return not (self.waiting or self.paused or self.gangs)
+        return not (self.waiting or self.paused or self.gangs
+                    or self.handoff_ready)
 
     def debug_state(self) -> dict:
         """JSON-safe snapshot of scheduler occupancy for operator
@@ -277,14 +292,13 @@ class BlockScheduler:
         keep iteration safe against a decode thread mutating; fields can
         be one tick stale. The keys are the JAX scheduler's, with
         ``graph_cache_size`` (captured block graphs) where it has
-        ``jit_cache_size``; ``prefill_only`` and ``handoff_ready`` stay
-        False and 0 until the disaggregated pools (ROADMAP A10)."""
+        ``jit_cache_size``."""
         gangs = list(self.gangs)
         return {
             "waiting": len(self.waiting),
             "paused": len(self.paused),
-            "prefill_only": False,
-            "handoff_ready": 0,
+            "prefill_only": self.prefill_only,
+            "handoff_ready": len(self.handoff_ready),
             "prefill_wall_s": round(self.prefill_wall_s, 6),
             "decode_wall_s": round(self.decode_wall_s, 6),
             "slots_used": self.slots_used,
@@ -374,6 +388,14 @@ class BlockScheduler:
                 gen = state.x[0, state.prompt_len:
                               state.prompt_len + state.block_idx * K].copy()
                 return self._make_completion(req, gen, now, cancelled=True)
+        for r in self.handoff_ready:
+            # primed but not yet migrated to the decode pool: conclude
+            # here, now; the EngineLoop's dispatch skips done tickets, so
+            # the cancel fires exactly once
+            if r.uid == uid:
+                self.handoff_ready.remove(r)
+                return self._make_completion(
+                    r, np.zeros(0, np.int32), now, cancelled=True)
         active = any(r is not None and r.uid == uid and not g.emitted[i]
                      for g in self.gangs
                      for i, r in enumerate(g.requests))
@@ -442,22 +464,128 @@ class BlockScheduler:
         if open_span in ("queue", "decode"):
             self.tracer.async_end(req.trace_id, open_span, pid=self.pid)
 
-    # ------------------------------------------ stealing and handoff (A10)
+    # ------------------------------------------------------ stealing
 
-    def steal_waiting(self):
-        _not_ported("block-boundary stealing", "A10")
+    def steal_waiting(self) -> Optional[ServeRequest]:
+        """Give up the *newest* waiting request to an idle sibling engine
+        (``EngineRouter`` block-boundary work stealing). Newest first: the
+        head of the queue is next in line for this engine's own backfill,
+        the tail would wait longest here. Closes the request's "queue"
+        span on this engine's track; the thief opens a fresh one when it
+        re-admits."""
+        if not self.waiting:
+            return None
+        req = self.waiting.pop()
+        if self.tracer is not None and req.trace_id \
+                and self._span_state.pop(req.uid, None) == "queue":
+            self.tracer.async_end(req.trace_id, "queue", pid=self.pid,
+                                  stolen=True)
+        return req
 
-    def steal_paused(self):
-        _not_ported("block-boundary stealing", "A10")
+    def steal_paused(self) -> Optional[Tuple[ServeRequest, DecodeState]]:
+        """Give up one parked (preempted) row, newest first. Only states
+        of host arrays leave: a dkv state carries its gathered KV on this
+        engine (and dkv is not batch-invariant), so dkv rows always
+        resume where they paused. Every other parked state holds no KV
+        (``take_rows(alloc_cache=False)``)."""
+        for item in reversed(self.paused):
+            req, state, decoder = item
+            if decoder.dcfg.method == "dkv" or state.cache is not None:
+                continue
+            self.paused.remove(item)
+            self._span_state.pop(req.uid, None)
+            if self.tracer is not None and req.trace_id:
+                self.tracer.instant("steal_out", pid=self.pid, uid=req.uid)
+            return req, state
+        return None
 
-    def adopt_paused(self, req, state):
-        _not_ported("block-boundary stealing", "A10")
+    def adopt_paused(self, req: ServeRequest, state: DecodeState) -> int:
+        """Adopt a mid-decode row stolen from a sibling engine: the
+        request gets a fresh uid in this scheduler's namespace (the
+        victim's uid could collide with a live one here) and parks on the
+        paused deque at the block it left off. The normal resume path
+        (padding to ``batch_multiple``; with the prefix cache, a pool
+        buffer and a re-prime from this engine's own store) picks it up at
+        the next ``_admit``, so a stolen row decodes exactly like a row
+        preempted and resumed on one engine."""
+        self._uid += 1
+        req.uid = self._uid
+        req.stolen += 1
+        if self.tracer is not None and req.trace_id:
+            self.tracer.async_begin(req.trace_id, "queue", pid=self.pid,
+                                    uid=req.uid, stolen=True)
+            self._span_state[req.uid] = "queue"
+        self.paused.append((req, state, self._decoder(req.gen_len)))
+        return req.uid
 
-    def take_handoffs(self):
-        _not_ported("prefill/decode handoff", "A10")
+    # ------------------------------------------------------ handoff
 
-    def adopt_handoff(self, req):
-        _not_ported("prefill/decode handoff", "A10")
+    def take_handoffs(self) -> List[ServeRequest]:
+        """Drain the requests a prefill-only tick primed; the owning
+        EngineLoop migrates each to a decode-pool engine."""
+        out, self.handoff_ready = self.handoff_ready, []
+        return out
+
+    def adopt_handoff(self, req: ServeRequest) -> int:
+        """Adopt a request primed on a prefill-pool engine: a fresh uid
+        in this scheduler's namespace, back onto the waiting queue with
+        every lifecycle counter intact (``submit_time`` and the prefill
+        pass's nfe/syncs carry over, so the Completion reports end-to-end
+        latency). The normal admission prefills it again, but the prefill
+        engine already published every aligned chunk to the *shared*
+        store, so this pass assembles the prompt KV from it and computes
+        only the unaligned remainder; cached and cold prefill are
+        bit-identical by construction, so the handed-off output equals
+        the single-engine one. Bypasses ``max_waiting`` like
+        ``adopt_paused``: the row was admitted once already."""
+        self._uid += 1
+        req.uid = self._uid
+        req.handoffs += 1
+        if self.tracer is not None and req.trace_id:
+            self.tracer.async_begin(req.trace_id, "queue", pid=self.pid,
+                                    uid=req.uid, handoff=True)
+            self._span_state[req.uid] = "queue"
+        if self.prefix_cache is not None:
+            req.expected_hit_tokens = self.prefix_cache.match_len(
+                req.prompt_tokens)
+        self.waiting.append(req)
+        return req.uid
+
+    def _extract_handoffs(self) -> None:
+        """Dismantle every primed gang into ``handoff_ready``: the chunk
+        KV is in the shared store now (``prefill`` published it), so the
+        gang's buffer goes back to the pool and only the *requests*
+        travel; no DecodeState and no device tensor crosses engines. The
+        prefill pass's nfe/sync deltas are attributed to each row first
+        (as ``_harvest`` does)."""
+        for gang in self.gangs:
+            st = gang.state
+            dnfe = st.nfe - gang.nfe_seen
+            dsync = st.host_syncs - gang.syncs_seen
+            dlogit = st.logit_syncs - gang.logit_syncs_seen
+            for req in gang.requests:
+                if req is None:
+                    continue
+                req.nfe += dnfe
+                req.host_syncs += dsync
+                req.logit_syncs += dlogit
+                self._trace_handoff(req)
+                self.handoff_ready.append(req)
+            self._release(gang.decoder, st)
+        self.gangs = []
+
+    def _trace_handoff(self, req: ServeRequest) -> None:
+        """Row leaves this engine for the decode pool: close whichever
+        span is open on this track (decode, normally) tagged
+        ``handoff=True``; the decode engine opens a fresh "queue" span at
+        adoption, as for stealing."""
+        if self.tracer is None or not req.trace_id:
+            return
+        open_span = self._span_state.pop(req.uid, None)
+        if open_span in ("queue", "decode"):
+            self.tracer.async_end(req.trace_id, open_span, pid=self.pid,
+                                  handoff=True)
+        self.tracer.instant("handoff_out", pid=self.pid, uid=req.uid)
 
     # ------------------------------------------------------ merge
 
@@ -539,6 +667,16 @@ class BlockScheduler:
         stragglers → admit → advance every gang one block → harvest
         chunks/completions → compact + backfill."""
         chunks, completions = self._apply_cancels()
+        if self.prefill_only:
+            # prefill pool: admit (prefill publishes chunk KV to the
+            # shared store), dismantle into handoff_ready, then admit
+            # again so slots freed by the extraction fill this tick
+            self._admit()
+            self._extract_handoffs()
+            self._admit()
+            self._extract_handoffs()
+            self.last_decoded_rows = 0
+            return chunks, completions
         self._merge_stragglers()
         self._admit()
         # rows whose decode this tick actually pays for — sampled before
@@ -733,8 +871,14 @@ class BlockScheduler:
         self.prefill_wall_s += now - t0
         for i, r in enumerate(batch_reqs):
             if r.admit_time < 0:
+                # a handed-off row keeps its first (prefill-pool)
+                # admission stamp, like a resumed row: queue_s measures
+                # the time to first admission, not the handoff wait
                 r.admit_time = now
-            if state.prefix_hit_tokens is not None:
+            if state.prefix_hit_tokens is not None and r.handoffs == 0:
+                # a handed-off row's decode-pool prefill hits the store
+                # by construction; keep the prefill engine's number, the
+                # one that measures reuse across requests
                 r.cache_hit_tokens = int(state.prefix_hit_tokens[i])
             self._trace_admit(r)
         rows: List[Optional[ServeRequest]] = \
@@ -776,6 +920,8 @@ class BlockScheduler:
             expected_hit_tokens=req.expected_hit_tokens,
             prompt_tokens=req.prompt_tokens,
             commit_conf=conf,
+            stolen=req.stolen > 0,
+            handed_off=req.handoffs > 0,
             early_exited=req.blocks_decoded * K < req.gen_len)
 
     def _harvest(self, gang: Gang, dnfe: int, dsync: int = 0,

@@ -1,8 +1,6 @@
 """The port's quality-audit layer (``repro_torch.obs.audit``), mirroring
 ``tests/test_audit.py`` inside the port (``tiny`` on the CPU, the port's
-own seeded weights). ``test_divergence_on_stolen_request_classified``
-has no counterpart yet: it needs a request stolen between engines
-(ROADMAP A10).
+own seeded weights), all of it.
 
 Fault injection is the core of this suite: a flipped committed token
 and a poisoned cached prefix chunk must each be *caught* by the shadow
@@ -198,6 +196,45 @@ def test_poisoned_cache_chunk_caught_by_cold_lane(tmp_path):
     assert bad[0].source == "cached-vs-cold"
     assert bad[0].block == bad[0].position // BLOCK >= 0
     _assert_flight_dump(flight, tmp_path, "audit-cached-vs-cold")
+
+
+def test_divergence_on_stolen_request_classified(tmp_path):
+    """A request that was preempted, stolen, and finished on the thief
+    still audits end to end on the thief; an injected flip there is
+    classified stolen-vs-resident and the flight dump stays
+    well-formed."""
+    victim = make_engine(max_slots=1)
+    thief = make_engine(max_slots=1)
+    tracer = Tracer()
+    thief.set_tracer(tracer, "thief")
+    auditor, flight = attach(thief, tmp_path, tracer=tracer)
+
+    uid = victim.submit(PROMPTS[0], max_tokens=MAX_TOKENS)
+    victim.step()                         # prefill + block 0
+    victim.preempt(uid)
+    victim.scheduler._compact()
+    req, state = victim.steal_paused()
+    assert req.uid == uid
+    thief.adopt_paused(req, state)
+    comps = thief.run_to_completion()
+    assert len(comps) == 1 and comps[0].stolen
+
+    # clean audit of the stolen completion first
+    thief.drain_audits()
+    assert auditor.completed == 1
+    assert auditor.divergences_total() == 0
+
+    # then the same completion with a flip: stolen-vs-resident
+    auditor.inject = lambda t, lane: (t.__setitem__(0, (t[0] + 1)
+                                                    % CFG.vocab_size)
+                                      or t)
+    auditor.on_completion(comps[0])
+    thief.drain_audits()
+    assert auditor.divergences["stolen-vs-resident"] == 1
+    bad = [r for r in auditor.results if not r.matched]
+    assert bad[-1].block == 0 and bad[-1].position == 0
+    _assert_flight_dump(flight, tmp_path, "audit-stolen-vs-resident")
+    assert victim.run_to_completion() == []
 
 
 def _assert_flight_dump(flight, tmp_path, reason):

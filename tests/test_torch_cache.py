@@ -7,9 +7,8 @@ On the CPU the port is deterministic and batch-invariant for every
 method, so cached against cold is asserted bit for bit for all of them,
 dkv included (the JAX package's XLA:CPU can only check dkv's structure),
 on the device loop and on the host loop. The port against the JAX
-package's prefix cache is ``tests/test_torch_cache_jax.py``. Cache
-affinity in a router and the ``/metrics`` cache series wait for the HTTP
-front end and the fleet (ROADMAP A8, A10)."""
+package's prefix cache is ``tests/test_torch_cache_jax.py``; the
+``/metrics`` cache series is in ``tests/test_torch_server.py``."""
 import dataclasses
 
 import numpy as np
@@ -108,6 +107,22 @@ def test_pinned_chunks_survive_eviction_pressure():
         store.insert(np.asarray([80 + i, 90 + i], np.int32), 0,
                      [_fake_kv(256)])
     assert store.bytes <= store.max_bytes
+
+
+def test_clear_drops_every_unpinned_chunk():
+    store = _store()
+    toks = np.arange(4 * CHUNK, dtype=np.int32)
+    store.insert(toks, 0, [_fake_kv() for _ in range(4)])
+    other = toks + 100
+    store.insert(other, 0, [_fake_kv() for _ in range(2)])
+    pinned = store.match(toks[:2 * CHUNK])         # two chunks pinned
+    assert store.clear() == 4                       # 2 + 2 unpinned
+    assert store.nodes == 2 and store.bytes == 2 * 64
+    assert store.match_len(toks) == 2 * CHUNK
+    assert store.max_bytes == 256 << 20             # budget put back
+    store.unpin(pinned)
+    assert store.clear() == 2 and store.nodes == 0 and store.bytes == 0
+    assert store.stats()["evictions"] == 6
 
 
 def test_eviction_is_leaf_only_lru():
@@ -364,6 +379,27 @@ def test_scheduler_rejects_mismatched_store():
                        prefix_cache=_store())
     sched = BlockScheduler(CFG, PARAMS, _dcfg(), device="cpu")
     assert sched.prefix_cache.placement == CPU
+
+
+def test_cache_affinity_routes_to_warm_engine():
+    """The router prefers the engine whose store holds the longest
+    matching prefix, and falls back to least-loaded when all are
+    cold."""
+    from repro_torch.server import EngineLoop, EngineRouter, ServerRequest
+    prompt = "".join(chr(c) for c in RNG.integers(48, 123, 24))
+    engines = [_engine(store=_store()) for _ in range(2)]
+    engines[1].submit(prompt, max_tokens=16)
+    engines[1].run_to_completion()                 # warm engine 1 only
+    assert engines[1].expected_prefix_hit(prompt) >= 2 * CHUNK
+    assert engines[0].expected_prefix_hit(prompt) == 0
+    router = EngineRouter([EngineLoop(e) for e in engines])
+    req = ServerRequest.from_json({"prompt": prompt, "max_tokens": 16})
+    ticket = router.submit(req, lambda e: None)
+    assert ticket.loop is router.loops[1], "warm engine must win"
+    # cold prompt: affinity is moot, least-loaded (index ties) wins
+    cold = ServerRequest.from_json({"prompt": "Z" * 24, "max_tokens": 16})
+    t2 = router.submit(cold, lambda e: None)
+    assert t2.loop is router.loops[0]
 
 
 def test_serve_cli_prefix_cache_on_cpu():

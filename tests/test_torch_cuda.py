@@ -7,9 +7,11 @@ interleaved, no new capture at known shapes, launch counts under
 replay), and continuous serving's use of it (compacted and merged states
 on graphs of a new batch, a dkv row parked and resumed, no capture after
 ``ContinuousEngine.prewarm``, gangs of several sizes that compact and
-merge with every request equal to its B = 1 decode), and the HTTP front
+merge with every request equal to its B = 1 decode), the HTTP front
 end's threads (scrapes during a capture on the decode thread, the shadow
-auditor's lanes). Each kernel against its plain version
+auditor's lanes), and two engines on one card, each on its own stream
+(a capture on one thread while another replays and syncs; a steal fleet
+giving each prompt's bits served alone). Each kernel against its plain version
 at the main path's shapes, and llada-8b through the graphs, are checked
 by ``chip_smoke.py``. Needs a CUDA card; skips without one. Imports no JAX,
 so it runs where JAX is absent:
@@ -558,6 +560,129 @@ def test_audit_both_lanes_clean_and_catches_an_injected_flip(tiny_cuda):
     assert auditor.divergences["cached-vs-cold"] == 1
     bad = [r for r in auditor.results if not r.matched]
     assert [(r.position, r.block) for r in bad] == [(9, 1), (9, 1)]
+
+
+# ------------------------------------------------------------------ fleet
+
+def _baseline(tiny, d, prompts, max_tokens):
+    """Each prompt served alone by one engine: prompt index -> tokens."""
+    from repro_torch.serving import ContinuousEngine
+    cfg, params, _ = tiny
+    eng = ContinuousEngine(cfg, params, d, max_slots=1, device="cuda")
+    uids = {eng.submit(p, max_tokens=max_tokens): i
+            for i, p in enumerate(prompts)}
+    return {uids[c.uid]: c.tokens.tolist()
+            for c in eng.run_to_completion()}
+
+
+def test_capture_on_one_thread_while_another_replays_and_syncs(tiny_cuda):
+    """Repair of the capture mode: engine B captures the graphs of a
+    bucket it was never prewarmed for on this thread while engine A, on
+    another thread and its own stream, replays its prewarmed graphs in a
+    loop, syncs its stream and makes the calls that invalidate a capture
+    in global mode (device and pinned host allocations of new sizes).
+    Every capture succeeds and both engines' tokens equal each prompt
+    served alone. (A device-wide sync invalidates a capture in any mode,
+    which is why the serving paths sync their own stream only.)"""
+    import threading
+
+    from repro_torch.core.decoder import DecodeConfig
+    from repro_torch.serving import ContinuousEngine
+    cfg, params, prompt = tiny_cuda
+    d = DecodeConfig(**{**_BASE, "gen_len": 32, "early_exit": False})
+    ref = _baseline(tiny_cuda, d, prompt, 32)
+    a = ContinuousEngine(cfg, params, d, max_slots=1, device="cuda")
+    b = ContinuousEngine(cfg, params, d, max_slots=1, device="cuda")
+    assert a.cuda_stream != b.cuda_stream
+    a.prewarm([(prompt.shape[1], 32)])
+    stop, errors, a_out = threading.Event(), [], []
+    replaying = threading.Event()
+
+    def replayer():
+        try:
+            n = 0
+            while not stop.is_set():
+                a.submit(prompt[0], max_tokens=32)
+                a_out.extend(a.run_to_completion())
+                replaying.set()
+                a.cuda_stream.synchronize()
+                n += 1
+                # sizes never cached before: the allocators must call
+                # cudaMalloc and cudaHostAlloc
+                torch.empty(n << 24, dtype=torch.uint8, device="cuda")
+                torch.empty(n << 20, dtype=torch.uint8, pin_memory=True)
+        except BaseException as err:            # reported below
+            errors.append(err)
+            replaying.set()
+
+    t = threading.Thread(target=replayer)
+    t.start()
+    try:
+        assert replaying.wait(120)
+        b.submit(prompt[1], max_tokens=32)
+        b_out = b.run_to_completion()          # captures 4 graphs here
+    finally:
+        stop.set()
+        t.join(120)
+    assert not t.is_alive() and not errors, errors
+    assert b.graph_cache_size() == 32 // 8
+    assert a.metrics.snapshot()["post_warm_compiles"] == 0
+    assert b_out[0].tokens.tolist() == ref[1]
+    assert len(a_out) >= 2
+    assert all(c.tokens.tolist() == ref[0] for c in a_out)
+
+
+def test_two_engines_on_two_streams_give_the_baseline_bits(tiny_cuda):
+    """A steal fleet on one card: two prewarmed engines, each on its own
+    stream and loop thread, under ``EngineRouter(steal=True)``; every
+    request goes to loop 0, so loop 1 serves only what it steals. Every
+    completion equals its prompt served alone, and no graph is captured
+    after prewarm."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.decoder import DecodeConfig
+    from repro_torch.server import EngineLoop, EngineRouter, ServerRequest
+    from repro_torch.serving import ContinuousEngine
+    cfg, params, _ = tiny_cuda
+    d = DecodeConfig(**{**_BASE, "gen_len": 24, "early_exit": False})
+    tok_prompts = [f"Q:{i}{(i + 3) % 10}+{(i + 5) % 10}{i}=? A:"
+                   for i in range(6)]
+    engines = [ContinuousEngine(cfg, params, d, max_slots=2, device="cuda")
+               for _ in range(2)]
+    enc = np.stack([engines[0].tok.encode(p) for p in tok_prompts])
+    ref = _baseline(tiny_cuda, d, enc, 24)
+    assert engines[0].cuda_stream != engines[1].cuda_stream
+    for e in engines:
+        e.prewarm([(enc.shape[1], 24)])
+    loops = [EngineLoop(e, max_pending=16, idle_poll_s=0.005, index=i)
+             for i, e in enumerate(engines)]
+    router = EngineRouter(loops, steal=True)
+    router.start()
+    recs = []
+    try:
+        for p in tok_prompts:
+            done, out = threading.Event(), []
+
+            def deliver(ev, done=done, out=out):
+                if ev[0] == "done":
+                    out.append(ev[1])
+                    done.set()
+
+            t = loops[0].submit(ServerRequest(prompt=p, max_tokens=24),
+                                deliver)
+            t.loop = loops[0]
+            recs.append((done, out))
+        for done, _ in recs:
+            assert done.wait(180)
+    finally:
+        assert router.close(drain=True, timeout_s=60)
+    assert engines[1].metrics.steals_in >= 1
+    for i, (_, out) in enumerate(recs):
+        assert out[0].tokens.tolist() == ref[i], i
+    for e in engines:
+        assert e.metrics.snapshot()["post_warm_compiles"] == 0
 
 
 # ------------------------------------------------------------------ GEMM

@@ -235,28 +235,33 @@ def test_unported_paths_raise(kw, item):
 
 
 def test_unported_engine_paths_raise():
-    """Continuous serving, the prefix cache, the HTTP front end and the
-    auditor are ported (ROADMAP A6-A9); what they do not have yet raises
-    naming its item: stealing and handoff, and a router that would
-    reach them (A10), executor placement (A11)."""
+    """Continuous serving, the prefix cache, the HTTP front end, the
+    auditor and the fleet are ported (ROADMAP A6-A10): stealing, handoff,
+    prefill-only engines, host budgets and a stealing router build and
+    run without raising. What is not ported raises naming its item:
+    executor and mesh placement (A11)."""
+    from repro_torch.launch import host
     from repro_torch.server import EngineLoop, EngineRouter
     from repro_torch.serving import BlockScheduler, ContinuousEngine
     d = DecodeConfig(**BASE)
-    eng = ContinuousEngine(CFG, PARAMS, d, device="cpu")
+    eng = ContinuousEngine(CFG, PARAMS, d, device="cpu",
+                           host_budget=host.compute_host_budget(2, cores=4))
+    assert eng.metrics.host_threads == 2
     loops = [EngineLoop(eng), EngineLoop(ContinuousEngine(
-        CFG, PARAMS, d, device="cpu"))]
-    for call, item in ((eng.scheduler.steal_waiting, "A10"),
-                       (eng.scheduler.take_handoffs, "A10"),
-                       (lambda: EngineRouter(loops), "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+        CFG, PARAMS, d, device="cpu", prefill_only=True), role="prefill")]
+    assert eng.scheduler.steal_waiting() is None
+    assert eng.scheduler.steal_paused() is None
+    assert eng.scheduler.take_handoffs() == []
+    router = EngineRouter(loops)
+    assert router.disaggregated and not loops[1].steal
     auditor = object()
     eng.attach_auditor(auditor)
     assert eng.auditor is auditor
-    for kw, item in ((dict(executor=object()), "A11"),
-                     (dict(prefill_only=True), "A10")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(executor=object()), dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="A11"):
             BlockScheduler(CFG, PARAMS, d, device="cpu", **kw)
+    sched = BlockScheduler(CFG, PARAMS, d, device="cpu", prefill_only=True)
+    assert sched.debug_state()["prefill_only"] is True
 
 
 def test_cuda_decoder_requires_kernels():
@@ -291,7 +296,8 @@ NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.server.loop", "repro_torch.server.router",
                  "repro_torch.server.http", "repro_torch.server.client",
                  "repro_torch.server.console", "repro_torch.obs.series",
-                 "repro_torch.obs.audit", "repro_torch.obs.profiler")
+                 "repro_torch.obs.audit", "repro_torch.obs.profiler",
+                 "repro_torch.launch.host")
 
 
 def test_import_leaves_jax_out():
@@ -327,12 +333,11 @@ def _imported_modules(path):
 
 def test_no_jax_or_repro_imports_in_port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     named = {".".join(f.relative_to(ROOT / "src").with_suffix("").parts)
-             .replace(".__init__", "") for f in files[:-1]}
+             .replace(".__init__", "") for f in files}
     assert set(NAMED_MODULES) <= named
-    for f in files:
+    for f in files + [ROOT / "chip_smoke.py", ROOT / "chip_ab_counters.py"]:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (f, mod)

@@ -22,9 +22,7 @@ Three layers:
   snapshot, `--metrics-log` JSONL persistence through graceful drain,
   a strict Prometheus-exposition parse of `_metrics_text()` from a
   loaded multi-engine frontend, and per-pool busy fractions on a live
-  fleet. The port has no prefill-only engines yet (ROADMAP A10), so
-  that fleet is two decode-capable loops of different roles, each fed
-  directly: the fan-in per role is what is checked.
+  prefill:1,decode:1 fleet through the router.
 """
 import asyncio
 import contextlib
@@ -37,12 +35,13 @@ import types
 import pytest
 import torch
 
+from repro_torch.cache import PrefixKVCache, device_placement
 from repro_torch.core.decoder import DecodeConfig
 from repro_torch.models import get_config, init_params
 from repro_torch.obs.series import (COUNTERS, GAUGES, JsonlSink,
                                     MetricsRecorder, fleet_series,
                                     timeline_doc)
-from repro_torch.server import EngineLoop, HttpFrontend
+from repro_torch.server import EngineLoop, EngineRouter, HttpFrontend
 from repro_torch.server import client as C
 from repro_torch.server.types import ServerRequest
 from repro_torch.serving import ContinuousEngine
@@ -308,11 +307,12 @@ def test_writer_reader_hammer():
 
 # --------------------------------------------------------- integration
 
-def make_engine(max_slots=2):
+def make_engine(store=None, prefill_only=False, max_slots=2):
     dcfg = DecodeConfig(method="streaming", gen_len=MAX_TOKENS,
                         block_size=BLOCK, window=4, tau0=0.5,
-                        cache_chunk=CHUNK)
+                        prefix_cache=store is not None, cache_chunk=CHUNK)
     return ContinuousEngine(CFG, PARAMS, dcfg, max_slots=max_slots,
+                            prefix_cache=store, prefill_only=prefill_only,
                             device="cpu")
 
 
@@ -482,58 +482,57 @@ def test_metrics_text_strict_exposition():
 
 
 def test_pool_busy_fractions_live_fleet():
-    """A live two-engine fleet under load reports per-pool busy
-    fractions through the timeline doc: each role's pool shows its own
-    prefill- and decode-phase work and tokens. (The reference's fleet is
-    prefill:1,decode:1 through the router; prefill-only engines and the
-    handoff are ROADMAP A10, so here the pools are roles "both" and
-    "decode", each loop fed directly.)"""
-    engines = [make_engine(), make_engine()]
+    """A real prefill:1,decode:1 fleet under load reports per-pool busy
+    fractions through the timeline doc: the prefill pool shows
+    prefill-phase work, the decode pool decode-phase work (the N:M
+    sizing signal)."""
+    store = PrefixKVCache(chunk_tokens=CHUNK, shared=True,
+                          placement=device_placement("cpu"))
+    engines = [make_engine(store, prefill_only=True), make_engine(store)]
     loops = [EngineLoop(e, max_pending=32, idle_poll_s=0.002, index=i,
-                        role="both" if i == 0 else "decode")
+                        role="prefill" if i == 0 else "decode")
              for i, e in enumerate(engines)]
     for lp, eng in zip(loops, engines):
         lp.recorder = MetricsRecorder(eng, index=lp.index,
                                       role=lp.role, interval_s=0.01,
                                       loop=lp)
+    router = EngineRouter(loops)
     for lp in loops:
         lp.start()
     try:
         done = []
-        for i, p in enumerate(PROMPTS):
+        for p in PROMPTS:
             ev = threading.Event()
 
             def deliver(event, ev=ev):
                 if event[0] == "done":
                     ev.set()
 
-            loops[i % 2].submit(ServerRequest(prompt=p,
-                                              max_tokens=MAX_TOKENS),
-                                deliver)
+            router.submit(ServerRequest(prompt=p,
+                                        max_tokens=MAX_TOKENS), deliver)
             done.append(ev)
         for ev in done:
             assert ev.wait(timeout=TEST_TIMEOUT_S)
         time.sleep(0.05)                   # one more sampling tick
     finally:
-        for lp in loops:
-            lp.request_stop(drain=True)
-        for lp in loops:
-            assert lp.join(60)
+        assert router.close(drain=True, timeout_s=60)
 
+    assert engines[0].metrics.handoffs_out == len(PROMPTS)
     doc = timeline_doc(loops, window_s=60.0, step_s=60.0)
     assert doc["engines_reporting"] == 2
     pools = doc["fleet"]["pools"]
-    assert set(pools) == {"both", "decode"}
-    assert pools["both"]["engines"] == 1
+    assert set(pools) == {"prefill", "decode"}
+    assert pools["prefill"]["engines"] == 1
     assert pools["decode"]["engines"] == 1
 
     def last(series):
         vals = [v for v in series if v is not None]
         return vals[-1] if vals else None
 
-    # each pool primed its own prompts and generated its own tokens
-    for role in ("both", "decode"):
-        assert last(pools[role]["prefill_busy_frac"]) > 0
-        assert last(pools[role]["decode_busy_frac"]) > 0
-        assert last(pools[role]["tok_s"]) > 0
+    # the prefill pool did prefill-phase work and decoded nothing; the
+    # decode pool generated the tokens
+    assert last(pools["prefill"]["prefill_busy_frac"]) > 0
+    assert not last(pools["prefill"]["decode_busy_frac"])
+    assert last(pools["decode"]["decode_busy_frac"]) > 0
+    assert last(pools["decode"]["tok_s"]) > 0
     json.dumps(doc)

@@ -6,11 +6,11 @@ disconnect → slot release without disturbing concurrent requests, and
 graceful drain shutdown; then the prefix cache's ``/metrics`` series
 (``tests/test_cache.py::test_metrics_endpoint_exposes_cache_series``).
 Everything runs on ``tiny`` on the CPU with the port's own seeded
-weights and the stdlib-only loopback client. Stealing and pool roles
-are ROADMAP A10: the multi-engine tests build the router with
-``steal=False``, and a router that would steal raises when built. The
-port's front end against the JAX package's is
-``tests/test_torch_server_jax.py``."""
+weights and the stdlib-only loopback client. The multi-engine tests
+build the router with ``steal=False``, as the reference's do; stealing
+and the prefill/decode pools are ``tests/test_torch_steal.py`` and
+``tests/test_torch_disagg.py``. The port's front end against the JAX
+package's is ``tests/test_torch_server_jax.py``."""
 import asyncio
 import contextlib
 import json
@@ -426,22 +426,6 @@ def test_router_falls_back_when_one_engine_full():
         router.close(drain=False, timeout_s=5)
 
 
-def test_router_refuses_stealing_and_pool_roles_at_construction():
-    """Stealing and prefill/decode pools are ROADMAP A10: a router that
-    would reach them raises when it is built, never later inside a
-    decode thread."""
-    from repro_torch.server import EngineRouter
-    loops = [EngineLoop(_engine(), idle_poll_s=0.005) for _ in range(2)]
-    with pytest.raises(NotImplementedError, match="A10"):
-        EngineRouter(loops)
-    with pytest.raises(NotImplementedError, match="A10"):
-        EngineRouter([EngineLoop(_engine(), role="decode")], steal=False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        loops[0].engine.scheduler.steal_waiting()
-    # one loop cannot steal from anyone: steal=True is harmless there
-    assert EngineRouter(loops[:1]).loops == loops[:1]
-
-
 # ------------------------------------------------------------ prefix cache
 
 
@@ -475,10 +459,10 @@ def test_metrics_endpoint_exposes_cache_series():
 # ------------------------------------------------------------ CLI
 
 
-def test_cli_http_answers_then_drains_on_sigint(tmp_path):
-    """``python -m repro_torch.launch.serve --http PORT`` on the CPU:
-    answers ``/healthz`` and a completion over loopback, then drains on
-    SIGINT and prints its summary line (exit code 0)."""
+def _cli_http_roundtrip(tmp_path, extra):
+    """Start ``python -m repro_torch.launch.serve --http PORT`` on the
+    CPU with ``extra`` flags, wait for ``/healthz``, complete one request
+    over loopback, SIGINT, and return the summary line."""
     import os
     import signal
     import socket
@@ -495,7 +479,7 @@ def test_cli_http_answers_then_drains_on_sigint(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "tiny",
          "--device", "cpu", "--dtype", "float32", "--http", str(port),
-         "--trace-dir", str(tmp_path)],
+         *extra],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=tmp_path)
     url = f"http://127.0.0.1:{port}"
@@ -526,6 +510,54 @@ def test_cli_http_answers_then_drains_on_sigint(tmp_path):
             proc.kill()
             proc.communicate()
     assert proc.returncode == 0, err
-    summary = json.loads(out.strip().splitlines()[-1])
+    return json.loads(out.strip().splitlines()[-1]), health, port
+
+
+def test_cli_http_answers_then_drains_on_sigint(tmp_path):
+    """``python -m repro_torch.launch.serve --http PORT`` on the CPU:
+    answers ``/healthz`` and a completion over loopback, then drains on
+    SIGINT and prints its summary line (exit code 0)."""
+    summary, _, port = _cli_http_roundtrip(
+        tmp_path, ["--trace-dir", str(tmp_path)])
     assert summary["http"] == port and summary["served"] == 1
     assert (tmp_path / "trace.json").exists()
+
+
+@pytest.mark.parametrize("flags,engines,handoffs", [
+    (["--engines", "2", "--host-threads-per-engine", "1"], 2, 0),
+    (["--prefix-cache", "--cache-chunk", "4", "--pool",
+      "prefill:1,decode:1"], 2, 1)], ids=["engines", "pool"])
+def test_cli_fleet_answers_then_drains_on_sigint(tmp_path, flags, engines,
+                                                 handoffs):
+    """``--engines 2`` and ``--pool prefill:1,decode:1`` serve a fleet
+    behind one front end: one completion over loopback, a clean drain,
+    and a summary that sums the engines (a pool request is primed on
+    the prefill engine and handed to the decode engine)."""
+    summary, health, _ = _cli_http_roundtrip(tmp_path, flags)
+    assert health["engines"] == engines
+    assert summary["engines"] == engines and summary["served"] == 1
+    assert summary["handoffs"] == handoffs
+    assert summary["post_warm_captures"] == 0
+
+
+@pytest.mark.parametrize("argv,err", [
+    (["--engines", "2"], "needs --http"),
+    (["--pool", "prefill:1,decode:1", "--http", "1"], "needs --prefix-cache"),
+    (["--pool", "prefill:1,decode:1"], "needs --http"),
+    (["--pool", "prefill:1", "--http", "1", "--prefix-cache"],
+     "at least one decode"),
+    (["--pool", "decode:2", "--http", "1", "--prefix-cache"],
+     "without a prefill"),
+    (["--pool", "prefill:1,decode:1", "--engines", "3", "--http", "1",
+      "--prefix-cache"], "implies --engines 2")])
+def test_cli_fleet_flags_are_validated(argv, err):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match=err):
+        serve.main(["--device", "cpu", *argv])
+
+
+def test_cli_mesh_flags_name_a11():
+    from repro_torch.launch import serve
+    for argv in (["--mesh", "2,1"], ["--force-host-devices", "4"]):
+        with pytest.raises(NotImplementedError, match="A11"):
+            serve.main(["--device", "cpu", *argv])
