@@ -5,6 +5,8 @@ The caller turns the JAX pytree into numpy first (for example
 nor ``repro``. The JAX package stacks each pattern position's layers
 along a leading ``reps`` axis (``lax.scan``); the port keeps one entry
 per layer in layout order, so both sides compute the same function.
+``params_to_jax`` goes the other way, to numpy leaves in the JAX
+package's layout (what its checkpoints hold).
 """
 from __future__ import annotations
 
@@ -15,11 +17,14 @@ import torch
 
 
 def to_tensor(a, device, dtype=None) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":          # ml_dtypes bfloat16 from JAX
-        t = torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    if isinstance(a, torch.Tensor):
+        t = a
     else:
-        t = torch.tensor(a)
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":      # ml_dtypes bfloat16 from JAX
+            t = torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.tensor(a)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
@@ -57,7 +62,8 @@ def _leaves(x):
 
 
 def params_from_jax(tree: dict, device, dtype=None) -> dict:
-    """JAX ``init_params`` pytree (numpy leaves) -> the port's params:
+    """JAX ``init_params`` pytree (numpy or tensor leaves) -> the port's
+    params:
     ``embed``, ``out_norm``, ``lm_head`` and the per-layer list."""
     conv = lambda a: to_tensor(a, device, dtype)  # noqa: E731
     out = {k: conv(tree[k]) for k in ("embed", "out_norm", "lm_head")
@@ -67,6 +73,48 @@ def params_from_jax(tree: dict, device, dtype=None) -> dict:
     layers = _unstack(tree["scan"]) + list(tree["tail"])
     out["layers"] = [_tree(p, conv) for p in layers]
     return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host numpy array of its own dtype (numpy
+    has no bfloat16: such a tensor raises)."""
+    return t.detach().cpu().numpy()
+
+
+def _stack(layers, stack) -> Any:
+    """Per-layer pytrees of one pattern position -> one pytree whose
+    leaves stack the layers along a leading ``reps`` axis."""
+    if isinstance(layers[0], dict):
+        return {k: _stack([g[k] for g in layers], stack) for k in layers[0]}
+    return stack(layers)
+
+
+def jax_layout(params: dict, cfg, leaf=lambda t: t.detach(),
+               stack=torch.stack) -> dict:
+    """The port's params rearranged into the JAX package's ``init_params``
+    pytree (the inverse of ``params_from_jax``): layer
+    ``r * len(cfg.pattern) + j`` becomes repetition ``r`` of ``"scan"``
+    group ``j``; the last ``len(cfg.tail)`` layers are ``"tail"``. Each
+    leaf goes through ``leaf``, each group's layers through ``stack``."""
+    n_pos, reps = len(cfg.pattern), cfg.reps
+    layers = [_tree(p, leaf) for p in params["layers"]]
+    if len(layers) != reps * n_pos + len(cfg.tail):
+        raise ValueError(f"{len(layers)} layers for a layout of {reps} x "
+                         f"{n_pos} + {len(cfg.tail)}")
+    out = {k: leaf(params[k]) for k in ("embed", "out_norm", "lm_head")
+           if k in params}
+    out["scan"] = tuple(
+        _stack([layers[r * n_pos + j] for r in range(reps)], stack)
+        for j in range(n_pos)) if reps else ()
+    out["tail"] = tuple(layers[reps * n_pos:])
+    return out
+
+
+def params_to_jax(params: dict, cfg) -> dict:
+    """The port's params -> the JAX package's pytree with numpy leaves;
+    ``params_from_jax(params_to_jax(p, cfg), device)`` is ``p`` bit for
+    bit."""
+    return jax_layout(params, cfg, to_numpy, np.stack)
 
 
 def cache_from_jax(cache: dict, device) -> List[tuple]:

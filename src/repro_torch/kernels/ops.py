@@ -96,13 +96,19 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor, *, train: bool = False
+           ) -> torch.Tensor:
     """``x @ w`` for every product of the model: x (..., K), w (K, N).
     On the CPU it is ``torch.matmul``, exactly as the plain path has it;
     on the card the GEMM kernel (``gemm``), whose sum order does not
     depend on how many rows x has. No fallback: a product the kernel
-    does not take raises."""
-    if x.device.type == "cpu":
+    does not take raises.
+
+    ``train=True`` is the training route on every device: ``x @ w``,
+    differentiable under autograd (the kernel has no backward). The JAX
+    package trains on XLA's dot, never on a kernel; serving never takes
+    this route."""
+    if train or x.device.type == "cpu":
         return x @ w
     lead = x.shape[:-1]
     y = gemm(x.reshape(-1, x.shape[-1]).contiguous(), w)

@@ -1,17 +1,23 @@
 """Minimal serving CLI of the port: continuous (default) or batch-mode
-serving of a few prompts on ``init_params`` weights (what the JAX CLI
-serves with ``--train-steps 0``).
+serving of a few prompts on trained weights: ``--train-steps N`` (600 by
+default, as in the JAX CLI) trains the model first with batch 32 and
+sequence length 44, ``--ckpt PATH`` restores a checkpoint in the JAX
+package's format (written by either package's trainer), and
+``--train-steps 0`` serves the ``init_params`` weights of ``--seed``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \\
-        --method streaming --n 4 --gen-len 256 --window 96 \\
-        --max-slots 4 --prewarm 12:256
+        --train-steps 0 --method streaming --n 4 --gen-len 256 \\
+        --window 96 --max-slots 4 --prewarm 12:256
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny \\
         --device cpu --dtype float32 --mode continuous --max-slots 2 --stream
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny \\
-        --device cpu --dtype float32 --mode batch --method dkv --host-loop
+        --device cpu --dtype float32 --train-steps 0 --mode batch \\
+        --method dkv --host-loop
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny-100m \\
+        --ckpt results/torch/ckpt/tiny100m --mode batch --n 32 --gen-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \\
-        --gen-len 256 --window 96 --prewarm 12:256 --http 8000 \\
-        --audit-rate 0.05 --trace-dir /tmp/trace
+        --train-steps 0 --gen-len 256 --window 96 --prewarm 12:256 \\
+        --http 8000 --audit-rate 0.05 --trace-dir /tmp/trace
 
 Runs on CUDA unless ``--device cpu``; on CUDA attention and confidence
 go through the kernels, and each block is one CUDA graph replay
@@ -34,11 +40,11 @@ A fleet on one card, behind the HTTP front end's ``EngineRouter``
 (each engine on its own CUDA stream; the weights are shared):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \
-        --gen-len 128 --window 96 --prewarm 256:128 --http 8000 \
-        --engines 2 [--no-steal] [--host-threads-per-engine T]
+        --train-steps 0 --gen-len 128 --window 96 --prewarm 256:128 \
+        --http 8000 --engines 2 [--no-steal] [--host-threads-per-engine T]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \
-        --gen-len 128 --window 96 --prewarm 256:128 --http 8000 \
-        --prefix-cache --pool prefill:1,decode:1
+        --train-steps 0 --gen-len 128 --window 96 --prewarm 256:128 \
+        --http 8000 --prefix-cache --pool prefill:1,decode:1
 
 ``--engines N`` serves with N engines (work stealing between them at
 block boundaries unless ``--no-steal``); ``--pool prefill:N,decode:M``
@@ -47,12 +53,12 @@ and decodes them on M engines. ``--host-threads-per-engine`` sizes the
 process's intra-op pool (``repro_torch.launch.host``; default cores //
 engines). ``--prewarm`` captures every engine's graphs, one engine after
 another, before admission opens.
-``--ckpt`` and training wait for ROADMAP A12; ``--mesh`` and
-``--force-host-devices`` for A11.
+``--mesh`` and ``--force-host-devices`` wait for ROADMAP A11.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -66,6 +72,7 @@ from repro_torch.core.engine import ServingEngine
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import get_config, init_params
+from repro_torch.models.model import params_to
 from repro_torch.serving import ContinuousEngine
 
 
@@ -167,6 +174,13 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default="", metavar="PATH",
+                    help="serve the weights of this checkpoint (PATH.npz + "
+                    "PATH.json, the JAX package's format)")
+    ap.add_argument("--train-steps", type=int, default=600,
+                    help="without --ckpt: train this many steps (batch 32, "
+                    "seq_len 44, float32) before serving; 0 serves the "
+                    "init_params weights of --seed")
     ap.add_argument("--http", type=int, default=0, metavar="PORT",
                     help="serve over HTTP on this port instead of the "
                     "synthetic in-process workload (continuous mode; "
@@ -311,9 +325,8 @@ def main(argv=None):
         print(f"host budget: {budget.describe()}")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, dtype=args.dtype, param_dtype=args.dtype)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    params = init_params(cfg, gen, device)
+    params = load_weights(args, cfg, device)
     d = DecodeConfig(method=args.method, gen_len=args.gen_len,
                      block_size=cfg.block_size, window=args.window,
                      tau0=args.tau0, alpha=args.alpha,
@@ -426,6 +439,26 @@ def main(argv=None):
     export_trace(tracer, args.trace_dir)
     print(json.dumps(summary))
     return summary
+
+
+def load_weights(args, cfg, device) -> dict:
+    """The served params: restored from ``--ckpt``, else trained for
+    ``--train-steps`` in float32 (the configs' ``param_dtype``) and cast
+    to ``cfg``'s, else ``init_params`` of ``--seed``."""
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.ckpt:
+        from repro_torch.training import checkpoint
+        return checkpoint.restore(args.ckpt, init_params(cfg, gen, device),
+                                  cfg)
+    if args.train_steps > 0:
+        from repro_torch.models.model import DTYPES
+        from repro_torch.training.train import TrainConfig, train
+        f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        params, _ = train(f32, TrainConfig(
+            steps=args.train_steps, batch_size=32, seq_len=44,
+            seed=args.seed), device=device)
+        return params_to(params, DTYPES[cfg.param_dtype])
+    return init_params(cfg, gen, device)
 
 
 def prewarm_all(engines, buckets) -> list:

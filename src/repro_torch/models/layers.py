@@ -220,7 +220,7 @@ def attend_ref(q, k, v, *, scale, attn_softcap=0.0, window=0,
 def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
                     kv_valid=None, window=0, return_kv=False,
                     self_kv_override=None, rope=None, kv_mask=None,
-                    use_kernels=False):
+                    use_kernels=False, train=False):
     """GQA attention over [kv_cache || self].
 
     x: (B, Sq, d). kv_cache: optional (k, v) each (B, P, Hkv, D) with
@@ -236,14 +236,19 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
     kernel route with no cache validity, all ones).
     ``use_kernels`` routes the attend to ``kernels.ops.block_attention``
     (the CUDA kernel on the card, its plain version on the CPU) instead
-    of ``attend_ref``.
+    of ``attend_ref``. ``train`` is the training route: ``attend_ref``
+    and every product ``x @ w`` (``ops.linear(train=True)``), so autograd
+    reaches the weights on any device.
     """
     B, Sq_self, d = x.shape
     H, hd = p["wq"].shape[1], p["wq"].shape[2]
     Hkv = p["wk"].shape[1]
-    q = linear(x, p["wq"].reshape(d, H * hd)).reshape(B, Sq_self, H, hd)
-    k = linear(x, p["wk"].reshape(d, Hkv * hd)).reshape(B, Sq_self, Hkv, hd)
-    v = linear(x, p["wv"].reshape(d, Hkv * hd)).reshape(B, Sq_self, Hkv, hd)
+    q = linear(x, p["wq"].reshape(d, H * hd), train=train).reshape(
+        B, Sq_self, H, hd)
+    k = linear(x, p["wk"].reshape(d, Hkv * hd), train=train).reshape(
+        B, Sq_self, Hkv, hd)
+    v = linear(x, p["wv"].reshape(d, Hkv * hd), train=train).reshape(
+        B, Sq_self, Hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -279,16 +284,18 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
         out = attend_ref(q, k, v, scale=scale, attn_softcap=cfg.attn_softcap,
                          window=window, q_pos=q_pos, kv_pos=kv_pos,
                          kv_mask=kv_mask)
-    out = linear(out.reshape(B, Sq_self, H * hd), p["wo"].reshape(H * hd, d))
+    out = linear(out.reshape(B, Sq_self, H * hd),
+                 p["wo"].reshape(H * hd, d), train=train)
     return (out, new_kv) if return_kv else out
 
 
 # ---------------------------------------------------------------- ffn
 
-def apply_ffn(p, x, kind: str):
+def apply_ffn(p, x, kind: str, train: bool = False):
     if kind == "swiglu":
-        h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
+        h = F.silu(linear(x, p["w_gate"], train=train)) \
+            * linear(x, p["w_up"], train=train)
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(linear(x, p["w_up"]), approximate="tanh")
-    return linear(h, p["w_down"])
+        h = F.gelu(linear(x, p["w_up"], train=train), approximate="tanh")
+    return linear(h, p["w_down"], train=train)

@@ -96,7 +96,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def params_to(params, device):
-    """A copy of a params (or cache) tree with every tensor on ``device``."""
+    """A copy of a params (or cache) tree with every tensor on ``device``
+    (or cast to a dtype: whatever ``Tensor.to`` takes)."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
@@ -149,7 +150,7 @@ def _write_kv_at(buf, new, idx) -> None:
 
 def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
                 mode, append_at=None, self_kv_mix=None, kv_pos=None,
-                rope=None, kv_mask=None, use_kernels=False):
+                rope=None, kv_mask=None, use_kernels=False, train=False):
     """Returns (y, cache); the cache is written in place. ``kv_pos``,
     ``rope`` and ``kv_mask`` are the pass's key positions, RoPE table and
     key validity, built once by ``apply_model`` for every layer.
@@ -161,7 +162,8 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
     if mode == "encode":
         out, kv = apply_attention(cfg, p["mixer"], h, q_pos=q_pos,
                                   window=window, return_kv=True, rope=rope,
-                                  kv_mask=kv_mask, use_kernels=use_kernels)
+                                  kv_mask=kv_mask, use_kernels=use_kernels,
+                                  train=train)
         if cache is not None:
             S = x.shape[1]
             if S > cache[0].shape[1]:
@@ -192,7 +194,7 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
     x = x + out
     if spec.ffn != NONE:
         x = x + apply_ffn(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
-                          spec.ffn)
+                          spec.ffn, train=train)
     return x, cache
 
 
@@ -210,7 +212,8 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
                 mode: str = "encode", cache=None, kv_valid=None,
                 append_at=None, self_kv_mix=None,
                 cache_upto: Optional[int] = None, skip_head: bool = False,
-                use_kernels: bool = False) -> ModelOutput:
+                use_kernels: bool = False, train: bool = False
+                ) -> ModelOutput:
     """tokens: (B, S) int; positions: (B, S). ``use_kernels`` routes the
     attention of every layer through ``kernels.ops.block_attention``.
     ``self_kv_mix`` (B, S) bool: the dKV cache's frozen tokens (their K/V
@@ -218,9 +221,18 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
     ``cache_upto`` (the block-refresh prefix boundary) only matters to
     recurrent layers, which the port does not have yet. The key
     positions, the RoPE table and the key validity are built once per
-    pass, not per layer."""
+    pass, not per layer.
+
+    ``train=True`` is the training route (the JAX package's
+    ``diffusion_loss``): an encode with no cache, plain attention and
+    every product ``x @ w``, differentiable under autograd on any
+    device. Without it, a product on the card goes through the GEMM
+    kernel, whatever ``use_kernels`` says."""
     if mode not in ("encode", "step", "append"):
         raise ValueError(f"unknown mode {mode!r}")
+    if train and (use_kernels or mode != "encode" or cache is not None):
+        raise ValueError("train=True is an encode with no cache on the "
+                         "plain attention (the kernels have no backward)")
     if mode != "encode" and cache is None:
         raise ValueError(f"mode={mode!r} needs a cache")
     dtype = DTYPES[cfg.dtype]
@@ -254,14 +266,14 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
                            kv_valid=kv_valid, mode=mode,
                            append_at=append_at, self_kv_mix=self_kv_mix,
                            kv_pos=kv_pos, rope=rope, kv_mask=kv_mask,
-                           use_kernels=use_kernels)
+                           use_kernels=use_kernels, train=train)
 
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     if skip_head:
         logits = x  # final hidden states; caller owns the head projection
     else:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = linear(x, head.to(x.dtype)).float()
+        logits = linear(x, head.to(x.dtype), train=train).float()
         if cfg.logit_softcap:
             logits = softcap(logits, cfg.logit_softcap)
 

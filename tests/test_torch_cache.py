@@ -405,8 +405,9 @@ def test_cache_affinity_routes_to_warm_engine():
 def test_serve_cli_prefix_cache_on_cpu():
     from repro_torch.launch import serve
     out = serve.main(["--arch", "tiny", "--device", "cpu", "--dtype",
-                      "float32", "--n", "3", "--gen-len", "16",
-                      "--prefix-cache", "--cache-chunk", "4"])
+                      "float32", "--train-steps", "0", "--n", "3",
+                      "--gen-len", "16", "--prefix-cache", "--cache-chunk",
+                      "4"])
     assert out["served"] == 3 and out["prefix_cache_nodes"] > 0
     with pytest.raises(SystemExit):
         serve.main(["--arch", "tiny", "--device", "cpu", "--method",

@@ -9,9 +9,11 @@ on graphs of a new batch, a dkv row parked and resumed, no capture after
 ``ContinuousEngine.prewarm``, gangs of several sizes that compact and
 merge with every request equal to its B = 1 decode), the HTTP front
 end's threads (scrapes during a capture on the decode thread, the shadow
-auditor's lanes), and two engines on one card, each on its own stream
+auditor's lanes), two engines on one card, each on its own stream
 (a capture on one thread while another replays and syncs; a steal fleet
-giving each prompt's bits served alone). Each kernel against its plain version
+giving each prompt's bits served alone), and training: a train step on
+the card against the CPU, with the decoder still refusing the plain
+route. Each kernel against its plain version
 at the main path's shapes, and llada-8b through the graphs, are checked
 by ``chip_smoke.py``. Needs a CUDA card; skips without one. Imports no JAX,
 so it runs where JAX is absent:
@@ -837,3 +839,66 @@ def test_gemm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="devices"):
         ops.gemm(x, w.cpu())
     assert ops.LAUNCHES == before
+
+
+def _train_step(params, dev, cfg, toks, noise):
+    """Loss, gradients and the weights after one AdamW step (the
+    reference's defaults), on ``dev``."""
+    from repro_torch.models.model import params_to
+    from repro_torch.training import tree
+    from repro_torch.training.loss import loss_given_noise
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                adamw_update)
+    leaves, td = tree.flatten(params_to(params, dev))
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    loss, _ = loss_given_noise(cfg, tree.unflatten(td, leaves), toks.to(dev),
+                               *(a.to(dev) for a in noise))
+    grads = torch.autograd.grad(loss, leaves)
+    opt = AdamWConfig(total_steps=300)
+    new, _, _ = adamw_update(opt, list(grads), adamw_init(opt, leaves),
+                             [p.detach() for p in leaves])
+    return loss.detach(), grads, new
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """One float32 train step of ``tiny`` on the card and on the CPU from
+    the same weights, batch and draw: the loss to rtol 1e-5, every
+    gradient and every weight after AdamW to rtol 1e-4, atol 1e-6. The
+    training route launches no kernel of the port."""
+    from repro_torch.data.synthetic import ArithmeticDataset
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import get_config, init_params
+    from repro_torch.training.loss import draw_noise
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("tiny")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = ArithmeticDataset(ByteTokenizer(320), seq_len=28).batch(0, 8)
+    noise = draw_noise(torch.as_tensor(b.loss_mask),
+                       torch.Generator().manual_seed(1))
+    toks = torch.as_tensor(b.tokens)
+    before = dict(ops.LAUNCHES)
+    card = _train_step(params, cuda, cfg, toks, noise)
+    assert ops.LAUNCHES == before
+    host = _train_step(params, torch.device("cpu"), cfg, toks, noise)
+    torch.testing.assert_close(card[0].cpu(), host[0], rtol=1e-5, atol=0)
+    for got, want in zip(card[1] + tuple(card[2]), host[1] + tuple(host[2])):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6)
+
+
+def test_card_decoder_still_refuses_the_plain_route(cuda):
+    """Training takes ``apply_model(train=True)``; the decoder on the
+    card still refuses ``use_kernels=False``, and a serving pass with
+    the default ``use_kernels=False`` still goes through the GEMM."""
+    from repro_torch.core.decoder import DecodeConfig, DiffusionDecoder
+    from repro_torch.models import apply_model, get_config, init_params
+    cfg = get_config("tiny")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    with pytest.raises(ValueError, match="use_kernels"):
+        DiffusionDecoder(cfg, params, DecodeConfig(use_kernels=False,
+                                                   gen_len=16, block_size=8),
+                         device=cuda)
+    before = ops.LAUNCHES["gemm"]
+    apply_model(cfg, params, tokens=torch.zeros((1, 8), dtype=torch.long,
+                                                device=cuda))
+    assert ops.LAUNCHES["gemm"] > before

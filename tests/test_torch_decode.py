@@ -206,8 +206,8 @@ def test_batch_engine_serves_a_queue():
 def test_serve_cli_on_cpu():
     from repro_torch.launch import serve
     out = serve.main(["--arch", "tiny", "--device", "cpu", "--dtype",
-                      "float32", "--n", "3", "--gen-len", "16", "--mode",
-                      "batch"])
+                      "float32", "--train-steps", "0", "--n", "3",
+                      "--gen-len", "16", "--mode", "batch"])
     assert out["served"] == 3 and out["nfe"] > 0
     assert out["launches"] == {"block_attention": 0, "confidence_argmax": 0,
                                "gemm": 0}
@@ -219,8 +219,8 @@ def test_serve_cli_dkv_host_loop_on_cpu():
     sync per pass (the prefill pass included), as many as the NFE."""
     from repro_torch.launch import serve
     out = serve.main(["--arch", "tiny", "--device", "cpu", "--dtype",
-                      "float32", "--n", "3", "--gen-len", "16", "--method",
-                      "dkv", "--host-loop"])
+                      "float32", "--train-steps", "0", "--n", "3",
+                      "--gen-len", "16", "--method", "dkv", "--host-loop"])
     assert out["served"] == 3 and out["method"] == "dkv"
     assert out["host_syncs"] == out["nfe"] > 0
 
@@ -288,7 +288,7 @@ def test_defaulted_device_raises_without_cuda(monkeypatch):
 
 # modules the import checks must reach by name: the prefix cache copies
 # JAX-free modules of the JAX package (radix, store), which the port must
-# not import from there
+# not import from there; so does the training slice (data.synthetic)
 NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.cache.store", "repro_torch.cache.slicing",
                  "repro_torch.kernels.gemm", "repro_torch.server",
@@ -297,7 +297,12 @@ NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.server.http", "repro_torch.server.client",
                  "repro_torch.server.console", "repro_torch.obs.series",
                  "repro_torch.obs.audit", "repro_torch.obs.profiler",
-                 "repro_torch.launch.host")
+                 "repro_torch.launch.host", "repro_torch.launch.train",
+                 "repro_torch.data.synthetic", "repro_torch.training",
+                 "repro_torch.training.tree",
+                 "repro_torch.training.checkpoint",
+                 "repro_torch.training.optimizer",
+                 "repro_torch.training.loss", "repro_torch.training.train")
 
 
 def test_import_leaves_jax_out():

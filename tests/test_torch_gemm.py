@@ -176,9 +176,9 @@ def test_one_pass_calls_linear_for_each_product(monkeypatch, mode):
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     calls = []
 
-    def counting(x, w):
+    def counting(x, w, **kw):
         calls.append(tuple(w.shape))
-        return ops.linear(x, w)
+        return ops.linear(x, w, **kw)
 
     for mod in (layers_mod, model_mod, schedule):
         monkeypatch.setattr(mod, "linear", counting)

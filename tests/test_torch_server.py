@@ -478,8 +478,8 @@ def _cli_http_roundtrip(tmp_path, extra):
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "tiny",
-         "--device", "cpu", "--dtype", "float32", "--http", str(port),
-         *extra],
+         "--device", "cpu", "--dtype", "float32", "--train-steps", "0",
+         "--http", str(port), *extra],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=tmp_path)
     url = f"http://127.0.0.1:{port}"

@@ -646,8 +646,9 @@ def test_merge_respects_max_gang_and_skips_dkv():
 def test_serve_cli_continuous_on_cpu():
     from repro_torch.launch import serve
     out = serve.main(["--arch", "tiny", "--device", "cpu", "--dtype",
-                      "float32", "--n", "3", "--gen-len", "16",
-                      "--mode", "continuous", "--max-slots", "2",
+                      "float32", "--train-steps", "0", "--n", "3",
+                      "--gen-len", "16", "--mode", "continuous",
+                      "--max-slots", "2",
                       "--stream", "--prewarm", "12:16", "--pad-pow2"])
     assert out["mode"] == "continuous" and out["served"] == 3
     assert out["prewarm"]["batch_sizes"] == [1, 2]
