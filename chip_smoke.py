@@ -101,15 +101,31 @@ package. Phases, each printing JSON lines:
               IF nodes skipped, tok/s, speedup), graph loop against host
               loop; then ``ContinuousEngine`` on the 32 prompts, each
               equal to its decode alone (``phase_train``).
+15. families_reference — the trained model freed: qwen3-32b, phi4-mini,
+              minitron-4b (2 layers each) and kimi-k2 (1 layer, all 384
+              experts) at full width, bf16 random weights: a refresh and
+              a streaming step through the kernels against the plain
+              route (``attend_ref``, ``torch.matmul``), the float32 router
+              products counted (``phase_families_reference``).
+16. families — gemma2-27b (tied head, softcaps, local/global layers) and
+              olmoe-1b-7b (64 experts, top-8) at full width and depth:
+              the graph loop against the host loop, block 0 profiled (one
+              blocking sync), step ms beside the weight-bytes bound; then
+              olmoe through ``ContinuousEngine(4, 4)`` after prewarm, every
+              request equal to its decode alone at B = 1
+              (``phase_families``).
 
-Then the kernels summary line (launches counted
-on the continuous phase's timed run; the GEMM has no TPU kernel behind
+The kernels phase also runs attention, confidence and the GEMM at the
+other families' shapes (``family_kernel_cases``, ``family_gemm_cases``),
+and every phase prints its seconds. Then the kernels summary line
+(launches counted on the continuous phase's timed run; the GEMM has no TPU kernel behind
 it, and its line names the reference's XLA product it stands for), the nvidia-smi line and, last, the device
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -138,7 +154,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.core import schedule as sched  # noqa: E402
 from repro_torch.core.decoder import METHODS as DECODE_METHODS  # noqa
 from repro_torch.core.decoder import (DecodeConfig,  # noqa: E402
-                                      DiffusionDecoder)
+                                      DiffusionDecoder, eos_truncate)
 from repro_torch.core.engine import ServingEngine  # noqa: E402
 from repro_torch.data.synthetic import (ArithmeticDataset,  # noqa: E402
                                         exact_match)
@@ -147,7 +163,7 @@ from repro_torch.kernels import block_attention as kba  # noqa: E402
 from repro_torch.kernels import build, confidence, gemm, ops, ref  # noqa: E402
 from repro_torch.models import apply_model, get_config, init_params  # noqa: E402
 from repro_torch.models.model import (DTYPES, init_cache,  # noqa: E402
-                                      params_to)
+                                      params_to, serving_head)
 from repro_torch.training import checkpoint, tree  # noqa: E402
 from repro_torch.training.loss import (draw_noise,  # noqa: E402
                                        loss_given_noise)
@@ -162,6 +178,10 @@ SEED = 0
 PROMPT_LEN = 128
 N_PROMPTS = 4
 GEN_LEN, BLOCK, WINDOW = 256, 32, 96
+# the other families (families phases): prompts, generation, batch; a
+# streaming step of block 0 queries the block and the 32 suffix tokens
+FAM_PROMPT, FAM_GEN, FAM_N = 128, 64, 2
+FAM_SQ = BLOCK + min(WINDOW, FAM_GEN - BLOCK)
 
 
 def emit(obj) -> None:
@@ -265,19 +285,21 @@ def attention_bound(q, k, v, qp, kp, km, out, window):
 
 
 def check_attention(name, shape, dtype, *, softcap=0.0, window=0,
-                    n_valid=None, q_start=0, masked_row=False, timed=False):
+                    n_valid=None, q_start=0, masked_row=False, timed=False,
+                    scale=None):
     """The wrapper's kernel (bf16: the tensor-core kernel, float32: the
     simple one) against the plain version on the same inputs. bf16 cases
     also check the fused bf16 epilogue: the kernel's bf16 output is its
     float32 output rounded to nearest even, bit for bit. Timed cases time
-    the first port's simple kernel on the same inputs, in turns."""
+    the first port's simple kernel on the same inputs, in turns.
+    ``scale`` defaults to 1/sqrt(D) (gemma2: 1/12)."""
     B, Sq, Skv, H, Hkv, D = shape
     args = attention_inputs(B, Sq, Skv, H, Hkv, D, dtype, n_valid=n_valid,
                             q_start=q_start)
     q, k, v, qp, kp, km = args
     if masked_row:
         km[-1] = False                       # the last row sees no key
-    scale = 1.0 / math.sqrt(D)
+    scale = scale or 1.0 / math.sqrt(D)
     kw = dict(scale=scale, softcap=softcap, window=window)
     out = ops.block_attention(*args, **kw)
     want = ref.block_attention_ref(*args, **kw)
@@ -308,7 +330,7 @@ def check_attention(name, shape, dtype, *, softcap=0.0, window=0,
            "case": name,
            "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hkv": Hkv,
                      "D": D}, "dtype": str(dtype).split(".")[-1],
-           "softcap": softcap, "window": window,
+           "softcap": softcap, "window": window, "scale": scale,
            "max_abs_err": err, "tol": tol, "ok": ok, **extra}
     if timed:
         sets = [attention_inputs(B, Sq, Skv, H, Hkv, D, dtype,
@@ -652,7 +674,35 @@ def phase_kernels():
         check_confidence(f"no_ban_{tag}", 64, 4099, dtype, ties=True)
     confidence_scaling(llada_mask)
     check_head_path(llada_mask)     # llada-8b: d = 4096, V = 126464
+    family_kernel_cases()
     return step, conf
+
+
+def family_kernel_cases():
+    """Attention and confidence at the other families' shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    # the other families' step shapes (families phase: 2 prompts of 128,
+    # a block-0 step of FAM_SQ queries over [192 cache slots valid to 128
+    # || self]): gemma2-27b (32 / 16 heads, scale 1/12, softcap 50, its
+    # local layers' window 4096), olmoe-1b-7b (16 / 16 heads, qk-normed)
+    T = FAM_PROMPT + FAM_GEN
+    fam = dict(n_valid=FAM_PROMPT, q_start=FAM_PROMPT)
+    check_attention("gemma2_27b_step_local", (FAM_N, FAM_SQ, T + FAM_SQ, 32,
+                                              16, 128), bf16, softcap=50.0,
+                    window=4096, scale=1.0 / 12.0, timed=True, **fam)
+    check_attention("gemma2_27b_step_global", (FAM_N, FAM_SQ, T + FAM_SQ,
+                                               32, 16, 128), bf16,
+                    softcap=50.0, scale=1.0 / 12.0, **fam)
+    check_attention("olmoe_1b_7b_step", (FAM_N, FAM_SQ, T + FAM_SQ, 16, 16,
+                                         128), bf16, timed=True, **fam)
+    # their heads: gemma2's softcapped logits reach the kernel in float32
+    # (kernels/ops.py head_confidence_argmax), olmoe's in bf16
+    check_confidence("gemma2_27b_head_f32", FAM_N * BLOCK, 256000, f32,
+                     mask_id=get_config("gemma2-27b").mask_token_id,
+                     timed=True)
+    check_confidence("olmoe_1b_7b_head_bf16", FAM_N * BLOCK, 50304, bf16,
+                     mask_id=get_config("olmoe-1b-7b").mask_token_id,
+                     timed=True)
 
 
 # ------------------------------------------------------------------ GEMM
@@ -662,6 +712,20 @@ def phase_kernels():
 LLADA_PRODUCTS = (("qkvo", 4096, 4096, 4), ("gate_up", 4096, 12288, 2),
                   ("down", 12288, 4096, 1))
 LLADA_HEAD = (4096, 126464)
+# the other families' products new to gemm.cu, as (name, K, N, dtype):
+# gemma2-27b's gate/up, an olmoe expert's gate/up and down, a kimi-k2
+# expert's gate/up, and the float32 routers (olmoe E = 64, kimi E = 384);
+# then each new LM head (K, N)
+FAMILY_PRODUCTS = (("gemma2_27b_gate_up", 4608, 36864, torch.bfloat16),
+                   ("olmoe_expert_gate_up", 2048, 1024, torch.bfloat16),
+                   ("olmoe_expert_down", 1024, 2048, torch.bfloat16),
+                   ("kimi_expert_gate_up", 7168, 2048, torch.bfloat16),
+                   ("olmoe_router_f32", 2048, 64, torch.float32),
+                   ("kimi_router_f32", 7168, 384, torch.float32))
+FAMILY_PLAIN = ("gemma2_27b_gate_up", "olmoe_expert_gate_up")
+FAMILY_HEADS = {"gemma2-27b": (4608, 256000), "olmoe-1b-7b": (2048, 50304),
+                "qwen3-32b": (5120, 151936), "kimi-k2": (7168, 163840),
+                "phi4-mini": (3072, 200064)}
 
 
 def bf16_ulp(v):
@@ -771,7 +835,19 @@ def phase_gemm():
     check_gemm("f32_tiny_ffn", 2 * 13, 256, 768, torch.float32)
     check_gemm("f32_ragged", 37, 72, 40, torch.float32)
     check_gemm("bf16_ragged", 37, 72, 40)
+    family_gemm_cases()
     return main
+
+
+def family_gemm_cases():
+    """gemm.cu at the other families' new shapes, beside cuBLAS."""
+    # the other families' new shapes, at a block-0 step of the families
+    # phase (FAM_N x FAM_SQ rows) and its head (FAM_N x BLOCK rows)
+    M = FAM_N * FAM_SQ
+    for name, K, N, dtype in FAMILY_PRODUCTS:
+        check_gemm(name, M, K, N, dtype, plain=name in FAMILY_PLAIN)
+    for arch, (K, N) in FAMILY_HEADS.items():
+        check_gemm(f"{arch}_head", FAM_N * BLOCK, K, N)
 
 
 def phase_gemm_probe():
@@ -3386,6 +3462,483 @@ def phase_profile(cfg, dec, hdec, tokens):
                              f"host loop: {same}")
 
 
+# ------------------------------------------------------------ families
+
+# families_reference: (arch, layers) at full width, the depth cut
+FAM_REF = (("qwen3-32b", 2), ("phi4-mini-3.8b", 2), ("minitron-4b", 2),
+           ("kimi-k2-1t-a32b", 1))
+FAM_REF_TOL = 2e-2
+FAM_FLIP_SHARE = 0.25          # tokens a near-tie may leave out, at most
+FAM_SERVE = ("gemma2-27b", "olmoe-1b-7b")
+# olmoe's continuous run: the max_tokens of its 6 requests (ragged, all
+# in the 64-token bucket), on ContinuousEngine(max_slots=4, max_gang=4)
+FAM_CONT_LENS = (64, 33, 48, 64, 40, 57)
+FAM_SLOTS, FAM_GANG = 4, 4
+# the gang sizes that run reaches (a gang of 4, then the other 2; the
+# decodes alone at 1), prewarmed and no other: a capture costs ~9 s at
+# olmoe's depth (64 experts: ~9k nodes a body, 31 copies)
+FAM_CONT_SIZES = (1, 2, 4)
+# the families' dtype ("float32" for a CPU dry run, where bf16 rows are not
+# batch-invariant)
+FAM_DTYPE = "bfloat16"
+
+
+def free_device() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def plain_products():
+    """The plain route's products: while open, ``ops.linear`` multiplies
+    through ``torch.matmul`` (cuBLAS, TF32 off) in place of gemm.cu."""
+    kernel = ops.gemm
+    ops.gemm = torch.matmul
+    try:
+        yield
+    finally:
+        ops.gemm = kernel
+
+
+@contextlib.contextmanager
+def gemm_calls():
+    """While open, every ``ops.gemm`` call is recorded as (x's dtype, K,
+    N) before it launches."""
+    calls, kernel = [], ops.gemm
+
+    def recording(x, w):
+        calls.append((str(x.dtype).split(".")[-1], w.shape[0], w.shape[1]))
+        return kernel(x, w)
+
+    ops.gemm = recording
+    try:
+        yield calls
+    finally:
+        ops.gemm = kernel
+
+
+@contextlib.contextmanager
+def routing():
+    """While open, every MoE layer's routing is recorded: (router probs
+    (T, E), top-k ids (T, k)) per call of ``models.moe.route``."""
+    from repro_torch.models import moe
+    seen, route = [], moe.route
+
+    def recording(*a, **kw):
+        out = route(*a, **kw)
+        seen.append((out[0], out[2]))
+        return out
+
+    moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def gemm_per_pass(cfg, head: bool = True) -> int:
+    """gemm.cu launches of one pass: q, k, v and o per layer, its FFN's
+    products (SwiGLU 3, GELU 2, MoE the router and 3 per expert) and the
+    LM head."""
+    ffn = {"swiglu": 3, "gelu": 2, "moe": 1 + 3 * cfg.n_experts, "none": 0}
+    return sum(4 + ffn[s.ffn] for s in cfg.layout) + int(head)
+
+
+def family_prompts(cfg, n, seed):
+    tok = ByteTokenizer(cfg.vocab_size)
+    return np.stack([tok.encode(p) for p in make_prompts(n, seed)]).astype(
+        np.int32)
+
+
+def family_passes(cfg, params, device, use_kernels):
+    """A block refresh (an encode of the FAM_N x 192-token buffer into
+    the cache) and a block-0 streaming step (FAM_SQ queries over the cache
+    valid to the prompt): their logits."""
+    T = FAM_PROMPT + FAM_GEN
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size - 2, (FAM_N, T))
+                            .astype(np.int32)).to(device)
+    pos = torch.arange(T, dtype=torch.int32, device=device)[None].expand(
+        FAM_N, T)
+    cache = init_cache(cfg, FAM_N, T, device)
+    refresh = apply_model(cfg, params, tokens=toks, positions=pos,
+                          cache=cache, use_kernels=use_kernels)
+    step = apply_model(cfg, params,
+                       tokens=toks[:, FAM_PROMPT:FAM_PROMPT + FAM_SQ],
+                       positions=pos[:, FAM_PROMPT:FAM_PROMPT + FAM_SQ],
+                       mode="step", cache=cache, use_kernels=use_kernels,
+                       kv_valid=torch.full((FAM_N,), FAM_PROMPT,
+                                           dtype=torch.int32, device=device))
+    return {"refresh": refresh.logits, "step": step.logits}
+
+
+def routing_flips(cfg, got, want, S_of):
+    """Tokens whose top-k experts differ between the kernel route
+    (``got``) and the plain route (``want``), per recorded layer call:
+    [(pass, b, s, gap, moved)], with the plain route's gap between its
+    k-th and (k+1)-th probability and the largest move of that token's
+    router probabilities between the routes. A flip with gap <= moved is
+    a near-tie: inputs that differ at bf16 resolution reorder it."""
+    flips = []
+    for call, ((pk, ik), (pp, ip)) in enumerate(zip(got, want)):
+        same = (ik.sort(-1).values == ip.sort(-1).values).all(-1)
+        srt = pp.sort(-1, descending=True).values
+        gap = srt[:, cfg.moe_top_k - 1] - srt[:, cfg.moe_top_k]
+        moved = (pk - pp).abs().max(-1).values
+        S = S_of(call)
+        for r in torch.nonzero(~same).flatten().tolist():
+            flips.append((call, r // S, r % S, float(gap[r]),
+                          float(moved[r])))
+    return flips
+
+
+def phase_families_reference(device="cuda", archs=FAM_REF):
+    """The other dense families and kimi-k2's MoE at full width, depth
+    cut (``FAM_REF``), bf16 random weights from seed 0: one refresh and
+    one block-0 streaming step through the kernels (block_attention,
+    gemm.cu for every product, the float32 router included) against the
+    plain route (``attend_ref``, ``torch.matmul``) on the same weights.
+    Each config is freed before the next loads.
+
+    Tolerance: as the llada-8b reference phase, max |d logits| <= 2e-2 *
+    max |logits|. A MoE token whose top-k experts differ between the
+    routes is left out of that comparison only as a near-tie
+    (``routing_flips``), and is counted. At most ``FAM_FLIP_SHARE`` of
+    the tokens may be left out: kimi-k2's random router spreads its
+    probabilities over 384 experts, so about 5 % of the tokens have a
+    k-th and (k+1)-th probability closer than the routes' bf16
+    difference moves them; a router that computed something else would
+    flip most tokens."""
+    t_phase = time.perf_counter()
+    out = []
+    for arch, layers in archs:
+        t0 = time.perf_counter()
+        cfg = get_config(arch, dtype=FAM_DTYPE, param_dtype=FAM_DTYPE,
+                         n_layers=layers, reps=0, tail=())
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(
+            SEED), device)
+        sync(device)
+        init_s = time.perf_counter() - t0
+        leaves = tree.flatten(params)[0]
+        moe_layers = [p["ffn"] for p in params["layers"]
+                      if "router" in p.get("ffn", {})]
+        ops.reset_launches()
+        with gemm_calls() as calls, routing() as route_k:
+            got = family_passes(cfg, params, device, True)
+        sync(device)
+        launches = dict(ops.LAUNCHES)
+        with plain_products(), routing() as route_p:
+            ops.reset_launches()
+            want = family_passes(cfg, params, device, False)
+            sync(device)
+            plain_launches = dict(ops.LAUNCHES)
+        T = FAM_PROMPT + FAM_GEN
+        per_call = [T, FAM_SQ] if cfg.n_experts else []
+        flips = routing_flips(cfg, route_k, route_p,
+                              lambda c: per_call[c // layers]) \
+            if cfg.n_experts else []
+        rec = {"phase": "families_reference", "arch": arch,
+               "layers": layers, "cut": f"n_layers {get_config(arch).n_layers}"
+               f" -> {layers}", "d_model": cfg.d_model,
+               "weights_gb": nbytes(*leaves) / 1e9, "init_s": init_s,
+               "launches": launches, "plain_launches": plain_launches,
+               "gemm_per_pass": gemm_per_pass(cfg),
+               "tol_rel_to_max": FAM_REF_TOL}
+        ok = True
+        if cfg.n_experts:
+            f32 = [c for c in calls if c[0] == "float32"]
+            rec["router"] = {
+                "param_dtypes": sorted({str(f["router"].dtype)
+                                        for f in moe_layers}),
+                "float32_products": len(f32),
+                "all_float32_are_routers": all(
+                    c[1:] == (cfg.d_model, cfg.n_experts) for c in f32)}
+            ok = rec["router"]["param_dtypes"] == ["torch.float32"]
+            rec["routing_flips"] = [
+                {"pass": ("refresh", "step")[c // layers], "b": b, "s": s,
+                 "gap": gap, "moved": moved} for c, b, s, gap, moved in flips]
+        if torch.device(device).type == "cuda":
+            # (on the CPU ops.linear is x @ w and reaches no ops.gemm)
+            ok = ok and (launches["block_attention"] == 2 * layers
+                         and launches["gemm"] == 2 * gemm_per_pass(cfg)
+                         and len(calls) == launches["gemm"]
+                         and not any(plain_launches.values()))
+            if cfg.n_experts:
+                ok = ok and (rec["router"]["float32_products"] == 2 * layers
+                             and rec["router"]["all_float32_are_routers"])
+        for name in ("refresh", "step"):
+            g, w = got[name].float(), want[name].float()
+            keep = torch.ones(g.shape[:2], dtype=torch.bool, device=g.device)
+            for c, b, s, gap, moved in flips:
+                if ("refresh", "step")[c // layers] == name and gap <= moved:
+                    keep[b, s] = False
+            err = (g - w).abs().amax(-1)[keep].max().item()
+            scale = w.abs().max().item()
+            agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+            rec[name] = {"logits_max_abs_err": err, "logits_max_abs": scale,
+                         "rel_to_max": err / scale, "argmax_agreement": agree,
+                         "tokens_left_out": int((~keep).sum()),
+                         "finite": bool(torch.isfinite(g).all())}
+            ok = ok and rec[name]["finite"] and err <= FAM_REF_TOL * scale \
+                and int((~keep).sum()) <= FAM_FLIP_SHARE * keep.numel()
+        ok = ok and all(gap <= moved for _, _, _, gap, moved in flips)
+        rec["seconds"] = time.perf_counter() - t0
+        rec["ok"] = ok
+        emit(rec)
+        out.append(rec)
+        del params, leaves, moe_layers, got, want, route_k, route_p
+        free_device()
+        if not ok:
+            raise AssertionError(f"families_reference {arch}: the kernel "
+                                 "route disagrees with the plain route")
+    emit({"phase": "families_reference", "seconds":
+          time.perf_counter() - t_phase})
+    return out
+
+
+def family_decode(cfg, params, dcfg, dec, prompts, device, warm=True):
+    """The graph loop (``dec``: a warm run that captures what it lacks,
+    unless ``warm`` is False because its graphs are prewarmed, then a
+    timed run, launches counted around it) against the host loop on the
+    same prompts: tokens and counters (``compare_runs``), one host sync
+    per block, the same launches."""
+    t0 = time.perf_counter()
+    if warm:
+        dec.generate(prompts.copy())
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    res = dec.generate(prompts.copy())
+    sync(device)
+    wall = time.perf_counter() - t1
+    launches = dict(ops.LAUNCHES)
+    hdec = DiffusionDecoder(cfg, params, dataclasses.replace(
+        dcfg, fused=False), device=device)
+    ops.reset_launches()
+    t2 = time.perf_counter()
+    host = hdec.generate(prompts.copy())
+    sync(device)
+    host_wall = time.perf_counter() - t2
+    host_launches = dict(ops.LAUNCHES)
+    n_blocks = len(res.steps_per_block)
+    rec = {"nfe": res.nfe, "steps_per_block": res.steps_per_block,
+           "tokens_generated": res.tokens_generated, "warm_run_s": warm_s,
+           "wall_s": wall, "tok_s": res.tokens_generated / wall,
+           "step_ms": 1e3 * wall / res.nfe,
+           "host_syncs_per_block": res.host_syncs / n_blocks,
+           "launches": launches,
+           "launches_per_pass": {k: v / res.nfe for k, v in launches.items()},
+           "launches_per_block": {k: v / n_blocks
+                                  for k, v in launches.items()},
+           "host_loop": {"wall_s": host_wall,
+                         "tok_s": host.tokens_generated / host_wall,
+                         "step_ms": 1e3 * host_wall / host.nfe,
+                         "host_syncs": host.host_syncs,
+                         "launches": host_launches},
+           "vs_host_loop": compare_runs(res, host, BLOCK),
+           "no_mask_left": bool((res.tokens != cfg.mask_token_id).all())}
+    ok = (rec["vs_host_loop"]["ok"] and rec["host_syncs_per_block"] == 1.0
+          and rec["no_mask_left"])
+    if torch.device(device).type == "cuda":
+        ok = ok and launches == host_launches and all(launches.values())
+    rec["ok"] = ok
+    del hdec
+    return rec, res
+
+
+def profile_block(dec, prompts):
+    """Block 0 of ``dec``'s decode (its graph already captured): wall
+    without the profiler, then, from a fresh prefill, device time by
+    group and the blocking syncs inside the block under torch.profiler."""
+    state = dec.prefill(prompts.copy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec.decode_block(state)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    twin = dec.prefill(prompts.copy())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("decode_block"):
+            dec.decode_block(twin)
+        torch.cuda.synchronize()
+    groups, kernels, _ = kernel_groups(prof, "decode_block")
+    busy = sum(groups.values())
+    return {"steps": state.steps_per_block[-1], "wall_us": wall_us,
+            "device_kernel_us": busy, "device_idle_share": 1 - busy / wall_us,
+            "device_us_by_group": groups,
+            "kernel_launches_traced": sum(c for _, _, c in kernels),
+            "blocking_syncs_in_block": syncs_inside(prof, "decode_block"),
+            "profile_s": time.perf_counter() - t1,
+            "top": [{"name": k[:80], "device_us": us, "calls": c}
+                    for us, k, c in kernels[:6]]}
+
+
+def family_model(arch, device):
+    """A serve config at full width and depth, bf16, random weights from
+    seed 0, with its init time, weight bytes and the tied head's copy."""
+    cfg = get_config(arch, dtype=FAM_DTYPE, param_dtype=FAM_DTYPE)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device)
+    sync(device)
+    info = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "params_b": sum(t.numel() for t in tree.flatten(params)[0])
+            / 1e9, "weights_gb": nbytes(*tree.flatten(params)[0]) / 1e9,
+            "init_s": time.perf_counter() - t0,
+            "tied_head_copy_gb": cfg.d_model * cfg.vocab_size * 2 / 1e9
+            if cfg.tie_embeddings else 0.0}
+    return cfg, params, info
+
+
+def family_continuous(cfg, params, eng, dec, device):
+    """``FAM_CONT_LENS`` requests (ragged max_tokens, one bucket) through
+    the prewarmed ``eng``, then each request alone at B = 1 on the same
+    decoder: tokens and commit confidences equal bit for bit, no capture
+    after prewarm, none for the B = 1 decodes either."""
+    prompts = family_prompts(cfg, len(FAM_CONT_LENS), SEED + 11)
+    graphs = dec.graph_cache_size()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, max_tokens=m) for p, m in zip(prompts,
+                                                         FAM_CONT_LENS)]
+    comps, sizes = [], set()
+    while not eng.scheduler.idle:
+        comps += eng.step()
+        sizes |= {g.batch for g in eng.scheduler.gangs}
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    snap = eng.metrics.snapshot()
+    by_uid = {c.uid: c for c in comps}
+    alone = {}
+    with eng.on_stream():
+        for uid, p, m in zip(uids, prompts, FAM_CONT_LENS):
+            r = dec.generate(p[None])
+            gen, _ = eos_truncate(r.tokens[0], cfg.eos_token_id)
+            conf = np.concatenate([bs.commit_conf[0]
+                                   for bs in r.block_stats])
+            c = by_uid[uid]
+            alone[uid] = bool(np.array_equal(c.tokens, gen[:m])
+                              and np.array_equal(c.commit_conf, conf))
+    sync(device)
+    rec = {"max_slots": FAM_SLOTS, "max_gang": FAM_GANG,
+           "max_tokens": list(FAM_CONT_LENS), "requests": snap["requests"],
+           "tokens": snap["tokens"], "wall_s": wall,
+           "gang_sizes": sorted(sizes),
+           "tok_s": snap["tokens"] / wall,
+           "mean_occupancy": snap["mean_occupancy"],
+           "host_syncs_per_block": snap["host_syncs_per_block"],
+           "post_warm_captures": snap["post_warm_compiles"],
+           "b1_captures": dec.graph_cache_size() - graphs,
+           "launches": launches,
+           "equals_decode_alone_b1": [alone[u] for u in uids]}
+    rec["ok"] = (sorted(by_uid) == sorted(uids) and all(alone.values())
+                 and rec["post_warm_captures"] == 0
+                 and rec["b1_captures"] == 0
+                 and rec["host_syncs_per_block"] == 1.0)
+    return rec
+
+
+def phase_families(device="cuda", archs=FAM_SERVE):
+    """gemma2-27b and olmoe-1b-7b at full width and depth, bf16 random
+    weights from seed 0, streaming (gen_len 64, block 32, window 96), 2
+    prompts of 128 bytes: the graph loop (a warm run, then a timed run)
+    against the host loop, tokens and counters equal, one host sync per
+    block, and block 0 profiled (its blocking syncs: 1). gemma2's tied
+    head is one contiguous copy the decoder builds. olmoe first prewarms
+    ``ContinuousEngine(max_slots=4, max_gang=4)`` and decodes through its
+    decoder's graphs, then serves ``FAM_CONT_LENS`` requests, each equal
+    to its decode alone at B = 1, with no capture after prewarm. Per
+    model: step ms and tok/s beside the weight-bytes bound of a pass,
+    launches per pass by kernel (the MoE's expert products apart), peak
+    bytes allocated and its seconds."""
+    from repro_torch.serving import ContinuousEngine
+    t_phase = time.perf_counter()
+    dcfg = DecodeConfig(method="streaming", gen_len=FAM_GEN, block_size=BLOCK,
+                        window=WINDOW, use_kernels=True)
+    out = {}
+    for arch in archs:
+        t0 = time.perf_counter()
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cfg, params, info = family_model(arch, device)
+        prompts = family_prompts(cfg, FAM_N, SEED)
+        rec = {"phase": "families", **info, "method": dcfg.method,
+               "prompts": FAM_N, "prompt_len": FAM_PROMPT, "gen_len": FAM_GEN,
+               "block_size": BLOCK, "window": WINDOW}
+        eng = None
+        if cfg.n_experts:
+            eng = ContinuousEngine(cfg, params, dcfg, max_slots=FAM_SLOTS,
+                                   max_gang=FAM_GANG, device=device)
+            t1 = time.perf_counter()
+            rec["prewarm"] = eng.prewarm([(FAM_PROMPT, FAM_GEN)],
+                                         batch_sizes=FAM_CONT_SIZES)
+            rec["prewarm"]["wall_s"] = time.perf_counter() - t1
+            dec = eng.scheduler.decoder_for(FAM_GEN)
+        else:
+            dec = DiffusionDecoder(cfg, params, dcfg, device=device)
+        if cfg.tie_embeddings:
+            # the decoder's contiguous (d, V) copy is the one every head
+            # product reads (serving_head returns it again, no new copy)
+            rec["tied_head_is_one_copy"] = (
+                dec.head.is_contiguous() and dec.head.shape
+                == (cfg.d_model, cfg.vocab_size)
+                and serving_head(cfg, params) is dec.head)
+        ctx = eng.on_stream() if eng is not None else contextlib.nullcontext()
+        with ctx:
+            rec["decode"], res = family_decode(cfg, params, dcfg, dec,
+                                               prompts, device,
+                                               warm=eng is None)
+        rec["graphs"] = dec.graph_cache_size()
+        rec["capture_s"] = dec.capture_time
+        rec["weight_bound_ms_per_pass"] = 1e3 * rec["weights_gb"] * 1e9 \
+            / HBM_BYTES_S
+        rec["step_ms_over_bound"] = rec["decode"]["step_ms"] \
+            / rec["weight_bound_ms_per_pass"]
+        per_pass = gemm_per_pass(cfg, head=False)
+        rec["gemm_per_pass_body"] = per_pass
+        if cfg.n_experts:
+            rec["moe_gemm_per_pass"] = {
+                "experts": cfg.n_layers * 3 * cfg.n_experts,
+                "routers_f32": cfg.n_layers,
+                "attention": 4 * cfg.n_layers}
+        if torch.device(device).type == "cuda":
+            with ctx:
+                rec["profile_block0"] = profile_block(dec, prompts)
+        if eng is not None:
+            rec["continuous"] = family_continuous(cfg, params, eng, dec,
+                                                  device)
+        if torch.device(device).type == "cuda":
+            rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["seconds"] = time.perf_counter() - t0
+        checks = {"graph_loop_equals_host_loop": rec["decode"]["ok"],
+                  "tied_head_is_one_copy": rec.get("tied_head_is_one_copy",
+                                                   True),
+                  "continuous": rec.get("continuous", {}).get("ok", True),
+                  "one_sync_in_block0": len(rec.get("profile_block0", {}).get(
+                      "blocking_syncs_in_block", [None])) == 1}
+        rec["checks"] = checks
+        rec["ok"] = all(checks.values())
+        emit(rec)
+        out[arch] = rec
+        del cfg, params, dec, eng, res
+        free_device()
+        if not rec["ok"]:
+            raise AssertionError(f"families phase {arch} failed: {checks}")
+    emit({"phase": "families", "seconds": time.perf_counter() - t_phase})
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def kernel_name(mangled: str) -> str:
@@ -3465,19 +4018,9 @@ def sass_report(tool: str, lib) -> list:
     return funcs
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = smi_line()
-    print(smi, flush=True)
-    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
-          "nvidia_smi": smi, "count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0]})
-
+def phase_build():
+    """Build every CUDA library of the port and its probe builds (one
+    nvcc each, all started together), with ptxas and SASS reports."""
     t0 = time.perf_counter()
     # one nvcc per library, all started together: the port's kernel
     # libraries and their probe builds
@@ -3511,32 +4054,61 @@ def main() -> int:
                                for f in bf16):
             raise AssertionError(f"gemm_bf16_kernel SASS: {bf16}")
 
-    step, conf = phase_kernels()
-    gemm_main = phase_gemm()
-    phase_gemm_probe()
-    phase_probe()
-    phase_reference()
-    phase_reference_llada()
+
+def timed(phase, *args):
+    """``phase(*args)``, then a line with its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    emit({"phase": "seconds", "name": phase.__name__,
+          "s": time.perf_counter() - t0})
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(smi, flush=True)
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0]})
+
+    timed(phase_build)
+    step, conf = timed(phase_kernels)
+    gemm_main = timed(phase_gemm)
+    timed(phase_gemm_probe)
+    timed(phase_probe)
+    timed(phase_reference)
+    timed(phase_reference_llada)
     tok = ByteTokenizer(get_config("llada-8b").vocab_size)
     prompts = np.stack([tok.encode(p) for p in make_prompts(
         N_PROMPTS, SEED)]).astype(np.int32)
-    inv = phase_invariance(prompts)
-    phase_methods(prompts)
-    *model, serve = phase_serve()
-    phase_profile(*model)
-    cont = phase_continuous(model[0], model[1].params, inv["batch_invariant"])
-    phase_prefix_cache(model[0], model[1].params)
+    inv = timed(phase_invariance, prompts)
+    timed(phase_methods, prompts)
+    *model, serve = timed(phase_serve)
+    timed(phase_profile, *model)
+    cont = timed(phase_continuous, model[0], model[1].params,
+                 inv["batch_invariant"])
+    timed(phase_prefix_cache, model[0], model[1].params)
     # the serve phase's decoders and their graphs go before the front end
     cfg, params = model[0], model[1].params
     del model
     torch.cuda.empty_cache()
-    phase_http(cfg, params)
-    phase_fleet(cfg, params)
+    timed(phase_http, cfg, params)
+    timed(phase_fleet, cfg, params)
     # the llada-8b weights go before the trained model's phase
     del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train()
+    timed(phase_train)
+    # and the trained model's before the other families
+    free_device()
+    timed(phase_families_reference)
+    timed(phase_families)
 
     kernels = [
         {"name": "block_attention", "route": "cuda",

@@ -17,6 +17,8 @@ import torch
 
 
 def to_tensor(a, device, dtype=None) -> torch.Tensor:
+    """A numpy (or ml_dtypes bfloat16) array or tensor on ``device``; a
+    floating one cast to ``dtype`` when it is given."""
     if isinstance(a, torch.Tensor):
         t = a
     else:
@@ -36,6 +38,18 @@ def _tree(x, fn):
     if isinstance(x, (tuple, list)):
         return type(x)(_tree(v, fn) for v in x)
     return fn(x)
+
+
+def _convert(x, device, dtype, key=None):
+    """``to_tensor`` over a pytree; a leaf under one of the
+    ``FLOAT32_LEAVES`` keys is kept float32 when ``dtype`` is given."""
+    from repro_torch.models.model import FLOAT32_LEAVES
+    if isinstance(x, dict):
+        return {k: _convert(v, device, dtype, k) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_convert(v, device, dtype, key) for v in x)
+    keep = dtype is not None and key in FLOAT32_LEAVES
+    return to_tensor(x, device, torch.float32 if keep else dtype)
 
 
 def _unstack(groups) -> List[Any]:
@@ -64,14 +78,16 @@ def _leaves(x):
 def params_from_jax(tree: dict, device, dtype=None) -> dict:
     """JAX ``init_params`` pytree (numpy or tensor leaves) -> the port's
     params:
-    ``embed``, ``out_norm``, ``lm_head`` and the per-layer list."""
-    conv = lambda a: to_tensor(a, device, dtype)  # noqa: E731
-    out = {k: conv(tree[k]) for k in ("embed", "out_norm", "lm_head")
-           if k in tree}
+    ``embed``, ``out_norm``, ``lm_head`` and the per-layer list. A
+    ``dtype`` casts every floating leaf but the ``FLOAT32_LEAVES`` (the
+    MoE router), which stay float32 as in the JAX package."""
+    out = {k: _convert(tree[k], device, dtype)
+           for k in ("embed", "out_norm", "lm_head") if k in tree}
     if "frontend_proj" in tree:
-        raise NotImplementedError("modality frontends are ROADMAP A13")
+        raise NotImplementedError(
+            "modality frontends are ROADMAP A13 step 4")
     layers = _unstack(tree["scan"]) + list(tree["tail"])
-    out["layers"] = [_tree(p, conv) for p in layers]
+    out["layers"] = [_convert(p, device, dtype) for p in layers]
     return out
 
 

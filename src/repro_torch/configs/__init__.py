@@ -1,5 +1,11 @@
-"""Registered architectures of the port: the dense attention + SwiGLU
-backbones its main path serves (``tiny``, ``tiny-100m``, ``llada-8b``,
-``dream-7b``, ``llada-8b-smoke``). The other families of the JAX
-package (MoE, recurrent, gemma2, qwen3, ...) wait for ROADMAP A13."""
-from repro_torch.configs import dream_llada, tiny  # noqa: F401
+"""Registered architectures of the port, each module a copy of the JAX
+package's: the paper's backbones (``llada-8b``, ``dream-7b``), the
+attention families (``qwen3-32b``, ``phi4-mini-3.8b``, ``minitron-4b``,
+``gemma2-27b``), the MoE families on the dense path (``olmoe-1b-7b``,
+``kimi-k2-1t-a32b``), each with its ``-smoke`` variant, and the tiny CPU
+configs (``tiny``, ``tiny-moe``, ``tiny-100m``). The recurrent families
+(xlstm, recurrentgemma) are ROADMAP A13 step 3; the modality frontends
+(llava-next, musicgen) step 4."""
+from repro_torch.configs import (dream_llada, gemma2_27b,  # noqa: F401
+                                 kimi_k2, minitron_4b, olmoe_1b_7b,
+                                 phi4_mini, qwen3_32b, tiny)

@@ -81,7 +81,8 @@ from repro_torch.core.suffix import suffix_query_region
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ATTN, ATTN_LOCAL, ModelConfig
-from repro_torch.models.model import apply_model, cache_take_rows, init_cache
+from repro_torch.models.model import (apply_model, cache_take_rows,
+                                      init_cache, serving_head)
 from repro_torch.obs.telemetry import CONF_BUCKETS, BlockStats
 
 METHODS = ("vanilla", "dkv", "prefix", "fast", "streaming")
@@ -512,6 +513,7 @@ class DiffusionDecoder:
         self.cfg = cfg
         self.dcfg = dcfg
         self.params = params
+        self.head = serving_head(cfg, params)  # tied: built here, once
         self.steps_cap = dcfg.steps_per_block or dcfg.block_size
         self.n_commit = max(1, dcfg.block_size // self.steps_cap)
         self._buffers: Dict[tuple, _BlockBuffers] = {}
@@ -521,10 +523,6 @@ class DiffusionDecoder:
 
     # ------------------------------------------------------ shared pieces
 
-    def _head(self):
-        p = self.params
-        return p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]
-
     def _conf_from_hidden(self, h_blk):
         """Fused head path (parallel methods): hidden (B, K, d) ->
         (conf (B, K), toks (B, K)) without a monolithic (B, K, V)
@@ -532,7 +530,7 @@ class DiffusionDecoder:
         cfg = self.cfg
         fn = kops.head_confidence_argmax if self.dcfg.use_kernels \
             else sched.head_confidence_and_tokens
-        return fn(h_blk, self._head(), mask_id=cfg.mask_token_id,
+        return fn(h_blk, self.head, mask_id=cfg.mask_token_id,
                   logit_softcap=cfg.logit_softcap)
 
     def _conf_from_logits(self, blk_logits):

@@ -133,8 +133,7 @@ def main(argv=None):
         epilog="There is no --compile-cache-dir: the JAX package's "
         "persistent compilation cache has no counterpart here, because "
         "the port's block programs are CUDA graphs captured in-process "
-        "and not persisted; --prewarm captures them before serving "
-        "(ROADMAP A9).")
+        "and not persisted; --prewarm captures them before serving.")
     ap.add_argument("--arch", default="tiny")
     ap.add_argument("--method", default="streaming", choices=METHODS)
     ap.add_argument("--mode", default="continuous",

@@ -1,6 +1,7 @@
 """Layout-driven transformer backbone — the PyTorch counterpart of
-``repro.models.model`` for the dense families (ATTN / ATTN_LOCAL mixers
-× SWIGLU / GELU FFNs). Recurrent and MoE layers wait for ROADMAP A13.
+``repro.models.model`` for the attention families: ATTN / ATTN_LOCAL
+mixers × SWIGLU / GELU / MOE (the dense path, ``models.moe``) / no FFN.
+Recurrent mixers (mLSTM, sLSTM, RG-LRU) are ROADMAP A13 step 3.
 
 Params are a dict: ``embed (V, d)``, ``out_norm (d,)``, ``lm_head (d, V)``
 (absent with tied embeddings) and ``layers``, a list with one dict per
@@ -25,18 +26,22 @@ the same list.
 """
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import Any, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import linear
-from repro_torch.models.config import (ATTN, ATTN_LOCAL, NONE, LayerSpec,
-                                       ModelConfig)
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, GELU, MOE, NONE,
+                                       SWIGLU, LayerSpec, ModelConfig)
 from repro_torch.models.heads import plan_heads
 from repro_torch.models.layers import (apply_attention, apply_ffn,
                                        attention_kv_mask, dense_init,
                                        init_attention, init_ffn, rms_norm,
                                        rope_table, softcap)
+from repro_torch.models.moe import apply_moe_dense, init_moe
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -46,13 +51,17 @@ class ModelOutput(NamedTuple):
     logits: torch.Tensor        # (B, S, V) float32, or hidden with skip_head
     cache: Any                  # the (in-place updated) cache; None in step
     kv_valid: Any
+    aux_loss: torch.Tensor      # () float32: the MoE layers' load-balance
+                                # losses summed in layout order (0 if none)
 
 
 def _check_dense(spec: LayerSpec) -> None:
-    if spec.mixer not in (ATTN, ATTN_LOCAL) or spec.ffn not in (
-            "swiglu", "gelu", NONE):
+    """Refuse a layer the port has no counterpart for."""
+    if spec.mixer not in (ATTN, ATTN_LOCAL):
         raise NotImplementedError(
-            f"layer {spec}: recurrent and MoE layers are ROADMAP A13")
+            f"layer {spec}: recurrent mixers are ROADMAP A13 step 3")
+    if spec.ffn not in (SWIGLU, GELU, MOE, NONE):
+        raise ValueError(f"layer {spec}: unknown FFN {spec.ffn!r}")
 
 
 # ------------------------------------------------------------- init
@@ -66,7 +75,8 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig,
     p["mixer"] = init_attention(generator, cfg, plan, dtype)
     if spec.ffn != NONE:
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
-        p["ffn"] = init_ffn(generator, cfg, spec.ffn, dtype)
+        p["ffn"] = init_moe(generator, cfg, dtype) if spec.ffn == MOE \
+            else init_ffn(generator, cfg, spec.ffn, dtype)
     return p
 
 
@@ -95,14 +105,58 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def params_to(params, device):
+# leaves that stay float32 whatever the model's dtype (the MoE router,
+# as the JAX package keeps it)
+FLOAT32_LEAVES = ("router",)
+
+
+def params_to(params, device, _key=None):
     """A copy of a params (or cache) tree with every tensor on ``device``
-    (or cast to a dtype: whatever ``Tensor.to`` takes)."""
+    (or cast to a dtype: whatever ``Tensor.to`` takes). A cast to another
+    float dtype leaves the ``FLOAT32_LEAVES`` in float32."""
     if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
+        return {k: params_to(v, device, k) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(params_to(v, device) for v in params)
+    if isinstance(device, torch.dtype) and _key in FLOAT32_LEAVES:
+        return params.to(torch.float32)
     return params.to(device)
+
+
+# ------------------------------------------------------------- LM head
+
+_HEADS: dict = {}
+_HEADS_LOCK = threading.Lock()
+
+
+def _version(t: torch.Tensor) -> int:
+    try:
+        return t._version
+    except RuntimeError:        # an inference tensor keeps no counter
+        return -1
+
+
+def serving_head(cfg: ModelConfig, params) -> torch.Tensor:
+    """The (d, V) LM head of a serving pass: ``lm_head``, or with tied
+    embeddings one contiguous copy of ``embed.T`` (the GEMM kernel takes
+    a row-major (K, N) operand only). The copy is built once per
+    ``embed`` tensor and kept beside it while it lives and is not written
+    in place (its version counter), not per call, and is no leaf of the
+    params tree: at gemma2-27b it is 2.36 GB. The decoder builds it when
+    it takes its params, so no capture allocates it."""
+    if not cfg.tie_embeddings:
+        return params["lm_head"]
+    embed = params["embed"]
+    key = id(embed)
+    with _HEADS_LOCK:
+        hit = _HEADS.get(key)
+        if hit is not None and hit[0]() is embed \
+                and hit[1] == _version(embed):
+            return hit[2]
+        head = embed.detach().T.contiguous()
+        ref = weakref.ref(embed, lambda _, k=key: _HEADS.pop(k, None))
+        _HEADS[key] = (ref, _version(embed), head)
+        return head
 
 
 # ------------------------------------------------------------- caches
@@ -151,7 +205,8 @@ def _write_kv_at(buf, new, idx) -> None:
 def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
                 mode, append_at=None, self_kv_mix=None, kv_pos=None,
                 rope=None, kv_mask=None, use_kernels=False, train=False):
-    """Returns (y, cache); the cache is written in place. ``kv_pos``,
+    """Returns (y, cache, aux); the cache is written in place; aux is the
+    MoE layer's load-balance loss, None for other FFNs. ``kv_pos``,
     ``rope`` and ``kv_mask`` are the pass's key positions, RoPE table and
     key validity, built once by ``apply_model`` for every layer.
     ``self_kv_mix`` (B, Sq) bool (dKV cache): where it holds, the query
@@ -192,10 +247,15 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
                 else:
                     _write_kv(buf, new.to(buf.dtype), kv_valid)
     x = x + out
+    aux = None
     if spec.ffn != NONE:
-        x = x + apply_ffn(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
-                          spec.ffn, train=train)
-    return x, cache
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if spec.ffn == MOE:
+            y, aux = apply_moe_dense(cfg, p["ffn"], h2, train=train)
+        else:
+            y = apply_ffn(p["ffn"], h2, spec.ffn, train=train)
+        x = x + y
+    return x, cache, aux
 
 
 def cache_kv_positions(P_len: int, q_pos):
@@ -226,8 +286,11 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
     ``train=True`` is the training route (the JAX package's
     ``diffusion_loss``): an encode with no cache, plain attention and
     every product ``x @ w``, differentiable under autograd on any
-    device. Without it, a product on the card goes through the GEMM
-    kernel, whatever ``use_kernels`` says."""
+    device; with ``cfg.remat`` each layer of the repeated pattern is
+    recomputed in the backward pass (``jax.checkpoint`` in the
+    reference). Without it, a product on the card goes through the GEMM
+    kernel, whatever ``use_kernels`` says, and a tied head is
+    ``serving_head``'s contiguous copy."""
     if mode not in ("encode", "step", "append"):
         raise ValueError(f"unknown mode {mode!r}")
     if train and (use_kernels or mode != "encode" or cache is not None):
@@ -260,19 +323,36 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
         kv_pos = cache_kv_positions(P_len, positions)
         kv_mask = attention_kv_mask(kv_valid, P_len, S)
     layout = cfg.effective_layout()
+    remat = train and cfg.remat
+    n_scan = cfg.reps * len(cfg.pattern)    # the reference's scanned layers
+    aux = None
     for i, spec in enumerate(layout):
-        x, _ = apply_layer(cfg, params["layers"][i], spec, x, q_pos=positions,
-                           cache=cache[i] if cache is not None else None,
-                           kv_valid=kv_valid, mode=mode,
-                           append_at=append_at, self_kv_mix=self_kv_mix,
-                           kv_pos=kv_pos, rope=rope, kv_mask=kv_mask,
-                           use_kernels=use_kernels, train=train)
+        def layer(p_i, x_i, spec=spec, c_i=cache[i] if cache is not None
+                  else None):
+            return apply_layer(cfg, p_i, spec, x_i, q_pos=positions,
+                               cache=c_i, kv_valid=kv_valid, mode=mode,
+                               append_at=append_at, self_kv_mix=self_kv_mix,
+                               kv_pos=kv_pos, rope=rope, kv_mask=kv_mask,
+                               use_kernels=use_kernels, train=train)
+        if remat and i < n_scan:
+            x, _, a = checkpoint(layer, params["layers"][i], x,
+                                 use_reentrant=False)
+        else:
+            x, _, a = layer(params["layers"][i], x)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
 
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     if skip_head:
         logits = x  # final hidden states; caller owns the head projection
     else:
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        if train:
+            head = params["embed"].T if cfg.tie_embeddings \
+                else params["lm_head"]
+        else:
+            head = serving_head(cfg, params)
         logits = linear(x, head.to(x.dtype), train=train).float()
         if cfg.logit_softcap:
             logits = softcap(logits, cfg.logit_softcap)
@@ -282,4 +362,4 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
         new_valid = kv_valid
     else:
         new_valid = kv_valid + (S if mode in ("encode", "append") else 0)
-    return ModelOutput(logits, new_cache, new_valid)
+    return ModelOutput(logits, new_cache, new_valid, aux)

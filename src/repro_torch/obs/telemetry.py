@@ -16,8 +16,9 @@ Per decoded block the decoder appends one :class:`BlockStats` to
 
 :class:`TelemetryAggregator` accumulates those records per
 ``(method, block_index)`` under a lock (the decode thread writes, a
-metrics reader snapshots). The series recorder and the auditor that
-consume these records in the JAX package wait for ROADMAP A9.
+metrics reader snapshots). The series recorder (``obs.series``) and
+the shadow auditor (``obs.audit``) consume these records, as their
+counterparts in the JAX package do.
 """
 from __future__ import annotations
 

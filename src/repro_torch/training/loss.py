@@ -103,8 +103,7 @@ def loss_given_noise(cfg: ModelConfig, params, tokens, t, mask, *,
         ce = -(tok_lp * w).sum() / denom
         acc = ((out.logits.argmax(-1) == tokens) & mask).sum() \
             / torch.clamp_min(n_mask, 1)
-    # dense layers only (MoE is ROADMAP A13): no router loss
-    aux = torch.zeros((), device=ce.device)
+    aux = out.aux_loss                  # the MoE layers' load balance
     loss = ce + aux_weight * aux
     return loss, {"ce": ce, "aux": aux, "masked_acc": acc,
                   "n_masked": n_mask}

@@ -288,7 +288,8 @@ def test_defaulted_device_raises_without_cuda(monkeypatch):
 
 # modules the import checks must reach by name: the prefix cache copies
 # JAX-free modules of the JAX package (radix, store), which the port must
-# not import from there; so does the training slice (data.synthetic)
+# not import from there; so do the training slice (data.synthetic) and
+# the other families (the MoE layer and the config modules)
 NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.cache.store", "repro_torch.cache.slicing",
                  "repro_torch.kernels.gemm", "repro_torch.server",
@@ -302,7 +303,13 @@ NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.training.tree",
                  "repro_torch.training.checkpoint",
                  "repro_torch.training.optimizer",
-                 "repro_torch.training.loss", "repro_torch.training.train")
+                 "repro_torch.training.loss", "repro_torch.training.train",
+                 "repro_torch.models.moe", "repro_torch.configs.qwen3_32b",
+                 "repro_torch.configs.phi4_mini",
+                 "repro_torch.configs.minitron_4b",
+                 "repro_torch.configs.gemma2_27b",
+                 "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.kimi_k2")
 
 
 def test_import_leaves_jax_out():

@@ -69,13 +69,32 @@ def test_launch_plan_takes_no_row_count():
         gemm.launch_plan(64, 64, torch.float16)
 
 
-# (K, N) of every product: llada-8b's q/k/v, o, gate/up, down and LM
-# head; tiny's q/o, k/v, gate/up, down and head
+# (K, N) of every bf16 product: llada-8b's q/k/v, o, gate/up, down and LM
+# head; tiny's q/o, k/v, gate/up, down and head; and each product of the
+# other families at full width (``_family_products``)
 _PRODUCTS = {"llada_qkv": (4096, 4096), "llada_o": (4096, 4096),
              "llada_gate_up": (4096, 12288), "llada_down": (12288, 4096),
              "llada_head": (4096, 126464), "tiny_qo": (256, 256),
              "tiny_kv": (256, 128), "tiny_gate_up": (256, 768),
              "tiny_down": (768, 256), "tiny_head": (256, 320)}
+
+
+def _family_products(arch):
+    """{name: (K, N)} of every bf16 product of ``arch`` at full width: q,
+    k/v, o, the FFN's or each expert's gate/up and down, the LM head."""
+    c = get_config(arch)
+    d, hd = c.d_model, c.head_dim
+    f = c.moe_d_ff if c.n_experts else c.d_ff
+    tag = arch.split("-")[0]
+    return {f"{tag}_q": (d, c.n_heads * hd), f"{tag}_kv": (d, c.n_kv_heads
+                                                           * hd),
+            f"{tag}_o": (c.n_heads * hd, d), f"{tag}_up": (d, f),
+            f"{tag}_down": (f, d), f"{tag}_head": (d, c.vocab_size)}
+
+
+for _arch in ("qwen3-32b", "phi4-mini-3.8b", "minitron-4b", "gemma2-27b",
+              "olmoe-1b-7b", "kimi-k2-1t-a32b"):
+    _PRODUCTS.update(_family_products(_arch))
 
 
 @pytest.mark.parametrize("product", list(_PRODUCTS))
@@ -102,6 +121,8 @@ def test_bf16_plan_fits_the_card(product):
     assert plan.block_n % gemm.BOX == 0 and plan.block_n <= 256
     assert plan.threads == 3 * 128       # two consumer groups, a producer
     assert plan.block_n == 256 and plan.n_tiles == -(-N // 256)
+    # what ops.gemm asks of a bf16 operand (TMA rows 16-byte aligned)
+    assert K % 8 == 0 and N % 8 == 0
 
 
 def test_gemm_cu_constants_match_the_plan():
@@ -165,22 +186,28 @@ def test_every_model_product_goes_through_linear():
                 f"with {what!r}, not ops.linear"
 
 
+@pytest.mark.parametrize("arch", ["tiny", "tiny-moe"])
 @pytest.mark.parametrize("mode", ["encode", "step"])
-def test_one_pass_calls_linear_for_each_product(monkeypatch, mode):
+def test_one_pass_calls_linear_for_each_product(monkeypatch, mode, arch):
     """A pass with the LM head calls ``linear`` 7 times per SwiGLU layer
-    (q, k, v, o, gate, up, down) and once for the head; with
-    ``skip_head`` the head's product comes from ``chunked_head_reduce``,
-    which calls it once per row chunk."""
+    (q, k, v, o, gate, up, down), 5 + 3 E per MoE layer (q, k, v, o, the
+    float32 router, each expert's gate, up and down) and once for the
+    head; with ``skip_head`` the head's product comes from
+    ``chunked_head_reduce``, which calls it once per row chunk."""
     from repro_torch.core import schedule
-    cfg = get_config("tiny")
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config(arch)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    per_layer = 5 + 3 * cfg.n_experts if cfg.n_experts else 7
     calls = []
 
     def counting(x, w, **kw):
         calls.append(tuple(w.shape))
+        if w.shape == (cfg.d_model, cfg.n_experts):
+            assert x.dtype == w.dtype == torch.float32    # the router
         return ops.linear(x, w, **kw)
 
-    for mod in (layers_mod, model_mod, schedule):
+    for mod in (layers_mod, model_mod, schedule, moe_mod):
         monkeypatch.setattr(mod, "linear", counting)
     toks = torch.randint(0, 200, (2, 12))
     kw = {}
@@ -189,11 +216,11 @@ def test_one_pass_calls_linear_for_each_product(monkeypatch, mode):
         kw = dict(cache=cache, kv_valid=torch.full((2,), 4,
                                                    dtype=torch.int32))
     apply_model(cfg, params, tokens=toks, mode=mode, **kw)
-    assert len(calls) == 7 * cfg.n_layers + 1
+    assert len(calls) == per_layer * cfg.n_layers + 1
     assert calls[-1] == (cfg.d_model, cfg.vocab_size)
     calls.clear()
     out = apply_model(cfg, params, tokens=toks, mode=mode, skip_head=True,
                       **kw)
     schedule.head_confidence_and_tokens(out.logits, params["lm_head"],
                                         row_chunk=16)
-    assert len(calls) == 7 * cfg.n_layers + 2     # 24 rows, chunks of 16
+    assert len(calls) == per_layer * cfg.n_layers + 2  # 24 rows, chunks of 16

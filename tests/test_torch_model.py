@@ -410,11 +410,11 @@ def test_per_pass_inputs_are_bit_identical_to_per_layer(mode, use_kernels):
     x = params["embed"][toks.long()]
     kv_valid = kw.get("kv_valid", torch.zeros((B,), dtype=torch.int32))
     for i, spec in enumerate(cfg.effective_layout()):
-        x, _ = apply_layer(cfg, params["layers"][i], spec, x, q_pos=pos,
-                           cache=caches[1][i], kv_valid=kv_valid,
-                           mode=kw["mode"], append_at=kw.get("append_at"),
-                           self_kv_mix=kw.get("self_kv_mix"),
-                           use_kernels=use_kernels)
+        x, _, _ = apply_layer(cfg, params["layers"][i], spec, x, q_pos=pos,
+                              cache=caches[1][i], kv_valid=kv_valid,
+                              mode=kw["mode"], append_at=kw.get("append_at"),
+                              self_kv_mix=kw.get("self_kv_mix"),
+                              use_kernels=use_kernels)
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     assert torch.equal(out.logits, (x @ head.to(x.dtype)).float())
