@@ -9,7 +9,8 @@ package. Phases, each printing JSON lines:
 1. device   — card name and power limit (nvidia-smi), torch/CUDA versions.
 2. build    — builds the CUDA sources of ``src/repro_torch/kernels/csrc``
               with nvcc (the port's kernel libraries: attention,
-              confidence, the GEMM and the CUDA-graph block loop, two
+              confidence, the GEMM, the recurrent scans and the CUDA-graph
+              block loop, two
               probe builds of each of the first two and one of the GEMM,
               in parallel; ptxas
               registers and spills per kernel; from ``cuobjdump -sass``
@@ -108,18 +109,35 @@ package. Phases, each printing JSON lines:
               route (``attend_ref``, ``torch.matmul``), the float32 router
               products counted (``phase_families_reference``).
 16. families — gemma2-27b (tied head, softcaps, local/global layers) and
-              olmoe-1b-7b (64 experts, top-8) at full width and depth:
-              the graph loop against the host loop, block 0 profiled (one
-              blocking sync), step ms beside the weight-bytes bound; then
-              olmoe through ``ContinuousEngine(4, 4)`` after prewarm, every
-              request equal to its decode alone at B = 1
-              (``phase_families``).
+              olmoe-1b-7b (64 experts, top-8) at full width, depth cut to
+              8 and 2 layers (``FAM_DEPTH``): the graph loop against the
+              host loop, block 0 profiled (one blocking sync), step ms
+              beside the weight-bytes bound; then olmoe through
+              ``ContinuousEngine(4, 4)`` after prewarm, every request equal
+              to its decode alone at B = 1 (``phase_families``,
+              ``serve_family``).
+17. recurrent — the families' weights freed: each scan kernel
+              (``csrc/recurrent.cu``: RG-LRU, mLSTM, sLSTM) against its
+              plain version at both models' refresh and step shapes (bf16,
+              and float32 at the step's; the plain version's own error
+              against float64 beside it; bf16 output = float32 rounded;
+              a row alone = its row in the batch), attention at D = 256 at
+              recurrentgemma's step and refresh against its plain version
+              and SDPA; then recurrentgemma-9b (RG-LRU + local MQA
+              attention, tied head) and xlstm-350m (mLSTM + sLSTM) at full
+              width and depth as the families phase serves its models,
+              xlstm also through ``ContinuousEngine(4, 4)``
+              (``phase_recurrent``).
 
-The kernels phase also runs attention, confidence and the GEMM at the
+The build phase also builds ``csrc/recurrent.cu`` and fails if any
+instantiation spills (the D = 256 attention kernel's included). The
+kernels phase also runs attention, confidence and the GEMM at the
 other families' shapes (``family_kernel_cases``, ``family_gemm_cases``),
 and every phase prints its seconds. Then the kernels summary line
-(launches counted on the continuous phase's timed run; the GEMM has no TPU kernel behind
-it, and its line names the reference's XLA product it stands for), the nvidia-smi line and, last, the device
+(launches counted on the continuous phase's timed run, the scans' on
+the recurrent phase's timed decodes; the GEMM and the scans have no TPU
+kernel behind them, and their lines name the reference's XLA product
+and ``lax.scan`` steps they stand for), the nvidia-smi line and, last, the device
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script
 exits non-zero and prints no result.
 """
@@ -237,6 +255,31 @@ def eager_ms(fn, arg_sets, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+ATTN_PATH = ("block_attention", "confidence_argmax", "gemm")
+SCAN_OF = {"rglru": "rglru_scan", "mlstm": "mlstm_scan",
+           "slstm": "slstm_scan"}
+
+
+def path_kernels(cfg=None) -> tuple:
+    """The kernels a decode of ``cfg`` launches (llada-8b's path when
+    None): the confidence kernel and the GEMM, attention where the
+    layout has an attention layer, each recurrent mixer's scan."""
+    if cfg is None:
+        return ATTN_PATH
+    mixers = {s.mixer for s in cfg.layout}
+    return tuple(k for k in ops.LAUNCHES
+                 if k in ("confidence_argmax", "gemm")
+                 or (k == "block_attention"
+                     and mixers & {"attn", "attn_local"})
+                 or k in {SCAN_OF[m] for m in mixers if m in SCAN_OF})
+
+
+def launched(counts, cfg=None) -> bool:
+    """Every kernel of ``cfg``'s path (``path_kernels``) counted at least
+    one launch in ``counts``."""
+    return all(counts[k] > 0 for k in path_kernels(cfg))
+
+
 def n_copies(nbytes: int) -> int:
     return max(1, math.ceil(120e6 / max(nbytes, 1)))
 
@@ -336,25 +379,29 @@ def check_attention(name, shape, dtype, *, softcap=0.0, window=0,
         sets = [attention_inputs(B, Sq, Skv, H, Hkv, D, dtype,
                                  n_valid=n_valid, q_start=q_start, seed=s)
                 for s in range(n_copies(nbytes(*args, out)))]
-        out_s = torch.empty_like(out)
-        kba.launch_simple(*args, out_s, **kw)
-        torch.cuda.synchronize()
-        rec["simple_max_abs_err"] = (out_s - want).abs().max().item()
 
         def new(*a):
             return ops.block_attention(*a, **kw)
 
-        def simple(*a):
-            kba.launch_simple(*a, out_s, **kw)
+        if D in kba.SIMPLE_D:
+            out_s = torch.empty_like(out)
+            kba.launch_simple(*args, out_s, **kw)
+            torch.cuda.synchronize()
+            rec["simple_max_abs_err"] = (out_s - want).abs().max().item()
 
-        # in turns: new, simple, simple, new
-        t_new, t_simple = time_ms(new, sets), time_ms(simple, sets)
-        t_simple2, t_new2 = time_ms(simple, sets), time_ms(new, sets)
+            def simple(*a):
+                kba.launch_simple(*a, out_s, **kw)
+
+            # in turns: new, simple, simple, new
+            t_new, t_simple = time_ms(new, sets), time_ms(simple, sets)
+            t_simple2, t_new2 = time_ms(simple, sets), time_ms(new, sets)
+            rec["simple_ms"] = (t_simple + t_simple2) / 2
+            rec["simple_ms_turns"] = [t_simple, t_simple2]
+        else:                    # the first port's kernel stops at D = 128
+            t_new, t_new2 = time_ms(new, sets), time_ms(new, sets)
         rec["kernel_ms"] = (t_new + t_new2) / 2
-        rec["simple_ms"] = (t_simple + t_simple2) / 2
         rec["eager_ms"] = eager_ms(new, sets)
         rec["kernel_ms_turns"] = [t_new, t_new2]
-        rec["simple_ms_turns"] = [t_simple, t_simple2]
         rec["plain_ms"] = time_ms(
             lambda *a: ref.block_attention_ref(*a, **kw), sets)
         lib = None
@@ -632,7 +679,7 @@ def phase_kernels():
     check_attention("f32_ragged", (1, 129, 257, 8, 4, 64), f32)
     check_attention("bf16_ragged", (2, 33, 100, 4, 2, 128), bf16)
     # the bf16 tensor-core kernel: every feature, edge and geometry it takes
-    for D in (128, 64):
+    for D in (128, 64, 256):
         for softcap in (0.0, 20.0):
             for window in (0, 8):
                 check_attention(f"bf16_d{D}_sc{softcap:g}_w{window}",
@@ -1307,7 +1354,7 @@ def phase_serve():
                  and rec["vs_host_loop"]["ok"]
                  and launches == host_launches
                  and all(c.tokens.shape == (GEN_LEN,) for c in done)
-                 and all(v > 0 for v in launches.values()))
+                 and launched(launches))
     emit(rec)
     if not rec["ok"]:
         raise AssertionError("serve phase failed its checks")
@@ -1575,7 +1622,7 @@ def phase_continuous(cfg, params, invariance):
         and mode["decoder_batch_invariant"],
         "equals_batch_mode_b1": all(vs_batch.values()),
         "every_request_served": sorted(by_uid) == sorted(uids.values()),
-        "kernels_launched": all(v > 0 for v in launches.values()),
+        "kernels_launched": launched(launches),
         "one_replay_per_gang_block": len(replay_s) == len(spans),
         "reached": all(reached.values())}
     rec["checks"] = checks
@@ -2333,8 +2380,7 @@ def phase_http(cfg, params, device="cuda"):
             not r["doc"]["cancelled"] and r["doc"]["n_tokens"] == HTTP_GEN
             for r in admitted) and clock["inflight_at_drain"] >= 1,
         "loop_thread_joined": loop_joined,
-        "kernels_launched": not on_card or all(
-            v > 0 for v in launches.values())}
+        "kernels_launched": not on_card or launched(launches)}
     rec["checks"] = checks
     rec["ok"] = all(checks.values())
     # the engine is held by the loop, the front end, the server thread
@@ -2827,10 +2873,10 @@ def phase_fleet(cfg, params, device="cuda"):
         "capture_under_load": cap.get("graphs") == 1 and "error" not in cap
         and cap_equal and overlap and all(load_eq.values()),
         "kernels_launched_in_each_run": not on_card or all(
-            v > 0 for r in runs for v in r["launches"].values())
-        and all(v > 0 for v in load_launches.values()),
+            launched(r["launches"]) for r in runs)
+        and launched(load_launches),
         "kernels_launched_by_each_decode_engine": not on_card or all(
-            v > 0 for row in decoders for v in row.values()),
+            launched(row) for row in decoders),
         "prefill_engine_launched_its_kernels": not on_card or (
             prefiller["gemm"] > 0 and prefiller["block_attention"] > 0),
         "launches_only_on_engine_threads": all(
@@ -3179,8 +3225,7 @@ def continuous_on_trained(cfg, params, texts, device):
            "equal_to_b1": sum(equal), "launches": launches}
     rec["ok"] = (all(equal) and len(equal) == len(comps) == len(texts)
                  and rec["post_warm_captures"] == 0
-                 and (device.type != "cuda"
-                      or all(v > 0 for v in launches.values())))
+                 and (device.type != "cuda" or launched(launches)))
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"train phase, continuous: {rec}")
@@ -3272,10 +3317,10 @@ def phase_train(device="cuda"):
         "multi_token_commits": any(r["multi_token_step"] for r in rows),
         "early_exit": any(r["early_exits"] > 0 for r in rows),
         # the CPU (a dry run) takes the plain versions and counts nothing
-        "kernels_launched_in_methods": device.type != "cuda" or all(
-            v > 0 for v in m_launches.values()),
-        "kernels_launched_in_continuous": device.type != "cuda" or all(
-            v > 0 for v in cont["launches"].values())}
+        "kernels_launched_in_methods": device.type != "cuda"
+        or launched(m_launches),
+        "kernels_launched_in_continuous": device.type != "cuda"
+        or launched(cont["launches"])}
     rec = {"phase": "train", "arch": cfg.name, "steps": run["steps"],
            "steps_why": why,
            "step_ms_p50": run["step_ms_p50"],
@@ -3478,6 +3523,12 @@ FAM_SLOTS, FAM_GANG = 4, 4
 # decodes alone at 1), prewarmed and no other: a capture costs ~9 s at
 # olmoe's depth (64 experts: ~9k nodes a body, 31 copies)
 FAM_CONT_SIZES = (1, 2, 4)
+# depth cuts of the families phase (the whole script's time limit, since
+# the recurrent phase was added): layers kept, the layout's pattern
+# repeated; every check runs as at full depth
+FAM_DEPTH = {"gemma2-27b": 8, "olmoe-1b-7b": 2}
+# the configs served through that engine as well
+FAM_CONTINUOUS = ("olmoe-1b-7b", "xlstm-350m")
 # the families' dtype ("float32" for a CPU dry run, where bf16 rows are not
 # batch-invariant)
 FAM_DTYPE = "bfloat16"
@@ -3543,11 +3594,15 @@ def routing():
 
 
 def gemm_per_pass(cfg, head: bool = True) -> int:
-    """gemm.cu launches of one pass: q, k, v and o per layer, its FFN's
-    products (SwiGLU 3, GELU 2, MoE the router and 3 per expert) and the
-    LM head."""
+    """gemm.cu launches of one pass (a step's; a refresh scans each
+    recurrent layer in two segments, so it runs that mixer's products
+    twice): q, k, v and o per attention layer, 3 per recurrent one
+    (``models/recurrent.py``'s fused products), its FFN's products
+    (SwiGLU 3, GELU 2, MoE the router and 3 per expert) and the LM
+    head."""
     ffn = {"swiglu": 3, "gelu": 2, "moe": 1 + 3 * cfg.n_experts, "none": 0}
-    return sum(4 + ffn[s.ffn] for s in cfg.layout) + int(head)
+    mixer = {"attn": 4, "attn_local": 4, "rglru": 3, "mlstm": 3, "slstm": 3}
+    return sum(mixer[s.mixer] + ffn[s.ffn] for s in cfg.layout) + int(head)
 
 
 def family_prompts(cfg, n, seed):
@@ -3747,7 +3802,7 @@ def family_decode(cfg, params, dcfg, dec, prompts, device, warm=True):
     ok = (rec["vs_host_loop"]["ok"] and rec["host_syncs_per_block"] == 1.0
           and rec["no_mask_left"])
     if torch.device(device).type == "cuda":
-        ok = ok and launches == host_launches and all(launches.values())
+        ok = ok and launches == host_launches and launched(launches, cfg)
     rec["ok"] = ok
     del hdec
     return rec, res
@@ -3784,14 +3839,19 @@ def profile_block(dec, prompts):
 
 
 def family_model(arch, device):
-    """A serve config at full width and depth, bf16, random weights from
-    seed 0, with its init time, weight bytes and the tied head's copy."""
-    cfg = get_config(arch, dtype=FAM_DTYPE, param_dtype=FAM_DTYPE)
+    """A serve config at full width, bf16, random weights from seed 0, at
+    full depth or cut to ``FAM_DEPTH``'s layers, with its init time,
+    weight bytes and the tied head's copy."""
+    layers = FAM_DEPTH.get(arch)
+    cut = dict(n_layers=layers, reps=0, tail=()) if layers else {}
+    cfg = get_config(arch, dtype=FAM_DTYPE, param_dtype=FAM_DTYPE, **cut)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         SEED), device)
     sync(device)
     info = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "cut": f"n_layers {get_config(arch).n_layers} -> {layers}"
+            if layers else None,
             "params_b": sum(t.numel() for t in tree.flatten(params)[0])
             / 1e9, "weights_gb": nbytes(*tree.flatten(params)[0]) / 1e9,
             "init_s": time.perf_counter() - t0,
@@ -3849,94 +3909,288 @@ def family_continuous(cfg, params, eng, dec, device):
     return rec
 
 
-def phase_families(device="cuda", archs=FAM_SERVE):
-    """gemma2-27b and olmoe-1b-7b at full width and depth, bf16 random
-    weights from seed 0, streaming (gen_len 64, block 32, window 96), 2
-    prompts of 128 bytes: the graph loop (a warm run, then a timed run)
-    against the host loop, tokens and counters equal, one host sync per
-    block, and block 0 profiled (its blocking syncs: 1). gemma2's tied
-    head is one contiguous copy the decoder builds. olmoe first prewarms
+def serve_family(arch, device, phase):
+    """One config at full width (``family_model``: full depth unless
+    ``FAM_DEPTH`` cuts it), streaming
+    (gen_len 64, block 32, window 96), 2 prompts of 128 bytes: the graph
+    loop (a warm run, then a timed run) against the host loop, tokens and
+    counters equal, one host sync per block, and block 0 profiled (its
+    blocking syncs: 1). A config in ``FAM_CONTINUOUS`` first prewarms
     ``ContinuousEngine(max_slots=4, max_gang=4)`` and decodes through its
     decoder's graphs, then serves ``FAM_CONT_LENS`` requests, each equal
-    to its decode alone at B = 1, with no capture after prewarm. Per
-    model: step ms and tok/s beside the weight-bytes bound of a pass,
-    launches per pass by kernel (the MoE's expert products apart), peak
-    bytes allocated and its seconds."""
+    to its decode alone at B = 1, with no capture after prewarm. Step ms
+    and tok/s beside the weight-bytes bound of a pass, launches per pass
+    by kernel, peak bytes allocated and its seconds."""
     from repro_torch.serving import ContinuousEngine
-    t_phase = time.perf_counter()
     dcfg = DecodeConfig(method="streaming", gen_len=FAM_GEN, block_size=BLOCK,
                         window=WINDOW, use_kernels=True)
-    out = {}
-    for arch in archs:
-        t0 = time.perf_counter()
-        if torch.device(device).type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        cfg, params, info = family_model(arch, device)
-        prompts = family_prompts(cfg, FAM_N, SEED)
-        rec = {"phase": "families", **info, "method": dcfg.method,
-               "prompts": FAM_N, "prompt_len": FAM_PROMPT, "gen_len": FAM_GEN,
-               "block_size": BLOCK, "window": WINDOW}
-        eng = None
-        if cfg.n_experts:
-            eng = ContinuousEngine(cfg, params, dcfg, max_slots=FAM_SLOTS,
-                                   max_gang=FAM_GANG, device=device)
-            t1 = time.perf_counter()
-            rec["prewarm"] = eng.prewarm([(FAM_PROMPT, FAM_GEN)],
-                                         batch_sizes=FAM_CONT_SIZES)
-            rec["prewarm"]["wall_s"] = time.perf_counter() - t1
-            dec = eng.scheduler.decoder_for(FAM_GEN)
-        else:
-            dec = DiffusionDecoder(cfg, params, dcfg, device=device)
-        if cfg.tie_embeddings:
-            # the decoder's contiguous (d, V) copy is the one every head
-            # product reads (serving_head returns it again, no new copy)
-            rec["tied_head_is_one_copy"] = (
-                dec.head.is_contiguous() and dec.head.shape
-                == (cfg.d_model, cfg.vocab_size)
-                and serving_head(cfg, params) is dec.head)
-        ctx = eng.on_stream() if eng is not None else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cfg, params, info = family_model(arch, device)
+    prompts = family_prompts(cfg, FAM_N, SEED)
+    rec = {"phase": phase, **info, "method": dcfg.method,
+           "prompts": FAM_N, "prompt_len": FAM_PROMPT, "gen_len": FAM_GEN,
+           "block_size": BLOCK, "window": WINDOW}
+    eng = None
+    if arch.removesuffix("-smoke") in FAM_CONTINUOUS:
+        eng = ContinuousEngine(cfg, params, dcfg, max_slots=FAM_SLOTS,
+                               max_gang=FAM_GANG, device=device)
+        t1 = time.perf_counter()
+        rec["prewarm"] = eng.prewarm([(FAM_PROMPT, FAM_GEN)],
+                                     batch_sizes=FAM_CONT_SIZES)
+        rec["prewarm"]["wall_s"] = time.perf_counter() - t1
+        dec = eng.scheduler.decoder_for(FAM_GEN)
+    else:
+        dec = DiffusionDecoder(cfg, params, dcfg, device=device)
+    if cfg.tie_embeddings:
+        # the decoder's contiguous (d, V) copy is the one every head
+        # product reads (serving_head returns it again, no new copy)
+        rec["tied_head_is_one_copy"] = (
+            dec.head.is_contiguous() and dec.head.shape
+            == (cfg.d_model, cfg.vocab_size)
+            and serving_head(cfg, params) is dec.head)
+    ctx = eng.on_stream() if eng is not None else contextlib.nullcontext()
+    with ctx:
+        rec["decode"], res = family_decode(cfg, params, dcfg, dec,
+                                           prompts, device,
+                                           warm=eng is None)
+    rec["graphs"] = dec.graph_cache_size()
+    rec["capture_s"] = dec.capture_time
+    rec["weight_bound_ms_per_pass"] = 1e3 * rec["weights_gb"] * 1e9 \
+        / HBM_BYTES_S
+    rec["step_ms_over_bound"] = rec["decode"]["step_ms"] \
+        / rec["weight_bound_ms_per_pass"]
+    rec["gemm_per_pass_body"] = gemm_per_pass(cfg, head=False)
+    if cfg.n_experts:
+        rec["moe_gemm_per_pass"] = {
+            "experts": cfg.n_layers * 3 * cfg.n_experts,
+            "routers_f32": cfg.n_layers,
+            "attention": 4 * cfg.n_layers}
+    if torch.device(device).type == "cuda":
         with ctx:
-            rec["decode"], res = family_decode(cfg, params, dcfg, dec,
-                                               prompts, device,
-                                               warm=eng is None)
-        rec["graphs"] = dec.graph_cache_size()
-        rec["capture_s"] = dec.capture_time
-        rec["weight_bound_ms_per_pass"] = 1e3 * rec["weights_gb"] * 1e9 \
-            / HBM_BYTES_S
-        rec["step_ms_over_bound"] = rec["decode"]["step_ms"] \
-            / rec["weight_bound_ms_per_pass"]
-        per_pass = gemm_per_pass(cfg, head=False)
-        rec["gemm_per_pass_body"] = per_pass
-        if cfg.n_experts:
-            rec["moe_gemm_per_pass"] = {
-                "experts": cfg.n_layers * 3 * cfg.n_experts,
-                "routers_f32": cfg.n_layers,
-                "attention": 4 * cfg.n_layers}
-        if torch.device(device).type == "cuda":
-            with ctx:
-                rec["profile_block0"] = profile_block(dec, prompts)
-        if eng is not None:
-            rec["continuous"] = family_continuous(cfg, params, eng, dec,
-                                                  device)
-        if torch.device(device).type == "cuda":
-            rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        rec["seconds"] = time.perf_counter() - t0
-        checks = {"graph_loop_equals_host_loop": rec["decode"]["ok"],
-                  "tied_head_is_one_copy": rec.get("tied_head_is_one_copy",
-                                                   True),
-                  "continuous": rec.get("continuous", {}).get("ok", True),
-                  "one_sync_in_block0": len(rec.get("profile_block0", {}).get(
-                      "blocking_syncs_in_block", [None])) == 1}
-        rec["checks"] = checks
-        rec["ok"] = all(checks.values())
-        emit(rec)
-        out[arch] = rec
-        del cfg, params, dec, eng, res
-        free_device()
-        if not rec["ok"]:
-            raise AssertionError(f"families phase {arch} failed: {checks}")
+            rec["profile_block0"] = profile_block(dec, prompts)
+    if eng is not None:
+        rec["continuous"] = family_continuous(cfg, params, eng, dec,
+                                              device)
+    if torch.device(device).type == "cuda":
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.perf_counter() - t0
+    checks = {"graph_loop_equals_host_loop": rec["decode"]["ok"],
+              "tied_head_is_one_copy": rec.get("tied_head_is_one_copy",
+                                               True),
+              "continuous": rec.get("continuous", {}).get("ok", True),
+              "one_sync_in_block0": len(rec.get("profile_block0", {}).get(
+                  "blocking_syncs_in_block", [None])) == 1}
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    del cfg, params, dec, eng, res
+    free_device()
+    if not rec["ok"]:
+        raise AssertionError(f"{phase} phase {arch} failed: {checks}")
+    return rec
+
+
+def phase_families(device="cuda", archs=FAM_SERVE):
+    """gemma2-27b and olmoe-1b-7b at full width, depth cut to
+    ``FAM_DEPTH``, bf16 random weights from seed 0 (``serve_family``). gemma2's tied head is one
+    contiguous copy the decoder builds; olmoe also runs the continuous
+    engine."""
+    t_phase = time.perf_counter()
+    out = {arch: serve_family(arch, device, "families") for arch in archs}
     emit({"phase": "families", "seconds": time.perf_counter() - t_phase})
     return out
+
+
+# ------------------------------------------------------------ recurrent
+
+# the recurrent families at full width and depth; the scans' shapes: a
+# refresh scans the prefix (FAM_PROMPT tokens at block 0) and then the
+# query region from the boundary state, a step the query region (FAM_SQ)
+REC_SERVE = ("recurrentgemma-9b", "xlstm-350m")
+# scans over S steps: the plain version's own error against float64 is
+# measured beside the kernel's, and where the kernel's error from the
+# plain version passes the base tolerance only the float64 comparison
+# decides (SCAN_F64_FACTOR times the plain version's own error)
+SCAN_F64_FACTOR = 2.0
+
+
+def scan_shapes():
+    """(kind, case, shape) at both models' refresh and step shapes."""
+    rg = get_config("recurrentgemma-9b")
+    xl = get_config("xlstm-350m")
+    di = 2 * xl.d_model
+    H = xl.n_heads
+    out = []
+    for tag, S in (("refresh", FAM_PROMPT), ("step", FAM_SQ)):
+        out.append(("rglru", f"recurrentgemma_9b_{tag}",
+                    (FAM_N, S, rg.lru_width)))
+        out.append(("mlstm", f"xlstm_350m_{tag}",
+                    (FAM_N, S, H, di // H // 2, di // H)))
+        out.append(("slstm", f"xlstm_350m_{tag}",
+                    (FAM_N, S, H, xl.d_model // H)))
+    return out
+
+
+def scan_inputs(kind, shape, dtype, seed=0):
+    """Random inputs of one scan: activations in ``dtype``, state and
+    gates float32, at the scales a pass gives them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shp, dt=torch.float32):
+        return torch.randn(shp, generator=g, device="cuda").to(dt)
+
+    if kind == "rglru":
+        B, S, w = shape
+        lam = torch.rand((w,), generator=g, device="cuda") * 0.5 + 0.4
+        return rn(B, S, 2 * w), rn(B, S, w, dt=dtype), lam, rn(B, w)
+    if kind == "mlstm":
+        B, S, H, dk, dv = shape
+        proj = rn(B, S, 2 * H * dk + H * dv + 2 * H, dt=dtype)
+        return proj, rn(B, H, dk, dv), rn(B, H, dk), rn(B, H)
+    B, S, H, hd = shape
+    d = H * hd
+    return (rn(B, S, 4 * d, dt=dtype), rn(4, H, hd, hd) / math.sqrt(hd),
+            rn(B, d), rn(B, d), rn(B, d).abs() + 1.0, rn(B, d))
+
+
+def scan_kernel(kind, shape, out_dtype):
+    """The wrapper of ``kind``'s scan kernel on its inputs."""
+    if kind == "rglru":
+        return lambda *a: ops.rglru_scan(*a, out_dtype=out_dtype)
+    if kind == "mlstm":
+        _, _, H, dk, dv = shape
+        return lambda *a: ops.mlstm_scan(*a, H=H, dk=dk, dv=dv,
+                                         out_dtype=out_dtype)
+    return lambda *a: ops.slstm_scan(*a, out_dtype=out_dtype)
+
+
+def scan_plain(kind, shape, acc=torch.float32):
+    """The plain version (``kernels.ref``) in ``acc``: the sequential
+    form, as the kernel walks."""
+    if kind == "rglru":
+        return lambda *a: ref.rglru_scan_ref(*a, assoc=False, acc=acc)
+    if kind == "mlstm":
+        _, _, H, dk, dv = shape
+        return lambda *a: ref.mlstm_scan_ref(*a, H=H, dk=dk, dv=dv, acc=acc)
+    return lambda *a: ref.slstm_scan_ref(*a, acc=acc)
+
+
+def scan_bound(kind, shape, args, outs):
+    """Each input read once and each output written once at the HBM
+    rate, against the float32 operations at the peak: RG-LRU ~15 a
+    (row, step, channel); mLSTM 5 dk dv a (row, step, head); sLSTM the
+    four block-diagonal products, 8 hd d a (row, step), and ~20 d."""
+    B, S = shape[:2]
+    if kind == "rglru":
+        ops_n = 15 * B * S * shape[2]
+    elif kind == "mlstm":
+        _, _, H, dk, dv = shape
+        ops_n = B * S * H * (5 * dk * dv + 5 * dk)
+    else:
+        _, _, H, hd = shape
+        ops_n = B * S * (8 * hd * H * hd + 20 * H * hd)
+    t_bytes = nbytes(*args, *outs) / HBM_BYTES_S
+    t_ops = ops_n / PEAK_OPS_S["float32"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def check_scan(kind, name, shape, dtype):
+    """A scan kernel against its plain version on the same inputs:
+    every output (the per-step values in float32 and the final state),
+    max |kernel - plain| relative to that output's max, at 2e-5 (float32
+    inputs) or 1e-4 (bfloat16); the plain version's own error against
+    float64 is measured beside it (``SCAN_F64_FACTOR``). Also: the
+    bfloat16 output is the float32 one rounded to nearest even, bit for
+    bit; the first and last rows alone (B = 1) equal their rows in the
+    batch bit for bit; time, plain time and bound."""
+    args = scan_inputs(kind, shape, dtype)
+    got = scan_kernel(kind, shape, torch.float32)(*args)
+    want = scan_plain(kind, shape)(*args)
+    f64 = scan_plain(kind, shape, torch.float64)(*args)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return max(float((x.double() - y.double()).abs().max()
+                         / max(float(y.double().abs().max()), 1e-30))
+                   for x, y in zip(a, b))
+
+    err, err64, own64 = rel(got, want), rel(got, f64), rel(want, f64)
+    tol = 1e-4 if dtype == torch.bfloat16 else 2e-5
+    ok = err <= tol or err64 <= max(tol, SCAN_F64_FACTOR * own64)
+    out_t = scan_kernel(kind, shape, dtype)(*args)
+    bf16_exact = bool(torch.equal(out_t[0], got[0].to(dtype)))
+    rows_alone = []
+    for b in (0, shape[0] - 1):
+        one = [a[b:b + 1] if a.dim() > 1 and a.shape[0] == shape[0]
+               and not (kind == "slstm" and a is args[1]) else a
+               for a in args]
+        alone = scan_kernel(kind, shape, torch.float32)(*one)
+        rows_alone.append(all(torch.equal(x[0], y[b])
+                              for x, y in zip(alone, got)))
+    ok = ok and bf16_exact and all(rows_alone)
+    rec = {"phase": "recurrent", "kernel": f"{kind}_scan", "case": name,
+           "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "max_rel_err": err, "tol": tol, "max_rel_err_vs_f64": err64,
+           "plain_rel_err_vs_f64": own64,
+           "max_abs_err": float((got[0] - want[0]).abs().max()),
+           "bf16_out_exact": bf16_exact, "rows_alone_equal": rows_alone,
+           "ok": ok}
+    sets = [scan_inputs(kind, shape, dtype, seed=s)
+            for s in range(n_copies(nbytes(*args, *got)))]
+    kern = scan_kernel(kind, shape, dtype)
+    t1, t2 = time_ms(kern, sets), time_ms(kern, sets)
+    rec["kernel_ms"] = (t1 + t2) / 2
+    rec["kernel_ms_turns"] = [t1, t2]
+    rec["eager_ms"] = eager_ms(kern, sets)
+    rec["plain_ms"] = time_ms(scan_plain(kind, shape), sets[:2], iters=2)
+    rec["library_ms"] = None              # no single PyTorch call scans
+    rec["bound_ms"], rec["bound_by"] = scan_bound(kind, shape, args,
+                                                  out_t)
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"{kind}_scan {name}: {rec}")
+    return rec
+
+
+def recurrent_kernel_cases():
+    """Each scan kernel at the refresh and step shapes of both models
+    (bf16 inputs, as served) and in float32 at the step's; attention at
+    D = 256 at recurrentgemma's step and refresh (16 heads over 1 KV head,
+    window 2048), against its plain version and SDPA."""
+    out = {}
+    for kind, name, shape in scan_shapes():
+        out[(kind, name)] = check_scan(kind, name, shape, torch.bfloat16)
+        if name.endswith("step"):
+            check_scan(kind, name + "_f32", shape, torch.float32)
+    T = FAM_PROMPT + FAM_GEN
+    rg = get_config("recurrentgemma-9b")
+    fam = dict(n_valid=FAM_PROMPT, q_start=FAM_PROMPT, window=rg.local_window)
+    H, Hkv, D = rg.n_heads, rg.n_kv_heads, rg.head_dim
+    out["attn_step"] = check_attention(
+        "recurrentgemma_9b_step_d256", (FAM_N, FAM_SQ, T + FAM_SQ, H, Hkv, D),
+        torch.bfloat16, timed=True, **fam)
+    check_attention("recurrentgemma_9b_refresh_d256", (FAM_N, T, T, H, Hkv,
+                                                       D), torch.bfloat16,
+                    timed=True, window=rg.local_window)
+    return out
+
+
+def phase_recurrent(device="cuda", archs=REC_SERVE):
+    """The recurrent families, after the families' weights are freed:
+    the scan kernels and D = 256 attention at their shapes
+    (``recurrent_kernel_cases``, on the card), then recurrentgemma-9b
+    (RG-LRU + local MQA attention, tied head) and xlstm-350m (mLSTM +
+    sLSTM; also through the continuous engine) at full width and depth
+    (``serve_family``)."""
+    t_phase = time.perf_counter()
+    cases = recurrent_kernel_cases() \
+        if torch.device(device).type == "cuda" else {}
+    out = {arch: serve_family(arch, device, "recurrent") for arch in archs}
+    emit({"phase": "recurrent", "seconds": time.perf_counter() - t_phase})
+    return out, cases
 
 
 # ------------------------------------------------------------------ main
@@ -3945,7 +4199,7 @@ def kernel_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled symbol
     (the identifier after its length digits, so the file name in the
     anonymous namespace's prefix does not match)."""
-    m = re.search(r"\d((?:attn|conf|gemm|set_if)_\w*?kernel)"
+    m = re.search(r"\d((?:attn|conf|gemm|set_if|rglru|mlstm|slstm)_\w*?kernel)"
                   r"(I(?:L\w+?E)+E)?", mangled)
     if not m:
         return mangled
@@ -4025,7 +4279,8 @@ def phase_build():
     # one nvcc per library, all started together: the port's kernel
     # libraries and their probe builds
     jobs = [("block_attention", ()), ("confidence", ()), ("graph_loop", ()),
-            ("gemm", ()), ("block_attention", ("ATTN_PROBE=1",)),
+            ("gemm", ()), ("recurrent", ()),
+            ("block_attention", ("ATTN_PROBE=1",)),
             ("block_attention", ("ATTN_PROBE=2",)),
             ("confidence", ("CONF_PROBE=1",)),
             ("confidence", ("CONF_PROBE=2",)), ("gemm", ("GEMM_PROBE=1",))]
@@ -4035,18 +4290,23 @@ def phase_build():
     build.load("confidence")
     build.load("graph_loop")
     build.load("gemm")
+    build.load("recurrent")
     t_nvcc = time.perf_counter() - t0
-    ptxas = [f for lib in libs[:4]
+    ptxas = [f for lib in libs[:5]
              for f in ptxas_report(lib.with_suffix(".log").read_text())]
     tool = cuobjdump_path()
-    sass = ([dict(f, library=name) for (name, _), lib in zip(jobs[:4], libs)
+    sass = ([dict(f, library=name) for (name, _), lib in zip(jobs[:5], libs)
              for f in sass_report(tool, lib)] if tool
             else "not available (no cuobjdump in the toolkit or Triton)")
+    spills = [f for f in ptxas if f["spill_stores"] or f["spill_loads"]]
     emit({"phase": "build", "nvcc_s": t_nvcc,
-          "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:4]],
-          "ptxas": ptxas,
-          "spills": any(f["spill_stores"] or f["spill_loads"] for f in ptxas),
+          "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:5]],
+          "ptxas": ptxas, "spills": bool(spills),
           "cuobjdump": tool, "sass": sass})
+    # every instantiation of the port's libraries, the D = 256 attention
+    # kernel's included, fits its registers
+    if spills:
+        raise AssertionError(f"ptxas spills: {spills}")
     if tool:
         # the bf16 GEMM reaches wgmma and TMA, and no mma.sync is left
         bf16 = [f for f in sass if f["kernel"].startswith("gemm_bf16")]
@@ -4109,6 +4369,8 @@ def main() -> int:
     free_device()
     timed(phase_families_reference)
     timed(phase_families)
+    # the families' weights are freed (serve_family) before this phase
+    rec_serve, rec_cases = timed(phase_recurrent)
 
     kernels = [
         {"name": "block_attention", "route": "cuda",
@@ -4136,6 +4398,22 @@ def main() -> int:
          "bound_ms": gemm_main["bound_ms"], "bound_by": gemm_main["bound_by"],
          "library_ms": gemm_main["library_ms"]},
     ]
+    # no TPU kernel either: the JAX package scans with lax.scan; launches
+    # from the recurrent phase's timed decode of the model that runs each,
+    # times at the step's shape in bf16
+    for kind, arch, line in (("rglru", "recurrentgemma-9b", 73),
+                             ("mlstm", "xlstm-350m", 166),
+                             ("slstm", "xlstm-350m", 231)):
+        case = rec_cases[(kind, f"{arch.replace('-', '_')}_step")]
+        kernels.append({
+            "name": f"{kind}_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/recurrent.cu",
+            "replaces": f"src/repro/models/recurrent.py:{line}",
+            "launches": rec_serve[arch]["decode"]["launches"][
+                f"{kind}_scan"],
+            "max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,8 @@ def _tree(x, fn):
     if isinstance(x, dict):
         return {k: _tree(v, fn) for k, v in x.items()}
     if isinstance(x, (tuple, list)):
-        return type(x)(_tree(v, fn) for v in x)
+        items = [_tree(v, fn) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
     return fn(x)
 
 
@@ -135,7 +136,16 @@ def params_to_jax(params: dict, cfg) -> dict:
 
 def cache_from_jax(cache: dict, device) -> List[tuple]:
     """JAX ``init_cache``/``apply_model`` cache pytree (numpy leaves,
-    ``{"scan": ((k, v) stacked over reps, ...), "tail": ((k, v), ...)}``)
-    -> the port's per-layer list of ``(k, v)``."""
-    layers = _unstack(cache["scan"]) + list(cache["tail"])
-    return [tuple(to_tensor(a, device) for a in kv) for kv in layers]
+    ``{"scan": (layer caches stacked over reps, ...), "tail": (...)}``)
+    -> the port's per-layer list: ``(k, v)`` for an attention layer, the
+    port's state NamedTuple (``models.recurrent``, matched by field
+    names) for a recurrent one."""
+    from repro_torch.models import recurrent as rec
+    states = {t._fields: t for t in (rec.RGLRUState, rec.MLSTMState,
+                                     rec.SLSTMState)}
+    out = []
+    for layer in _unstack(cache["scan"]) + list(cache["tail"]):
+        leaves = [to_tensor(a, device) for a in layer]
+        kind = states.get(getattr(layer, "_fields", None))
+        out.append(kind(*leaves) if kind else tuple(leaves))
+    return out

@@ -81,8 +81,9 @@ from repro_torch.core.suffix import suffix_query_region
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ATTN, ATTN_LOCAL, ModelConfig
-from repro_torch.models.model import (apply_model, cache_take_rows,
-                                      init_cache, serving_head)
+from repro_torch.models.model import (apply_model, cache_map,
+                                      cache_take_rows, init_cache,
+                                      serving_layout)
 from repro_torch.obs.telemetry import CONF_BUCKETS, BlockStats
 
 METHODS = ("vanilla", "dkv", "prefix", "fast", "streaming")
@@ -273,9 +274,7 @@ class _BlockBuffers:
             src.numpy()[...] = getattr(state, n)
             getattr(self, n).copy_(src, non_blocking=self.pinned)
         if self.carries and state.cache is not self.cache:
-            for (bk, bv), (sk, sv) in zip(self.cache, state.cache):
-                bk.copy_(sk)
-                bv.copy_(sv)
+            cache_map(lambda b, s: b.copy_(s), self.cache, state.cache)
 
     def fetch(self, state: DecodeState) -> Dict[str, np.ndarray]:
         """The block's one fetch: every output to host memory, then a
@@ -283,9 +282,7 @@ class _BlockBuffers:
         owns its buffer gets its cache copied back out of the bound
         buffer first."""
         if self.carries and state.cache is not self.cache:
-            for (bk, bv), (sk, sv) in zip(self.cache, state.cache):
-                sk.copy_(bk)
-                sv.copy_(bv)
+            cache_map(lambda b, s: s.copy_(b), self.cache, state.cache)
         names = self.OUTPUTS if self.masks else tuple(
             n for n in self.OUTPUTS if n not in ("valid_mask", "cached_mask"))
         for n in names:
@@ -513,7 +510,8 @@ class DiffusionDecoder:
         self.cfg = cfg
         self.dcfg = dcfg
         self.params = params
-        self.head = serving_head(cfg, params)  # tied: built here, once
+        # the tied head and the recurrent mixers' weights: built here, once
+        self.head = serving_layout(cfg, params)
         self.steps_cap = dcfg.steps_per_block or dcfg.block_size
         self.n_commit = max(1, dcfg.block_size // self.steps_cap)
         self._buffers: Dict[tuple, _BlockBuffers] = {}
@@ -805,9 +803,7 @@ class DiffusionDecoder:
                 [st.prefix_hit_tokens[rows] for st, rows in parts])
         if self.cache_carries_state:
             gathered = [cache_take_rows(st.cache, rows) for st, rows in parts]
-            sub.cache = [(torch.cat([g[i][0] for g in gathered]),
-                          torch.cat([g[i][1] for g in gathered]))
-                         for i in range(len(gathered[0]))]
+            sub.cache = cache_map(lambda *ts: torch.cat(ts), *gathered)
         else:
             sub.cache = self._bound_cache(sub.batch, ref.total_len)
         return sub

@@ -24,13 +24,14 @@ import torch
 
 from repro_torch.kernels import build
 
-BF16_D = (64, 128)
+BF16_D = (64, 128, 256)
 SIMPLE_D = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # also: out is bf16
 
 # must match csrc/block_attention.cu
 ROWS_PER_WARP = 16        # mma.sync m16: query rows per consumer warp
 MAX_WARPS = 11            # consumer warps per CTA (384 threads with the producer)
+MAX_WARPS_256 = 7         # at D = 256 (256 threads: 255 registers a thread)
 STAGES = 4                # K/V ring depth
 TILE_K = 32               # keys per ring stage
 META_BYTES = 144          # sizeof(StageMeta)
@@ -58,6 +59,13 @@ class LaunchPlan:
                 for x in range(c)]
 
 
+def max_warps(D: int) -> int:
+    """The instantiation's warp cap: 11 consumer warps, 7 at D = 256,
+    whose 128-register accumulator needs the 255 registers that a
+    256-thread block may have."""
+    return MAX_WARPS_256 if D == 256 else MAX_WARPS
+
+
 def smem_bytes(D: int, warps: int) -> int:
     pitch = 2 * D + 16                      # a bf16 row padded by 16 bytes
     return (STAGES * 2 * TILE_K * pitch + warps * ROWS_PER_WARP * pitch
@@ -69,14 +77,14 @@ def launch_plan(B: int, Sq: int, H: int, Hkv: int, D: int,
                 n_sm: int = H100_SMS) -> LaunchPlan:
     """One CTA per (b, kv head) holding all its rows, so K/V is read from
     device memory once; rows are split over more CTAs where they exceed
-    ``MAX_WARPS`` warps, or where B*Hkv CTAs would leave SMs idle (up to
-    one wave: ``n_sm // (B*Hkv)`` CTAs per head). The re-reads of a split
-    come from L2."""
+    ``max_warps(D)`` warps, or where B*Hkv CTAs would leave SMs idle (up
+    to one wave: ``n_sm // (B*Hkv)`` CTAs per head). The re-reads of a
+    split come from L2."""
     g = H // Hkv
     rows = g * Sq
     tiles = -(-rows // ROWS_PER_WARP)
     fill = max(1, n_sm // (B * Hkv))
-    ctas = max(-(-tiles // MAX_WARPS), min(tiles, fill))
+    ctas = max(-(-tiles // max_warps(D)), min(tiles, fill))
     warps = -(-tiles // ctas)
     return LaunchPlan(rows=rows, tiles=tiles, ctas_per_head=ctas,
                       warps=warps, threads=(warps + 1) * 32, stages=STAGES,

@@ -11,7 +11,7 @@
 //
 // Two kernels live here.
 //
-// attn_bf16_kernel<D> (bf16 inputs, D = 64 or 128: the main path).
+// attn_bf16_kernel<D> (bf16 inputs, D = 64, 128 or 256: the main path).
 //   What bounds it on the H100: at the decode shapes (llada-8b step:
 //   B=4, Sq=129 over Skv=513 keys, 32 heads, D=128) the work is about
 //   3.3 us of bf16 tensor-core time and the bytes (one read of q and of
@@ -64,6 +64,14 @@
 //   Dynamic shared memory at D=128: 4 stages x 2 x 32 rows x 272 bytes
 //   + 4352 bytes per consumer warp (109,440 bytes at the step's 9
 //   warps, 118,144 at the most, 11).
+//   D = 256 (recurrentgemma's local layers) is its own instantiation
+//   with its own warp cap: a consumer warp's f32 output accumulator alone
+//   is 16 x 256 / 32 = 128 registers a thread, which 168 cannot hold
+//   beside the scores and fragments. Its cap is 7 consumer warps (256
+//   threads with the producer), so __launch_bounds__(256, 1) lets ptxas
+//   give 255 registers; Q stays in shared memory (ldmatrix per use).
+//   Shared memory at D=256: 4 x 2 x 32 x 528 + 8448 per warp (194,304
+//   bytes at 7 warps).
 //
 // attn_simple_kernel<T, D> (float32 inputs, D = 32/64/128; also built
 //   for bf16 so that chip_smoke.py can time it beside the new kernel).
@@ -108,7 +116,10 @@ constexpr int kStages = 4;
 constexpr int kRowsPerWarp = 16;    // mma.sync m16
 constexpr int kMaxWarps = 11;       // consumer warps per CTA (176 query rows):
                                     // 384 threads, so ptxas may give 168 registers
-constexpr int kMaxThreads = (kMaxWarps + 1) * 32;
+constexpr int kMaxWarps256 = 7;     // D = 256: 256 threads, 255 registers
+
+template <int D>
+constexpr int max_warps() { return D == 256 ? kMaxWarps256 : kMaxWarps; }
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct alignas(16) StageMeta {
@@ -216,7 +227,7 @@ __device__ __forceinline__ uint32_t pack_bf16_residual(float lo, float hi) {
 // warps 0 .. warps-1, the producer warp last. CTA x of (b, kv head) owns
 // the 16-row tiles [x*T/c, (x+1)*T/c) of the g*Sq packed rows.
 template <int D, typename OutT>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__((max_warps<D>() + 1) * 32, 1)
 attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -523,7 +534,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   // dynamic shared memory must be asked for (not a stream operation).
   static const cudaError_t attr = cudaFuncSetAttribute(
       attn_bf16_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Smem<D>::bytes(kMaxWarps));
+      Smem<D>::bytes(max_warps<D>()));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(ctas_per_head, Hkv, B);
   attn_bf16_kernel<D, OutT><<<grid, (warps + 1) * 32, smem, stream>>>(
@@ -784,7 +795,8 @@ extern "C" int block_attention_bf16_launch(
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   const int tiles = (H / Hkv * Sq + kRowsPerWarp - 1) / kRowsPerWarp;
-  if (warps < 1 || warps > kMaxWarps || ctas_per_head < 1 ||
+  const int cap = D == 256 ? kMaxWarps256 : kMaxWarps;
+  if (warps < 1 || warps > cap || ctas_per_head < 1 ||
       ctas_per_head > tiles ||
       int64_t(warps) * ctas_per_head < tiles)
     return cudaErrorInvalidValue;   // some CTA would get more than `warps`
@@ -792,6 +804,16 @@ extern "C" int block_attention_bf16_launch(
   const int* kp = static_cast<const int*>(kv_pos);
   const uint8_t* km = static_cast<const uint8_t*>(kv_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 256) {
+    if (smem_bytes != Smem<256>::bytes(warps)) return cudaErrorInvalidValue;
+    return out_bf16
+        ? launch_bf16<256, __nv_bfloat16>(q, k, v, qp, kp, km, out, B, Sq,
+                                          Skv, H, Hkv, ctas_per_head, warps,
+                                          scale, softcap, window, s)
+        : launch_bf16<256, float>(q, k, v, qp, kp, km, out, B, Sq, Skv, H,
+                                  Hkv, ctas_per_head, warps, scale, softcap,
+                                  window, s);
+  }
   if (D == 128) {
     if (smem_bytes != Smem<128>::bytes(warps)) return cudaErrorInvalidValue;
     return out_bf16

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES = {"block_attention": 0, "confidence_argmax": 0, "gemm": 0}
+LAUNCHES = {"block_attention": 0, "confidence_argmax": 0, "gemm": 0,
+            "rglru_scan": 0, "mlstm_scan": 0, "slstm_scan": 0}
 _LOCK = threading.Lock()
 _TALLY = threading.local()
 
@@ -231,3 +232,118 @@ def head_confidence_argmax(hidden, head, *, mask_id: int = -1,
         return _confidence_2d(logits, mask_id)
 
     return chunked_head_reduce(hidden, head, reduce, row_chunk=row_chunk)
+
+
+# ------------------------------------------------------------------ scans
+# The recurrent mixers' time scans (``csrc/recurrent.cu``; plain versions
+# ``ref.*_scan_ref``). Activations come in float32 or bfloat16, state and
+# gates are float32, the per-step output is ``out_dtype`` (float32, or the
+# activations' dtype: the float32 value rounded to nearest even). On the
+# card each is one launch; ``train=True`` is the training route (the plain
+# version under autograd, on any device), as for ``linear``.
+
+def _scan_inputs(name, acts, f32s, *, out_dtype):
+    """Check a scan's operands for the card (raises on any it refuses)."""
+    x = acts[0]
+    _require(x.is_cuda, f"{name}: unsupported device {x.device}")
+    _require(x.dtype in (torch.float32, torch.bfloat16)
+             and all(t.dtype == x.dtype for t in acts),
+             f"{name}: activations must share float32 or bfloat16 "
+             f"({[t.dtype for t in acts]})")
+    _require(all(t.dtype == torch.float32 for t in f32s),
+             f"{name}: state and gates must be float32")
+    _require(out_dtype in (torch.float32, x.dtype),
+             f"{name}: out_dtype {out_dtype} is neither float32 nor "
+             f"{x.dtype}")
+    ts = (*acts, *f32s)
+    _require(all(t.device == x.device for t in ts),
+             f"{name}: tensors on different devices")
+    _require(all(t.is_contiguous() for t in ts),
+             f"{name}: inputs must be contiguous")
+    _require(x.shape[1] >= 1, f"{name}: empty time axis")
+
+
+def rglru_scan(gx, u, lam, h0, *, assoc: bool = True, out_dtype=None,
+               train: bool = False):
+    """RG-LRU scan. gx (B, S, 2w) float32 (u @ [w_a | w_x]), u (B, S, w),
+    lam (w,) float32, h0 (B, w) float32 -> (hs (B, S, w) in
+    ``out_dtype`` (u's by default), h_S (B, w) float32). ``assoc`` picks
+    the reference's form on the plain route (associative unless
+    ``cfg.remat``); the kernel is sequential."""
+    out_dtype = out_dtype or u.dtype
+    if train or u.device.type == "cpu":
+        hs, hT = ref.rglru_scan_ref(gx, u, lam, h0, assoc=assoc)
+        return hs.to(out_dtype), hT
+    from repro_torch.kernels import recurrent as kernel
+    B, S, w = u.shape
+    _require(gx.shape == (B, S, 2 * w) and lam.shape == (w,)
+             and h0.shape == (B, w), "rglru_scan: shapes gx "
+             f"{tuple(gx.shape)}, u {tuple(u.shape)}, lam "
+             f"{tuple(lam.shape)}, h0 {tuple(h0.shape)}")
+    _scan_inputs("rglru_scan", (u,), (gx, lam, h0), out_dtype=out_dtype)
+    hs = torch.empty((B, S, w), dtype=out_dtype, device=u.device)
+    hT = torch.empty((B, w), dtype=torch.float32, device=u.device)
+    kernel.launch_rglru(gx, u, lam, h0, hs, hT)
+    count({"rglru_scan": 1})
+    return hs, hT
+
+
+def mlstm_scan(proj, C, n, m, *, H: int, dk: int, dv: int, out_dtype=None,
+               train: bool = False):
+    """mLSTM scan over the fused projection proj (B, S, N): rows [q (H
+    dk) | k (H dk) | v (H dv) | i (H) | f (H) | zero pad] (``ref.
+    mlstm_split``), from state C (B, H, dk, dv), n (B, H, dk), m (B, H),
+    all float32 -> (hs (B, S, H dv) in ``out_dtype`` (proj's by default),
+    C, n, m). The kernel takes dk in ``recurrent.MLSTM_DK`` and dv a
+    multiple of 32."""
+    out_dtype = out_dtype or proj.dtype
+    if train or proj.device.type == "cpu":
+        hs, *st = ref.mlstm_scan_ref(proj, C, n, m, H=H, dk=dk, dv=dv)
+        return (hs.to(out_dtype), *st)
+    from repro_torch.kernels import recurrent as kernel
+    B, S, N = proj.shape
+    _require(C.shape == (B, H, dk, dv) and n.shape == (B, H, dk)
+             and m.shape == (B, H) and N >= 2 * H * dk + H * dv + 2 * H,
+             f"mlstm_scan: shapes proj {tuple(proj.shape)}, C "
+             f"{tuple(C.shape)}, n {tuple(n.shape)}, m {tuple(m.shape)}")
+    _require(dk in kernel.MLSTM_DK and dv % kernel.MLSTM_COLS == 0,
+             f"mlstm_scan: no kernel takes dk={dk}, dv={dv} (dk in "
+             f"{kernel.MLSTM_DK}, dv a multiple of {kernel.MLSTM_COLS})")
+    _scan_inputs("mlstm_scan", (proj,), (C, n, m), out_dtype=out_dtype)
+    hs = torch.empty((B, S, H * dv), dtype=out_dtype, device=proj.device)
+    C1, n1, m1 = (torch.empty_like(t) for t in (C, n, m))
+    kernel.launch_mlstm(proj, C, n, m, hs, C1, n1, m1, H=H, dk=dk, dv=dv,
+                        k_div=math.sqrt(dk))
+    count({"mlstm_scan": 1})
+    return hs, C1, n1, m1
+
+
+def slstm_scan(pre, r, h, c, n, m, *, out_dtype=None, train: bool = False):
+    """sLSTM scan. pre (B, S, 4 d) = x @ [w_z | w_i | w_f | w_o], r (4, H,
+    hd, hd) float32, state h, c, n, m (B, d) float32 -> (hs (B, S,
+    d) in ``out_dtype`` (pre's by default), h, c, n, m). The kernel takes
+    hd a multiple of 32, at most 1024."""
+    out_dtype = out_dtype or pre.dtype
+    if train or pre.device.type == "cpu":
+        hs, *st = ref.slstm_scan_ref(pre, r, h, c, n, m)
+        return (hs.to(out_dtype), *st)
+    from repro_torch.kernels import recurrent as kernel
+    B, S = pre.shape[:2]
+    _require(r.dim() == 4 and r.shape[0] == 4 and r.shape[2] == r.shape[3],
+             f"slstm_scan: r {tuple(r.shape)} is not (4, H, hd, hd)")
+    _, H, hd, _ = r.shape
+    d = H * hd
+    _require(pre.shape == (B, S, 4 * d)
+             and all(t.shape == (B, d) for t in (h, c, n, m)),
+             f"slstm_scan: shapes pre {tuple(pre.shape)}, state "
+             f"{[tuple(t.shape) for t in (h, c, n, m)]} for r "
+             f"{tuple(r.shape)}")
+    _require(hd % 32 == 0 and hd <= 1024,
+             f"slstm_scan: no kernel takes head dim {hd} (a multiple of 32, "
+             "at most 1024)")
+    _scan_inputs("slstm_scan", (pre,), (r, h, c, n, m), out_dtype=out_dtype)
+    hs = torch.empty((B, S, d), dtype=out_dtype, device=pre.device)
+    out_state = tuple(torch.empty_like(t) for t in (h, c, n, m))
+    kernel.launch_slstm(pre, r, (h, c, n, m), hs, out_state)
+    count({"slstm_scan": 1})
+    return (hs, *out_state)

@@ -1,0 +1,73 @@
+"""Binding of the CUDA C++ scan kernels of the recurrent mixers
+(``csrc/recurrent.cu``): RG-LRU, mLSTM and sLSTM.
+
+No TPU kernel stands behind them: the JAX package scans with
+``lax.scan`` (``src/repro/models/recurrent.py``). They exist because a
+scan in PyTorch is S steps of ~15 launches each, which a captured block
+graph copies into every IF node. The source says how each walks the time
+axis and keeps its state on chip.
+
+This module only launches them: ``kernels.ops.rglru_scan`` /
+``mlstm_scan`` / ``slstm_scan`` are the checked, counted entries.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MLSTM_COLS = 32           # value columns per mLSTM CTA (kMlstmCols)
+MLSTM_DK = (64, 128, 256)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("recurrent")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn, argtypes in (
+            (lib.rglru_scan_launch, [p] * 6 + [i] * 5 + [p]),
+            (lib.mlstm_scan_launch, [p] * 8 + [i] * 6 + [f, i, i, p]),
+            (lib.slstm_scan_launch, [p] * 11 + [i] * 6 + [p])):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(err: int, which: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{which} launch failed: cudaError {err}")
+
+
+def launch_rglru(gx, u, lam, h0, hs, hT) -> None:
+    B, S, w = u.shape
+    _check(_lib().rglru_scan_launch(
+        gx.data_ptr(), u.data_ptr(), lam.data_ptr(), h0.data_ptr(),
+        hs.data_ptr(), hT.data_ptr(), B, S, w, _DTYPES[u.dtype],
+        _DTYPES[hs.dtype], _stream(u)), "rglru_scan")
+
+
+def launch_mlstm(proj, C, n, m, hs, C1, n1, m1, *, H, dk, dv,
+                 k_div) -> None:
+    B, S, N = proj.shape
+    _check(_lib().mlstm_scan_launch(
+        proj.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
+        hs.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(), B, S, N,
+        H, dk, dv, float(k_div), _DTYPES[proj.dtype], _DTYPES[hs.dtype],
+        _stream(proj)), "mlstm_scan")
+
+
+def launch_slstm(pre, r, state, hs, out_state) -> None:
+    B, S = pre.shape[:2]
+    _, H, hd, _ = r.shape
+    _check(_lib().slstm_scan_launch(
+        pre.data_ptr(), r.data_ptr(), *(t.data_ptr() for t in state),
+        hs.data_ptr(), *(t.data_ptr() for t in out_state), B, S, H, hd,
+        _DTYPES[pre.dtype], _DTYPES[hs.dtype], _stream(pre)), "slstm_scan")

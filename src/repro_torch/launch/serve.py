@@ -18,6 +18,14 @@ package's format (written by either package's trainer), and
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llada-8b \\
         --train-steps 0 --gen-len 256 --window 96 --prewarm 12:256 \\
         --http 8000 --audit-rate 0.05 --trace-dir /tmp/trace
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --train-steps 0 --mode batch --n 2 \\
+        --gen-len 64 --window 96
+
+``--arch`` takes every registered config, the recurrent families
+(``recurrentgemma-9b``, ``xlstm-350m``, their ``-smoke`` variants)
+included; as in the JAX CLI, ``--prefix-cache`` is refused for a layout
+with recurrent layers (the decoder's assertion).
 
 Runs on CUDA unless ``--device cpu``; on CUDA attention and confidence
 go through the kernels, and each block is one CUDA graph replay

@@ -7,6 +7,9 @@ On the card (the default device):
 On the CPU:
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch tiny --steps 40 --ckpt /tmp/tiny
+``--arch`` takes every registered config (the recurrent ones train
+through their plain scans under autograd, e.g. ``--arch
+xlstm-350m-smoke``).
 
 ``--ckpt`` writes the JAX package's checkpoint format (``.npz`` +
 ``.json``), which ``python -m repro_torch.launch.serve --ckpt`` and the

@@ -12,6 +12,8 @@ non-contiguous positions.
 from __future__ import annotations
 
 import math
+import threading
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -97,6 +99,40 @@ def attention_kv_mask(kv_valid, P: int, Sq: int):
         return torch.cat([kv_valid, pad], dim=1)
     idx = torch.arange(P + Sq, device=kv_valid.device)[None, :]
     return (idx < kv_valid.reshape(-1, 1)) | (idx >= P)
+
+
+# ---------------------------------------------------------------- derived
+
+_DERIVED: dict = {}
+_DERIVED_LOCK = threading.Lock()
+
+
+def _version(t: torch.Tensor) -> int:
+    try:
+        return t._version
+    except RuntimeError:        # an inference tensor keeps no counter
+        return -1
+
+
+def derived(tag: str, sources, build):
+    """``build()``, a serving layout of the weight tensors ``sources``
+    (a contiguous copy, a concatenation), computed once per ``(tag,
+    sources)`` and kept while the first of them lives and none is written
+    in place (their version counters), not per call. The entry is freed
+    with that tensor; it is no leaf of the params tree."""
+    key = (tag, id(sources[0]))
+    vers = tuple(_version(t) for t in sources)
+    with _DERIVED_LOCK:
+        hit = _DERIVED.get(key)
+        if hit is not None and hit[1] == vers and all(
+                r() is t for r, t in zip(hit[0], sources)):
+            return hit[2]
+        out = build()
+        refs = [weakref.ref(sources[0],
+                            lambda _, k=key: _DERIVED.pop(k, None))]
+        refs += [weakref.ref(t) for t in sources[1:]]
+        _DERIVED[key] = (refs, vers, out)
+        return out
 
 
 # ---------------------------------------------------------------- init

@@ -1,14 +1,16 @@
 """Layout-driven transformer backbone — the PyTorch counterpart of
-``repro.models.model`` for the attention families: ATTN / ATTN_LOCAL
-mixers × SWIGLU / GELU / MOE (the dense path, ``models.moe``) / no FFN.
-Recurrent mixers (mLSTM, sLSTM, RG-LRU) are ROADMAP A13 step 3.
+``repro.models.model``: ATTN / ATTN_LOCAL / MLSTM / SLSTM / RGLRU mixers
+(the recurrent ones in ``models.recurrent``) × SWIGLU / GELU / MOE (the
+dense path, ``models.moe``) / no FFN.
 
 Params are a dict: ``embed (V, d)``, ``out_norm (d,)``, ``lm_head (d, V)``
 (absent with tied embeddings) and ``layers``, a list with one dict per
 layer in layout order (the JAX package's scan-stacked groups unstacked:
 layer ``r * len(pattern) + i`` is repetition ``r`` of pattern position
-``i``, then the tail). The cache is a list with one ``(k, v)`` pair of
-``(B, T, Hkv, D)`` buffers per layer.
+``i``, then the tail). The cache is a list with one entry per layer: a
+``(k, v)`` pair of ``(B, T, Hkv, D)`` buffers for an attention layer, the
+mixer's state (``recurrent.RGLRUState`` / ``MLSTMState`` /
+``SLSTMState``) for a recurrent one.
 
 Three execution modes:
   encode  — full pass over (B, S); with a cache, writes the S tokens'
@@ -21,26 +23,26 @@ Three execution modes:
             the fresh ones where it holds).
 
 Unlike the JAX package, the cache buffers are updated in place (one KV
-buffer per decode state instead of one per call); the returned cache is
-the same list.
+buffer per decode state instead of one per call), the recurrent states
+too (a captured graph reads and writes the same buffers); the returned
+cache is the same list.
 """
 from __future__ import annotations
 
-import threading
-import weakref
 from typing import Any, List, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import linear
+from repro_torch.models import recurrent as rec
 from repro_torch.models.config import (ATTN, ATTN_LOCAL, GELU, MOE, NONE,
                                        SWIGLU, LayerSpec, ModelConfig)
 from repro_torch.models.heads import plan_heads
 from repro_torch.models.layers import (apply_attention, apply_ffn,
                                        attention_kv_mask, dense_init,
-                                       init_attention, init_ffn, rms_norm,
-                                       rope_table, softcap)
+                                       derived, init_attention, init_ffn,
+                                       rms_norm, rope_table, softcap)
 from repro_torch.models.moe import apply_moe_dense, init_moe
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -55,11 +57,10 @@ class ModelOutput(NamedTuple):
                                 # losses summed in layout order (0 if none)
 
 
-def _check_dense(spec: LayerSpec) -> None:
+def _check_layer(spec: LayerSpec) -> None:
     """Refuse a layer the port has no counterpart for."""
-    if spec.mixer not in (ATTN, ATTN_LOCAL):
-        raise NotImplementedError(
-            f"layer {spec}: recurrent mixers are ROADMAP A13 step 3")
+    if spec.mixer not in (ATTN, ATTN_LOCAL, *rec.APPLY):
+        raise ValueError(f"layer {spec}: unknown mixer {spec.mixer!r}")
     if spec.ffn not in (SWIGLU, GELU, MOE, NONE):
         raise ValueError(f"layer {spec}: unknown FFN {spec.ffn!r}")
 
@@ -68,11 +69,14 @@ def _check_dense(spec: LayerSpec) -> None:
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig,
                spec: LayerSpec, dtype) -> dict:
-    _check_dense(spec)
+    _check_layer(spec)
     dev = generator.device
     p: dict = {"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)}
-    plan = plan_heads(cfg.n_heads, cfg.n_kv_heads, cfg.tp)
-    p["mixer"] = init_attention(generator, cfg, plan, dtype)
+    if spec.mixer in rec.INIT:
+        p["mixer"] = rec.INIT[spec.mixer](generator, cfg, dtype)
+    else:
+        plan = plan_heads(cfg.n_heads, cfg.n_kv_heads, cfg.tp)
+        p["mixer"] = init_attention(generator, cfg, plan, dtype)
     if spec.ffn != NONE:
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
         p["ffn"] = init_moe(generator, cfg, dtype) if spec.ffn == MOE \
@@ -90,7 +94,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         raise ValueError(f"generator on {generator.device}, params on "
                          f"{device}: make the generator on the device")
     for spec in cfg.layout:
-        _check_dense(spec)
+        _check_layer(spec)
     dtype = DTYPES[cfg.param_dtype]
     params: dict = {
         "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model),
@@ -125,62 +129,69 @@ def params_to(params, device, _key=None):
 
 # ------------------------------------------------------------- LM head
 
-_HEADS: dict = {}
-_HEADS_LOCK = threading.Lock()
-
-
-def _version(t: torch.Tensor) -> int:
-    try:
-        return t._version
-    except RuntimeError:        # an inference tensor keeps no counter
-        return -1
-
-
 def serving_head(cfg: ModelConfig, params) -> torch.Tensor:
     """The (d, V) LM head of a serving pass: ``lm_head``, or with tied
     embeddings one contiguous copy of ``embed.T`` (the GEMM kernel takes
     a row-major (K, N) operand only). The copy is built once per
     ``embed`` tensor and kept beside it while it lives and is not written
-    in place (its version counter), not per call, and is no leaf of the
+    in place (``layers.derived``), not per call, and is no leaf of the
     params tree: at gemma2-27b it is 2.36 GB. The decoder builds it when
     it takes its params, so no capture allocates it."""
     if not cfg.tie_embeddings:
         return params["lm_head"]
     embed = params["embed"]
-    key = id(embed)
-    with _HEADS_LOCK:
-        hit = _HEADS.get(key)
-        if hit is not None and hit[0]() is embed \
-                and hit[1] == _version(embed):
-            return hit[2]
-        head = embed.detach().T.contiguous()
-        ref = weakref.ref(embed, lambda _, k=key: _HEADS.pop(k, None))
-        _HEADS[key] = (ref, _version(embed), head)
-        return head
+    return derived("head", [embed], lambda: embed.detach().T.contiguous())
+
+
+def serving_layout(cfg: ModelConfig, params) -> torch.Tensor:
+    """Build every serving layout of ``params`` now (the tied head, the
+    recurrent mixers' concatenated and padded weights), so that no
+    capture allocates one; returns the head."""
+    for spec, p in zip(cfg.layout, params["layers"]):
+        if spec.mixer in rec.APPLY:
+            rec.mixer_weights(spec.mixer, p["mixer"])
+    return serving_head(cfg, params)
 
 
 # ------------------------------------------------------------- caches
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> List[tuple]:
-    """Empty per-layer KV buffers, (B, max_len, Hkv, D) each."""
+    """Empty per-layer caches in layout order, as the JAX package's
+    ``init_cache`` lays them out: (B, max_len, Hkv, D) K and V buffers
+    for an attention layer, the mixer's zero state for a recurrent one."""
     dtype = DTYPES[cfg.dtype]
     plan = plan_heads(cfg.n_heads, cfg.n_kv_heads, cfg.tp)
     shape = (batch, max_len, plan.pad_kv, cfg.head_dim)
     cache = []
     for spec in cfg.layout:
-        _check_dense(spec)
-        cache.append((torch.zeros(shape, dtype=dtype, device=device),
-                      torch.zeros(shape, dtype=dtype, device=device)))
+        _check_layer(spec)
+        if spec.mixer in rec.APPLY:
+            cache.append(rec.init_state(cfg, spec.mixer, batch, dtype,
+                                        device))
+        else:
+            cache.append((torch.zeros(shape, dtype=dtype, device=device),
+                          torch.zeros(shape, dtype=dtype, device=device)))
     return cache
 
 
+def cache_map(fn, *caches) -> List[tuple]:
+    """``fn`` over the leaves of one or more caches of one layout (batch
+    is axis 0 of every leaf), layer by layer, keeping each layer's
+    tuple type."""
+    out = []
+    for layer, *rest in zip(*caches):
+        leaves = [fn(*ts) for ts in zip(layer, *rest)]
+        out.append(type(layer)(*leaves) if hasattr(layer, "_fields")
+                   else tuple(leaves))
+    return out
+
+
 def cache_take_rows(cache: List[tuple], rows) -> List[tuple]:
-    """Gather a sub-batch of every layer's KV (a copy)."""
+    """Gather a sub-batch of every layer's KV or state (a copy)."""
     idx = torch.as_tensor(list(rows), dtype=torch.long,
                           device=cache[0][0].device)
-    return [(k.index_select(0, idx), v.index_select(0, idx))
-            for k, v in cache]
+    return cache_map(lambda t: t.index_select(0, idx), cache)
 
 
 # ------------------------------------------------------------- layers
@@ -202,19 +213,56 @@ def _write_kv_at(buf, new, idx) -> None:
     buf[torch.arange(B, device=buf.device)[:, None], idx.long()] = new
 
 
+def _write_state(cache, st) -> None:
+    """A recurrent layer's new state into its cache buffers, in place."""
+    for buf, new in zip(cache, st):
+        buf.copy_(new)
+
+
+def _apply_recurrent(cfg, p, spec, h, *, cache, mode, cache_upto, train):
+    """The recurrent mixer of a layer (``src/repro/models/model.py``'s
+    branch): a pass with no cache scans from the zero state; a refresh
+    (encode or append with ``cache_upto``) scans the prefix from the zero
+    state, keeps the state at the prefix boundary in the cache, and scans
+    the rest from it; otherwise the scan resumes from the cached state,
+    and an append keeps the state after it. An encode without
+    ``cache_upto`` scans from the zero state, as the reference does from
+    the fresh cache it is given. ``step`` leaves the cache as it was."""
+    fn = rec.APPLY[spec.mixer]
+    kw = dict(return_state=True, train=train)
+    if cache is None:
+        return fn(cfg, p["mixer"], h, train=train)
+    if mode in ("encode", "append") and cache_upto is not None:
+        out1, st = fn(cfg, p["mixer"], h[:, :cache_upto], **kw)
+        out2, _ = fn(cfg, p["mixer"], h[:, cache_upto:], state=st, **kw)
+        _write_state(cache, st)
+        return torch.cat([out1, out2], dim=1)
+    out, st = fn(cfg, p["mixer"], h, state=None if mode == "encode"
+                 else cache, **kw)
+    if mode != "step":
+        _write_state(cache, st)
+    return out
+
+
 def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
                 mode, append_at=None, self_kv_mix=None, kv_pos=None,
-                rope=None, kv_mask=None, use_kernels=False, train=False):
+                rope=None, kv_mask=None, cache_upto=None, use_kernels=False,
+                train=False):
     """Returns (y, cache, aux); the cache is written in place; aux is the
     MoE layer's load-balance loss, None for other FFNs. ``kv_pos``,
     ``rope`` and ``kv_mask`` are the pass's key positions, RoPE table and
     key validity, built once by ``apply_model`` for every layer.
     ``self_kv_mix`` (B, Sq) bool (dKV cache): where it holds, the query
-    token's K/V is the cache's at its position instead of a fresh one."""
+    token's K/V is the cache's at its position instead of a fresh one.
+    ``cache_upto`` is the block refresh's prefix boundary, which only a
+    recurrent layer reads (``_apply_recurrent``)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.local_window if spec.mixer == ATTN_LOCAL else 0
     B = x.shape[0]
-    if mode == "encode":
+    if spec.mixer in rec.APPLY:
+        out = _apply_recurrent(cfg, p, spec, h, cache=cache, mode=mode,
+                               cache_upto=cache_upto, train=train)
+    elif mode == "encode":
         out, kv = apply_attention(cfg, p["mixer"], h, q_pos=q_pos,
                                   window=window, return_kv=True, rope=rope,
                                   kv_mask=kv_mask, use_kernels=use_kernels,
@@ -279,9 +327,9 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
     ``self_kv_mix`` (B, S) bool: the dKV cache's frozen tokens (their K/V
     is gathered from the cache at their position in every layer).
     ``cache_upto`` (the block-refresh prefix boundary) only matters to
-    recurrent layers, which the port does not have yet. The key
-    positions, the RoPE table and the key validity are built once per
-    pass, not per layer.
+    recurrent layers: their cached state is the state at that boundary.
+    The key positions, the RoPE table and the key validity are built
+    once per pass, not per layer, and only for a layout with attention.
 
     ``train=True`` is the training route (the JAX package's
     ``diffusion_loss``): an encode with no cache, plain attention and
@@ -313,16 +361,17 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
     if kv_valid.dim() < 2:
         kv_valid = kv_valid.to(torch.int32).expand(B)
 
-    rope = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    kv_pos = kv_mask = None
-    if mode == "encode":
-        if use_kernels:
-            kv_mask = torch.ones((B, S), dtype=torch.bool, device=dev)
-    else:
-        P_len = cache[0][0].shape[1]
-        kv_pos = cache_kv_positions(P_len, positions)
-        kv_mask = attention_kv_mask(kv_valid, P_len, S)
     layout = cfg.effective_layout()
+    attn = [i for i, s in enumerate(layout) if s.mixer in (ATTN, ATTN_LOCAL)]
+    rope = kv_pos = kv_mask = None
+    if attn:
+        rope = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+        if mode != "encode":
+            P_len = cache[attn[0]][0].shape[1]
+            kv_pos = cache_kv_positions(P_len, positions)
+            kv_mask = attention_kv_mask(kv_valid, P_len, S)
+        elif use_kernels:
+            kv_mask = torch.ones((B, S), dtype=torch.bool, device=dev)
     remat = train and cfg.remat
     n_scan = cfg.reps * len(cfg.pattern)    # the reference's scanned layers
     aux = None
@@ -333,6 +382,7 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
                                cache=c_i, kv_valid=kv_valid, mode=mode,
                                append_at=append_at, self_kv_mix=self_kv_mix,
                                kv_pos=kv_pos, rope=rope, kv_mask=kv_mask,
+                               cache_upto=cache_upto,
                                use_kernels=use_kernels, train=train)
         if remat and i < n_scan:
             x, _, a = checkpoint(layer, params["layers"][i], x,

@@ -11,9 +11,12 @@ merge with every request equal to its B = 1 decode), the HTTP front
 end's threads (scrapes during a capture on the decode thread, the shadow
 auditor's lanes), two engines on one card, each on its own stream
 (a capture on one thread while another replays and syncs; a steal fleet
-giving each prompt's bits served alone), and training: a train step on
+giving each prompt's bits served alone), training: a train step on
 the card against the CPU, with the decoder still refusing the plain
-route. Each kernel against its plain version
+route, and the recurrent families: each scan kernel against its plain
+version and across batch positions, what the scan wrappers refuse, the
+smoke configs on the card against the CPU, and an xlstm decode on the
+graph loop against the host loop. Each kernel against its plain version
 at the main path's shapes, and llada-8b through the graphs, are checked
 by ``chip_smoke.py``. Needs a CUDA card; skips without one. Imports no JAX,
 so it runs where JAX is absent:
@@ -73,7 +76,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def test_attention_wrapper_refuses_pairs_no_kernel_takes(cuda):
-    """bf16 goes to the tensor-core kernel (D 64/128), float32 to the
+    """bf16 goes to the tensor-core kernel (D 64/128/256), float32 to the
     simple kernel (D 32/64/128); any other (dtype, D) raises, and so does
     an output dtype other than float32 or bfloat16."""
     before = dict(ops.LAUNCHES)
@@ -902,3 +905,157 @@ def test_card_decoder_still_refuses_the_plain_route(cuda):
     apply_model(cfg, params, tokens=torch.zeros((1, 8), dtype=torch.long,
                                                 device=cuda))
     assert ops.LAUNCHES["gemm"] > before
+
+
+# ------------------------------------------------------------ recurrent
+
+def _scan_case(kind, dtype, B=2, S=17, seed=0):
+    """Small inputs of one scan on the card, and its wrapper's kwargs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    if kind == "rglru":
+        w = 96
+        return (rn(B, S, 2 * w), rn(B, S, w).to(dtype),
+                torch.rand((w,), generator=g, device="cuda") * 0.5 + 0.4,
+                rn(B, w)), {}
+    if kind == "mlstm":
+        H, dk, dv = 2, 64, 64
+        proj = rn(B, S, 2 * H * dk + H * dv + 2 * H + 4).to(dtype)
+        return (proj, rn(B, H, dk, dv), rn(B, H, dk), rn(B, H)), \
+            dict(H=H, dk=dk, dv=dv)
+    H, hd = 2, 64
+    d = H * hd
+    return (rn(B, S, 4 * d).to(dtype), rn(4, H, hd, hd) / hd ** 0.5,
+            rn(B, d), rn(B, d), rn(B, d).abs() + 1, rn(B, d)), {}
+
+
+_SCAN_OPS = {"rglru": ops.rglru_scan, "mlstm": ops.mlstm_scan,
+             "slstm": ops.slstm_scan}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["rglru", "mlstm", "slstm"])
+def test_scan_kernel_matches_plain(cuda, kind, dtype):
+    """Each scan kernel against its plain version on the same inputs:
+    every output within 2e-5 (float32 inputs) / 1e-4 (bf16) of that
+    output's max, one launch counted; its bf16 output is the float32 one
+    rounded to nearest even; a row alone gives its bits in the batch."""
+    from repro_torch.kernels import ref
+    plain = {"rglru": lambda *a: ref.rglru_scan_ref(*a, assoc=False),
+             "mlstm": ref.mlstm_scan_ref, "slstm": ref.slstm_scan_ref}[kind]
+    args, kw = _scan_case(kind, dtype)
+    before = ops.LAUNCHES[f"{kind}_scan"]
+    got = _SCAN_OPS[kind](*args, out_dtype=torch.float32, **kw)
+    assert ops.LAUNCHES[f"{kind}_scan"] == before + 1
+    want = plain(*args, **kw)
+    tol = 1e-4 if dtype == torch.bfloat16 else 2e-5
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+    low = _SCAN_OPS[kind](*args, **kw)
+    assert low[0].dtype == dtype and torch.equal(low[0], got[0].to(dtype))
+    r = args[1] if kind == "slstm" else None
+    one = [a if a is r or a.dim() == 1 else a[1:] for a in args]
+    alone = _SCAN_OPS[kind](*one, out_dtype=torch.float32, **kw)
+    assert all(torch.equal(x[0], y[1]) for x, y in zip(alone, got))
+
+
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """float16, mixed dtypes, strided inputs, an mLSTM dk or an sLSTM head
+    dim no kernel takes: each raises before a launch."""
+    before = dict(ops.LAUNCHES)
+    args, _ = _scan_case("rglru", torch.float32)
+    gx, u, lam, h0 = args
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.rglru_scan(gx, u.half(), lam, h0)
+    with pytest.raises(ValueError, match="state and gates"):
+        ops.rglru_scan(gx.bfloat16(), u, lam, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rglru_scan(gx, u.transpose(0, 1).contiguous().transpose(0, 1),
+                       lam, h0)
+    with pytest.raises(ValueError, match="out_dtype"):
+        ops.rglru_scan(gx, u, lam, h0, out_dtype=torch.float16)
+    args, kw = _scan_case("mlstm", torch.bfloat16)
+    proj, C, n, m = args
+    with pytest.raises(ValueError, match="no kernel takes"):
+        ops.mlstm_scan(proj, C.reshape(2, 2, 32, 128).contiguous(),
+                       n[..., :32].contiguous(), m, H=2, dk=32, dv=128)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.mlstm_scan(proj[..., :64].contiguous(), C, n, m, **kw)
+    args, _ = _scan_case("slstm", torch.float32)
+    pre, r, *st = args
+    with pytest.raises(ValueError, match="head dim"):
+        ops.slstm_scan(torch.randn((2, 5, 4 * 96), device=cuda),
+                       torch.randn((4, 2, 48, 48), device=cuda),
+                       *[torch.randn((2, 96), device=cuda)
+                         for _ in range(4)])
+    with pytest.raises(ValueError, match="state and gates"):
+        ops.slstm_scan(pre, r.bfloat16(), *st)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b-smoke",
+                                  "xlstm-350m-smoke"])
+def test_recurrent_model_on_the_card_equals_the_cpu(cuda, name):
+    """The smoke configs in float32, every product through gemm.cu, every
+    scan through its kernel, attention (recurrentgemma's local MQA layer)
+    through the simple kernel: a refresh split at the prefix and a step
+    from the cached state match the CPU's plain route to 2e-5 of the
+    largest logit, and the cached states match too."""
+    from repro_torch.models import get_config, init_params
+    from repro_torch.models.model import apply_model, init_cache, params_to
+    cfg = get_config(name)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = params_to(cpu, cuda)
+    toks = torch.randint(0, 1000, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev, params in (("cpu", cpu), (cuda, card)):
+        cache = init_cache(cfg, 2, 24, dev)
+        enc = apply_model(cfg, params, tokens=toks.to(dev), cache=cache,
+                          cache_upto=16, use_kernels=True)
+        qpos = torch.arange(16, 24, dtype=torch.int32,
+                            device=dev)[None].expand(2, 8)
+        step = apply_model(cfg, params, tokens=toks[:, 16:].to(dev),
+                           positions=qpos, mode="step", cache=cache,
+                           use_kernels=True,
+                           kv_valid=torch.full((2,), 16, dtype=torch.int32,
+                                               device=dev))
+        outs.append((enc.logits.cpu(), step.logits.cpu(),
+                     [t.cpu() for c in cache for t in c]))
+    (e0, s0, c0), (e1, s1, c1) = outs
+    for a, b in ((e1, e0), (s1, s0), *zip(c1, c0)):
+        scale = max(float(b.float().abs().max()), 1e-6)
+        assert float((a.float() - b.float()).abs().max()) <= 2e-5 * scale
+
+
+def test_recurrent_decode_graph_loop_equals_host_loop(cuda):
+    """xlstm-350m-smoke (mLSTM + sLSTM, no attention) in bf16 on the
+    graph loop: the same tokens and counters as the host loop, one host
+    sync per block, and every launch of the scans counted under replay."""
+    import numpy as np
+    from repro_torch.core.decoder import DecodeConfig, DiffusionDecoder
+    from repro_torch.models import get_config, init_params
+    cfg = get_config("xlstm-350m-smoke", dtype="bfloat16",
+                     param_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         cuda)
+    prompts = np.random.default_rng(0).integers(
+        2, cfg.vocab_size - 2, (2, 12)).astype(np.int32)
+    runs = []
+    for fused in (True, False):
+        dec = DiffusionDecoder(cfg, params, DecodeConfig(
+            method="streaming", gen_len=32, block_size=16, window=8,
+            fused=fused), device=cuda)
+        dec.generate(prompts)
+        ops.reset_launches()
+        runs.append((dec.generate(prompts), dict(ops.LAUNCHES)))
+    (g, gl), (h, hl) = runs
+    np.testing.assert_array_equal(g.tokens, h.tokens)
+    for k in ("nfe", "steps_per_block", "query_tokens_processed"):
+        assert getattr(g, k) == getattr(h, k)
+    assert g.host_syncs == len(g.steps_per_block)
+    assert gl == hl and gl["mlstm_scan"] > 0 and gl["slstm_scan"] > 0

@@ -210,7 +210,8 @@ def test_serve_cli_on_cpu():
                       "--gen-len", "16", "--mode", "batch"])
     assert out["served"] == 3 and out["nfe"] > 0
     assert out["launches"] == {"block_attention": 0, "confidence_argmax": 0,
-                               "gemm": 0}
+                               "gemm": 0, "rglru_scan": 0, "mlstm_scan": 0,
+                               "slstm_scan": 0}
     assert out["host_syncs"] == 2             # one batch of two blocks
 
 
@@ -309,7 +310,11 @@ NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.configs.minitron_4b",
                  "repro_torch.configs.gemma2_27b",
                  "repro_torch.configs.olmoe_1b_7b",
-                 "repro_torch.configs.kimi_k2")
+                 "repro_torch.configs.kimi_k2",
+                 "repro_torch.configs.recurrentgemma_9b",
+                 "repro_torch.configs.xlstm_350m",
+                 "repro_torch.models.recurrent",
+                 "repro_torch.kernels.recurrent")
 
 
 def test_import_leaves_jax_out():

@@ -1,14 +1,17 @@
-"""The port's other families (ROADMAP A13 steps 1-2: qwen3, phi4-mini,
-minitron, gemma2 and the MoE configs olmoe, kimi-k2, tiny-moe) against
-the JAX package on the CPU, on JAX-initialised weights carried across by
-``repro_torch.bridge``: forward logits and the MoE aux loss, one train
-step's loss and gradients given JAX's noise draw, gemma2's cached step
-against a full encode, qwen3's long-serve layout, streaming decodes of
-gemma2 and olmoe on both loops (tokens and counters equal), and the tied
-head's one contiguous copy. Tolerance 2e-5 in float32, 2e-2 (relative to
-the largest logit) in bfloat16."""
+"""The port's other families (ROADMAP A13 steps 1-3: qwen3, phi4-mini,
+minitron, gemma2, the MoE configs olmoe, kimi-k2, tiny-moe, and the
+recurrent recurrentgemma and xlstm) against the JAX package on the CPU,
+on JAX-initialised weights carried across by ``repro_torch.bridge``:
+forward logits and the MoE aux loss, one train step's loss and gradients
+given JAX's noise draw, cached steps against a full encode (gemma2, the
+recurrent configs), qwen3's long-serve layout, streaming decodes of
+gemma2, olmoe, recurrentgemma and xlstm on both loops (tokens and
+counters equal), the recurrent configs' prefix-cache refusal and
+checkpoints, and the tied head's one contiguous copy. Tolerance 2e-5 in
+float32, 2e-2 (relative to the largest logit) in bfloat16."""
 import dataclasses
 import functools
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -22,23 +25,25 @@ from repro.models import get_config as jget_config
 from repro.models import init_cache as jinit_cache
 from repro.models import init_params as jinit_params
 from repro.models.model import apply_model as japply_model
+from repro.training import checkpoint as jcheckpoint
 from repro.training.loss import diffusion_loss as jdiffusion_loss
-from repro_torch.bridge import params_from_jax
+from repro_torch.bridge import cache_from_jax, jax_layout, params_from_jax
 from repro_torch.core import schedule
 from repro_torch.core.decoder import DecodeConfig, DiffusionDecoder
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import get_config
-from repro_torch.models.model import apply_model, init_cache
-from repro_torch.training import tree
+from repro_torch.models.model import apply_model, init_cache, init_params
+from repro_torch.training import checkpoint, tree
 from repro_torch.training.loss import loss_given_noise
 
 torch.set_num_threads(1)
 
 TOL = 2e-5
 BF16_TOL = 2e-2
+RECURRENT = ["recurrentgemma-9b-smoke", "xlstm-350m-smoke"]
 FAMILIES = ["qwen3-32b-smoke", "phi4-mini-3.8b-smoke", "minitron-4b-smoke",
             "gemma2-27b-smoke", "olmoe-1b-7b-smoke",
-            "kimi-k2-1t-a32b-smoke", "tiny-moe"]
+            "kimi-k2-1t-a32b-smoke", "tiny-moe", *RECURRENT]
 COUNTERS = ("nfe", "steps_per_block", "query_tokens_processed",
             "kv_tokens_attended", "early_exits")
 
@@ -78,10 +83,13 @@ def test_forward_logits_and_aux_match_jax(name):
     assert (float(got.aux_loss) > 0) == (ct.n_experts > 0)
 
 
-@pytest.mark.parametrize("name", ["gemma2-27b-smoke", "olmoe-1b-7b-smoke"])
+@pytest.mark.parametrize("name", ["gemma2-27b-smoke", "olmoe-1b-7b-smoke",
+                                  *RECURRENT])
 def test_bf16_forward_matches_jax(name):
     cj, ct, jp, tp = pair(name, "bfloat16")
-    assert tp["layers"][0]["mixer"]["wq"].dtype == torch.bfloat16
+    assert tp["layers"][0]["mixer"]["w_up" if "xlstm" in name else
+                                    "w_in" if "recurrent" in name
+                                    else "wq"].dtype == torch.bfloat16
     toks = tokens(cj, 2, 24, seed=1)
     want = f32(japply_model(cj, jp, tokens=jnp.asarray(toks)).logits)
     got = apply_model(ct, tp, tokens=torch.tensor(toks)).logits.numpy()
@@ -158,6 +166,91 @@ def test_gemma2_cached_step_matches_full_encode_and_jax():
                                atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_cached_step_matches_full_encode_and_jax(name):
+    """``tests/test_models.py::test_cached_step_consistency`` on the port:
+    a refresh split at the prefix (``cache_upto``) keeps the recurrent
+    state at the boundary, and a step that resumes from it over the query
+    region equals one full encode there (causal scans: the prefix saw
+    nothing after it); the step, the refresh's logits and every cache leaf
+    equal the JAX package's."""
+    cj, ct, jp, tp = pair(name)
+    B, P, Q = 2, 12, 6
+    toks = tokens(cj, B, P + Q, seed=3)
+    full = apply_model(ct, tp, tokens=torch.tensor(toks))
+    cache = init_cache(ct, B, P + Q, "cpu")
+    enc = apply_model(ct, tp, tokens=torch.tensor(toks), cache=cache,
+                      cache_upto=P)
+    qpos = torch.arange(P, P + Q, dtype=torch.int32)[None].expand(B, Q)
+    step = apply_model(ct, tp, tokens=torch.tensor(toks[:, P:]),
+                       positions=qpos, mode="step", cache=cache,
+                       kv_valid=torch.full((B,), P, dtype=torch.int32))
+    np.testing.assert_allclose(step.logits.numpy(),
+                               full.logits[:, P:].numpy(), atol=TOL,
+                               rtol=TOL)
+    jenc = japply_model(cj, jp, tokens=jnp.asarray(toks), mode="encode",
+                        cache=jinit_cache(cj, B, P + Q), cache_upto=P)
+    jstep = japply_model(cj, jp, tokens=jnp.asarray(toks[:, P:]),
+                         positions=jnp.asarray(qpos.numpy()), mode="step",
+                         cache=jenc.cache,
+                         kv_valid=jnp.full((B,), P, jnp.int32))
+    np.testing.assert_allclose(enc.logits.numpy(), f32(jenc.logits),
+                               atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(step.logits.numpy(), f32(jstep.logits),
+                               atol=TOL, rtol=TOL)
+    want = cache_from_jax(jax.tree.map(np.asarray, jenc.cache), "cpu")
+    assert [type(c).__name__ for c in want] == \
+        [type(c).__name__ for c in cache]
+    for got_l, want_l in zip(cache, want):
+        for g, w in zip(got_l, want_l):
+            np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                       atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_prefix_cache_is_refused_as_in_jax(name):
+    """The prefix cache needs an attention-only layout in both packages:
+    the same assertion, worded alike."""
+    cj, ct, jp, tp = pair(name, block_size=8)
+    d = dict(DECODE, prefix_cache=True)
+    with pytest.raises(AssertionError, match="attention-only") as jerr:
+        JDiffusionDecoder(cj, jp, JDecodeConfig(**d))
+    with pytest.raises(AssertionError, match="attention-only") as terr:
+        DiffusionDecoder(ct, tp, DecodeConfig(**d), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+
+
+def _assert_leaves_equal(port_params, cfg, jtree):
+    ours = tree.flatten(jax_layout(port_params, cfg))[0]
+    leaves = jax.tree.leaves(jtree)
+    assert len(leaves) == len(ours)
+    for a, t in zip(leaves, ours):
+        assert a.dtype == jnp.dtype(str(t.dtype).split(".")[-1])
+        assert a.shape == tuple(t.shape)
+        np.testing.assert_array_equal(np.asarray(jnp.asarray(a, jnp.float32)),
+                                      t.float().numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_checkpoints_cross_both_ways(name, dtype):
+    """A JAX checkpoint of a recurrent config read into the port, and the
+    port's read by the JAX package (float32: its ``restore`` reads no
+    bfloat16 leaf), every leaf (``wq``/``wk``/``wv`` (di, H, dk), ``r_*``
+    (H, hd, hd), ``lam``, ``conv``, ``gn``) equal bit for bit."""
+    cj, ct, jp, _ = pair(name, dtype)
+    with tempfile.TemporaryDirectory() as tmp:
+        jcheckpoint.save(f"{tmp}/jax", jp)
+        like = init_params(ct, torch.Generator().manual_seed(0), "cpu")
+        back = checkpoint.restore(f"{tmp}/jax", like, ct)
+        _assert_leaves_equal(back, ct, jp)
+        if dtype == "float32":
+            ours = init_params(ct, torch.Generator().manual_seed(2), "cpu")
+            checkpoint.save(f"{tmp}/port", ours, ct)
+            _assert_leaves_equal(ours, ct,
+                                 jcheckpoint.restore(f"{tmp}/port", jp))
+
+
 def test_long_serve_layout_switch():
     cfg = get_config("qwen3-32b-smoke")
     assert all(s.mixer == "attn_local"
@@ -191,7 +284,8 @@ def jax_decode(name, fused, tau0):
 
 @pytest.mark.parametrize("tau0", [0.5, 0.02], ids=["one_a_step", "parallel"])
 @pytest.mark.parametrize("fused", [True, False], ids=["device", "host"])
-@pytest.mark.parametrize("name", ["gemma2-27b-smoke", "olmoe-1b-7b-smoke"])
+@pytest.mark.parametrize("name", ["gemma2-27b-smoke", "olmoe-1b-7b-smoke",
+                                  *RECURRENT])
 def test_streaming_decode_matches_jax(name, fused, tau0):
     cj, ct, _, tp = pair(name, block_size=8)
     ref = jax_decode(name, fused, tau0)

@@ -97,6 +97,43 @@ for _arch in ("qwen3-32b", "phi4-mini-3.8b", "minitron-4b", "gemma2-27b",
     _PRODUCTS.update(_family_products(_arch))
 
 
+def _recurrent_products(arch):
+    """{name: (K, N)} of every bf16 product of ``arch`` at full width as
+    served: each recurrent mixer's weights through its serving layout
+    (``recurrent.mixer_weights``, built here on meta tensors, so nothing
+    is allocated), the attention layers' and FFNs' as above, the head.
+    RG-LRU's u @ [w_a | w_x] is float32 and not listed."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import get_config as jget_config
+    from repro.models import recurrent as jrec
+    from repro_torch.models import recurrent as rec
+    c = get_config(arch, dtype="bfloat16", param_dtype="bfloat16")
+    tag = arch.split("-")[0]
+    out = {f"{tag}_head": (c.d_model, c.vocab_size)}
+    for spec in dict.fromkeys(c.layout):
+        if spec.mixer not in rec.APPLY:
+            out.update({k: v for k, v in _family_products(arch).items()
+                        if not k.endswith("_head")})
+            continue
+        # the reference's parameter shapes, as bf16 meta tensors
+        shapes = jax.eval_shape(
+            lambda k, m=spec.mixer: getattr(jrec, f"init_{m}")(
+                k, jget_config(arch), jnp.bfloat16), jax.random.PRNGKey(0))
+        p = {k: torch.empty(v.shape, dtype=torch.bfloat16, device="meta")
+             for k, v in shapes.items()}
+        lw = rec._LAYOUTS[spec.mixer][1](p)
+        for k, w in {**p, **lw}.items():
+            if w.dim() == 2 and w.dtype == torch.bfloat16 and k != "conv" \
+                    and (k in lw or k in ("w_out", "w_down")):
+                out[f"{tag}_{spec.mixer}_{k}"] = tuple(w.shape)
+    return out
+
+
+for _arch in ("recurrentgemma-9b", "xlstm-350m"):
+    _PRODUCTS.update(_recurrent_products(_arch))
+
+
 @pytest.mark.parametrize("product", list(_PRODUCTS))
 def test_bf16_plan_fits_the_card(product):
     """The bf16 plan of each product: its ring fits the 227 KB a block

@@ -164,8 +164,11 @@ def test_cpu_wrappers_do_not_count_launches():
     ops.confidence_argmax(torch.randn(3, 50))
     ops.gemm(torch.randn(3, 8), torch.randn(8, 5))
     ops.linear(torch.randn(2, 3, 8), torch.randn(8, 5))
+    ops.rglru_scan(torch.randn(1, 3, 8), torch.randn(1, 3, 4),
+                   torch.rand(4), torch.randn(1, 4))
     assert ops.LAUNCHES == {"block_attention": 0, "confidence_argmax": 0,
-                            "gemm": 0}
+                            "gemm": 0, "rglru_scan": 0, "mlstm_scan": 0,
+                            "slstm_scan": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -184,7 +187,10 @@ def test_block_attention_out_dtype_bf16_is_the_rounded_f32_result(dtype):
 # ragged Sq, D=64, and a GQA group wider than one CTA's rows
 PLAN_SHAPES = [(4, 129, 32, 32, 128), (4, 385, 32, 32, 128),
                (4, 129, 28, 4, 128), (2, 1, 4, 2, 128), (2, 65, 4, 2, 128),
-               (2, 129, 8, 1, 64), (1, 4000, 8, 8, 128), (16, 33, 32, 8, 64)]
+               (2, 129, 8, 1, 64), (1, 4000, 8, 8, 128), (16, 33, 32, 8, 64),
+               # recurrentgemma-9b (16 heads over 1, D = 256): a step and a
+               # refresh of 2 rows, and one row alone
+               (2, 64, 16, 1, 256), (2, 192, 16, 1, 256), (1, 64, 16, 1, 256)]
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
@@ -199,7 +205,7 @@ def test_launch_plan_covers_every_query_row_once(shape):
         assert 1 <= hi - lo <= plan.warps   # every CTA's tiles fit its warps
         covered[lo * kba.ROWS_PER_WARP:hi * kba.ROWS_PER_WARP] += 1
     assert (covered == 1).all()
-    assert 1 <= plan.warps <= kba.MAX_WARPS
+    assert 1 <= plan.warps <= kba.max_warps(D) <= kba.MAX_WARPS
     assert plan.threads == (plan.warps + 1) * 32 <= 1024
     assert plan.smem_bytes <= kba.SMEM_LIMIT
     assert plan.grid == (plan.ctas_per_head, Hkv, B)
@@ -217,3 +223,20 @@ def test_launch_plan_geometry_at_the_main_path_shapes():
     gqa = kba.launch_plan(4, 129, 28, 4, 128)
     assert (gqa.rows, gqa.ctas_per_head, gqa.warps) == (903, 8, 8)
     assert kba.smem_bytes(128, kba.MAX_WARPS) == 118144
+
+
+def test_launch_plan_at_head_dim_256():
+    """D = 256 has its own warp cap (7 consumer warps: 256 threads, so
+    the kernel may hold 255 registers), and its largest plan fits the
+    shared memory a block may use; D = 64 and 128 keep theirs."""
+    assert kba.BF16_D == (64, 128, 256)
+    assert kba.max_warps(256) == kba.MAX_WARPS_256 == 7
+    assert kba.max_warps(128) == kba.max_warps(64) == kba.MAX_WARPS == 11
+    assert kba.smem_bytes(256, 7) == 194944 <= kba.SMEM_LIMIT
+    step = kba.launch_plan(2, 64, 16, 1, 256)
+    assert (step.rows, step.tiles, step.ctas_per_head, step.warps) == \
+        (1024, 64, 64, 1)
+    wide = kba.launch_plan(1, 4000, 8, 8, 256)
+    assert wide.warps <= 7 and wide.threads <= 256
+    assert wide.smem_bytes <= kba.SMEM_LIMIT
+    assert kba.launch_plan(4, 129, 32, 32, 128).warps == 9

@@ -310,11 +310,25 @@ def test_init_params_and_cache_shapes():
 
 
 def test_recurrent_layers_not_ported():
+    """What A13 has not ported yet raises naming it: since step 3 the
+    recurrent mixers are built (an mLSTM layout initialises and runs), a
+    mixer nobody defines is refused, and a modality frontend (step 4)
+    raises ``NotImplementedError`` naming A13."""
     from repro_torch.models.config import LayerSpec
     cfg = dataclasses.replace(get_config("tiny"),
                               pattern=(LayerSpec("mlstm", "none"),))
+    params = init_params(cfg, torch.Generator(), "cpu")
+    out = apply_model(cfg, params, tokens=torch.zeros((1, 4),
+                                                      dtype=torch.long))
+    assert out.logits.shape == (1, 4, cfg.vocab_size)
+    bad = dataclasses.replace(get_config("tiny"),
+                              pattern=(LayerSpec("conv", "none"),))
+    with pytest.raises(ValueError, match="unknown mixer"):
+        init_params(bad, torch.Generator(), "cpu")
+    tree = {"embed": np.zeros((4, 2), np.float32), "frontend_proj":
+            np.zeros((3, 2), np.float32), "scan": (), "tail": ()}
     with pytest.raises(NotImplementedError, match="A13"):
-        init_params(cfg, torch.Generator(), "cpu")
+        params_from_jax(tree, "cpu")
 
 
 # ------------------------------------------------------------ schedule

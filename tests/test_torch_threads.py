@@ -64,7 +64,8 @@ def test_launch_counts_survive_a_concurrent_capture():
     assert ops.LAUNCHES["block_attention"] - before["block_attention"] \
         == 4 * n
     assert tallies == [{"block_attention": 0, "confidence_argmax": 0,
-                        "gemm": n}]
+                        "gemm": n, "rglru_scan": 0, "mlstm_scan": 0,
+                        "slstm_scan": 0}]
 
 
 def test_replay_counts_add_under_the_lock():
@@ -87,7 +88,8 @@ def test_replay_counts_add_under_the_lock():
     _run_threads(replayer, replayer)
     got = {k: ops.LAUNCHES[k] - before[k] for k in before}
     assert got == {"block_attention": 2 * n * 9,
-                   "confidence_argmax": 2 * n * 5, "gemm": 2 * n * 23}
+                   "confidence_argmax": 2 * n * 5, "gemm": 2 * n * 23,
+                   "rglru_scan": 0, "mlstm_scan": 0, "slstm_scan": 0}
 
 
 class _FakeGC:
