@@ -128,6 +128,25 @@ package. Phases, each printing JSON lines:
               width and depth as the families phase serves its models,
               xlstm also through ``ContinuousEngine(4, 4)``
               (``phase_recurrent``).
+18. frontends — the modality frontends at full width, bf16 random
+              weights: musicgen-medium at full size (48 layers, V 2048)
+              and llava-next-34b cut to 4 of 60 layers (``FRONT_DEPTH``):
+              each frontend projection's GEMM and the head's confidence
+              at its vocabulary against their plain versions; an encode
+              of the whole frontend prefix (256 frames / 2880 patches)
+              plus 128 text tokens through the kernels against the plain
+              route, both beside a float32 pass; a streaming decode on
+              the graph loop against the host loop (``phase_frontends``).
+19. placement — llada-8b at full width, 2 layers, on a
+              ``DecodeExecutor``: (a) a one-rank NCCL world, graph loop,
+              bit-equal to the decoder without one, one sync a block,
+              then ``ContinuousEngine`` on it, each request equal to its
+              decode alone; (b) two ranks sharing the card over gloo
+              (rank 1 a process this phase starts), host loop: mesh
+              (2, 1) exact, (1, 2) at agreement >= 0.95 with the same
+              NFE, the graph loop refused on gloo, and the GEMM's
+              float32 output and its two-rank chain at the (1, 2)
+              shards' row-parallel products (``phase_placement``).
 
 The build phase also builds ``csrc/recurrent.cu`` and fails if any
 instantiation spills (the D = 256 attention kernel's included). The
@@ -3550,7 +3569,14 @@ def plain_products():
     """The plain route's products: while open, ``ops.linear`` multiplies
     through ``torch.matmul`` (cuBLAS, TF32 off) in place of gemm.cu."""
     kernel = ops.gemm
-    ops.gemm = torch.matmul
+
+    def plain(x, w, out_dtype=None, acc=None):
+        if out_dtype is None:
+            return torch.matmul(x, w)
+        y = torch.matmul(x.float(), w.float())
+        return y if acc is None else acc + y
+
+    ops.gemm = plain
     try:
         yield
     finally:
@@ -3563,9 +3589,9 @@ def gemm_calls():
     N) before it launches."""
     calls, kernel = [], ops.gemm
 
-    def recording(x, w):
+    def recording(x, w, *out_dtype):
         calls.append((str(x.dtype).split(".")[-1], w.shape[0], w.shape[1]))
-        return kernel(x, w)
+        return kernel(x, w, *out_dtype)
 
     ops.gemm = recording
     try:
@@ -3838,11 +3864,11 @@ def profile_block(dec, prompts):
                     for us, k, c in kernels[:6]]}
 
 
-def family_model(arch, device):
+def family_model(arch, device, depth=None):
     """A serve config at full width, bf16, random weights from seed 0, at
-    full depth or cut to ``FAM_DEPTH``'s layers, with its init time,
-    weight bytes and the tied head's copy."""
-    layers = FAM_DEPTH.get(arch)
+    full depth or cut to ``depth`` (``FAM_DEPTH``'s by default) layers,
+    with its init time, weight bytes and the tied head's copy."""
+    layers = depth or FAM_DEPTH.get(arch)
     cut = dict(n_layers=layers, reps=0, tail=()) if layers else {}
     cfg = get_config(arch, dtype=FAM_DTYPE, param_dtype=FAM_DTYPE, **cut)
     t0 = time.perf_counter()
@@ -4315,6 +4341,436 @@ def phase_build():
             raise AssertionError(f"gemm_bf16_kernel SASS: {bf16}")
 
 
+# ------------------------------------------------------------ frontends
+
+# the modality frontends: musicgen-medium at full size; llava-next-34b at
+# full width cut to 4 of its 60 layers (full depth is 68.8 GB of bf16
+# weights, and drawing them would take the script's time budget)
+FRONT_SERVE = ("musicgen-medium", "llava-next-34b")
+FRONT_DEPTH = {"llava-next-34b": 4}
+FRONT_TEXT = 128                 # text tokens after the frontend prefix
+
+
+def frontend_encode(cfg, params, device, use_kernels):
+    """An encode at B = 1 of [``frontend_prefix_len`` precomputed frames
+    or patches (``frontend_embed_dim`` wide, projected by
+    ``frontend_proj``) || ``FRONT_TEXT`` text tokens]: its logits."""
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size - 2, (
+        1, FRONT_TEXT)).astype(np.int32)).to(device)
+    pe = torch.from_numpy(rng.standard_normal((
+        1, cfg.frontend_prefix_len, cfg.frontend_embed_dim)).astype(
+            np.float32)).to(device)
+    return apply_model(cfg, params, tokens=toks, prefix_embeds=pe,
+                       use_kernels=use_kernels).logits
+
+
+def serve_frontend(arch, device):
+    """One frontend config at full width (``family_model`` with
+    ``FRONT_DEPTH``), bf16 random weights from seed 0: the frontend
+    projection's product and the head's confidence at this vocabulary
+    against their plain versions; an encode of the whole frontend prefix
+    plus ``FRONT_TEXT`` tokens through the kernels (``frontend_proj``,
+    every product, attention at S = prefix + text) against the plain
+    route (``attend_ref``, ``torch.matmul``), max |d logits| beside
+    ``FAM_REF_TOL`` * max |logits|, launches counted around it; then a
+    streaming decode on the graph loop against the host loop
+    (``family_decode``)."""
+    t0 = time.perf_counter()
+    cfg, params, info = family_model(arch, device, FRONT_DEPTH.get(arch))
+    rec = {"phase": "frontends", **info,
+           "frontend": {"embed_dim": cfg.frontend_embed_dim,
+                        "prefix_len": cfg.frontend_prefix_len,
+                        "text_tokens": FRONT_TEXT}}
+    S = cfg.frontend_prefix_len + FRONT_TEXT
+    if torch.device(device).type == "cuda":
+        rec["kernel_cases"] = [
+            check_gemm(f"{arch}_frontend_proj", cfg.frontend_prefix_len,
+                       cfg.frontend_embed_dim, cfg.d_model)["max_abs_err"],
+            check_confidence(f"{arch}_head_V{cfg.vocab_size}",
+                             FAM_N * BLOCK, cfg.vocab_size, torch.bfloat16,
+                             mask_id=cfg.mask_token_id)["max_abs_err"]]
+    ops.reset_launches()
+    with gemm_calls() as calls:
+        got = frontend_encode(cfg, params, device, True)
+    sync(device)
+    launches = dict(ops.LAUNCHES)
+    with plain_products():
+        ops.reset_launches()
+        want = frontend_encode(cfg, params, device, False)
+        sync(device)
+        plain_launches = dict(ops.LAUNCHES)
+    # both bf16 routes beside a float32 pass (the plain route on the
+    # weights widened): how far each is from it
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    with plain_products():
+        truth = frontend_encode(cfg32, params_to(params, torch.float32),
+                                device, False)
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    scale = w.abs().max().item()
+    to_f32 = {"kernel_route": (g - truth).abs().max().item(),
+              "plain_route": (w - truth).abs().max().item()}
+    del truth
+    rec["encode"] = {
+        "S": S, "logits_max_abs_err": err, "logits_max_abs": scale,
+        "tol": FAM_REF_TOL * scale, "rel_to_max": err / scale,
+        "argmax_agreement": float((g.argmax(-1) == w.argmax(-1)).float()
+                                  .mean()),
+        "finite": bool(torch.isfinite(g).all()), "launches": launches,
+        "max_abs_err_to_float32_pass": to_f32,
+        "frontend_proj_products": sum(
+            c[1:] == (cfg.frontend_embed_dim, cfg.d_model) for c in calls)}
+    del got, want, g, w
+    ok = rec["encode"]["finite"] and err <= FAM_REF_TOL * scale
+    if torch.device(device).type == "cuda":
+        ok = ok and (launches["block_attention"] == cfg.n_layers
+                     and launches["gemm"] == gemm_per_pass(cfg) + 1
+                     and rec["encode"]["frontend_proj_products"] == 1
+                     and not any(plain_launches.values()))
+    dcfg = DecodeConfig(method="streaming", gen_len=FAM_GEN,
+                        block_size=BLOCK, window=WINDOW, use_kernels=True)
+    dec = DiffusionDecoder(cfg, params, dcfg, device=device)
+    rec["decode"], _ = family_decode(cfg, params, dcfg, dec,
+                                     family_prompts(cfg, FAM_N, SEED),
+                                     device)
+    rec["graphs"] = dec.graph_cache_size()
+    rec["weight_bound_ms_per_pass"] = 1e3 * rec["weights_gb"] * 1e9 \
+        / HBM_BYTES_S
+    rec["step_ms_over_bound"] = rec["decode"]["step_ms"] \
+        / rec["weight_bound_ms_per_pass"]
+    if torch.device(device).type == "cuda":
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["checks"] = {"encode_within_tol": ok,
+                     "graph_loop_equals_host_loop": rec["decode"]["ok"]}
+    rec["ok"] = all(rec["checks"].values())
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    del cfg, params, dec
+    free_device()
+    if not rec["ok"]:
+        raise AssertionError(f"frontends phase {arch} failed: "
+                             f"{rec['checks']}")
+    return rec
+
+
+def phase_frontends(device="cuda", archs=FRONT_SERVE):
+    """musicgen-medium (48 layers, d 1536, 24 MHA heads, V 2048, GELU;
+    256 frames of 768) at full size and llava-next-34b (d 7168, 56 heads
+    over 8, d_ff 20480, V 64000; 2880 patches of 1024) at full width,
+    cut to ``FRONT_DEPTH`` (``serve_frontend``)."""
+    t_phase = time.perf_counter()
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {arch: serve_frontend(arch, device) for arch in archs}
+    emit({"phase": "frontends", "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+# ------------------------------------------------------------ placement
+
+# llada-8b at full width cut to 2 layers, bf16, on a mesh of ranks
+# (``serving.DecodeExecutor`` on torch.distributed)
+PLACE_ARCH, PLACE_DEPTH, PLACE_DTYPE = "llada-8b", 2, "bfloat16"
+PLACE_GLOO_N, PLACE_GLOO_GEN = 4, 32     # (b): batch 4 = 2 rows a rank
+PLACE_TIMEOUT_S = 300
+
+
+def place_model(device, tp: int = 1):
+    cfg = get_config(PLACE_ARCH, dtype=PLACE_DTYPE, param_dtype=PLACE_DTYPE,
+                     n_layers=PLACE_DEPTH, reps=0, tail=(), tp=tp)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device)
+    return cfg, params
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_kernels(dec, prompts):
+    """Block 0 of ``dec``'s decode replayed under torch.profiler: the
+    device kernels whose name says NCCL, and the blocking syncs inside
+    the block."""
+    state = dec.prefill(prompts.copy())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("decode_block"):
+            dec.decode_block(state)
+        torch.cuda.synchronize()
+    _, kernels, _ = kernel_groups(prof, "decode_block")
+    return {"nccl_kernels": sum(c for _, k, c in kernels
+                                if "nccl" in k.lower()),
+            "names": sorted({k[:60] for _, k, _ in kernels
+                             if "nccl" in k.lower()}),
+            "blocking_syncs_in_block": syncs_inside(prof, "decode_block")}
+
+
+def placement_nccl(device, backend="nccl"):
+    """(a) A one-rank NCCL world, mesh (1, 1): ``DiffusionDecoder`` with a
+    ``DecodeExecutor`` on the graph loop (its captured block carries the
+    loop condition's all_reduce over the data line, inside the IF
+    nodes; the block's outputs come back in one all_gather) against the
+    same decoder without one: tokens and counters identical, one host
+    sync a block; then ``ContinuousEngine`` on the executor, prewarmed,
+    each request bit-equal to its decode alone (``family_continuous``).
+    ``backend`` gloo is the CPU dry run's."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import ContinuousEngine, DecodeExecutor
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        cfg, params = place_model(device)
+        mesh = make_host_mesh(1, 1)
+        ex = DecodeExecutor(cfg, params, mesh, device=device)
+        dcfg = DecodeConfig(method="streaming", gen_len=FAM_GEN,
+                            block_size=BLOCK, window=WINDOW)
+        prompts = family_prompts(cfg, FAM_N, SEED)
+        plain = DiffusionDecoder(cfg, params, dcfg, device=device)
+        plain.generate(prompts.copy())
+        ref = plain.generate(prompts.copy())
+        dec = DiffusionDecoder(cfg, None, dcfg, executor=ex)
+        dec.generate(prompts.copy())                 # captures
+        sync(device)
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        got = dec.generate(prompts.copy())
+        sync(device)
+        wall = time.perf_counter() - t1
+        launches = dict(ops.LAUNCHES)
+        rec = {"phase": "placement", "case": "one_rank_nccl",
+               "mesh": mesh.shape, "backend": ex.data.backend,
+               "arch": PLACE_ARCH, "layers": PLACE_DEPTH,
+               "tokens_identical": bool((got.tokens == ref.tokens).all()),
+               "counters_identical": all(getattr(got, c) == getattr(ref, c)
+                                         for c in COUNTERS),
+               "host_syncs_per_block": got.host_syncs
+               / len(got.steps_per_block),
+               "graphs": dec.graph_cache_size(), "wall_s": wall,
+               "tok_s": got.tokens_generated / wall, "launches": launches}
+        cuda = torch.device(device).type == "cuda"
+        rec["profile_block0"] = nccl_kernels(dec, prompts) if cuda else {
+            "blocking_syncs_in_block": [None]}
+        eng = ContinuousEngine(cfg, params, dcfg, max_slots=FAM_SLOTS,
+                               max_gang=FAM_GANG, executor=ex)
+        rec["prewarm"] = eng.prewarm([(FAM_PROMPT, FAM_GEN)],
+                                     batch_sizes=FAM_CONT_SIZES)
+        rec["continuous"] = family_continuous(
+            cfg, params, eng, eng.scheduler.decoder_for(FAM_GEN), device)
+        rec["continuous"]["pool_placement"] = list(eng.pool.placement)
+        rec["checks"] = {
+            "equals_no_executor": rec["tokens_identical"]
+            and rec["counters_identical"],
+            "one_sync_a_block": rec["host_syncs_per_block"] == 1.0
+            and len(rec["profile_block0"]["blocking_syncs_in_block"]) == 1,
+            "graph_loop": rec["graphs"] > 0,
+            "kernels_launched": launched(launches) or not cuda,
+            # (a row's bits are batch-invariant on the card: gemm.cu; the
+            # CPU's matmul is not, so a CPU dry run skips this check)
+            "continuous": rec["continuous"]["ok"] or not cuda}
+        rec["ok"] = all(rec["checks"].values())
+        rec["seconds"] = time.perf_counter() - t0
+        emit(rec)
+        del eng, dec, plain, ex, params
+    finally:
+        dist.destroy_process_group()
+        free_device()
+    if not rec["ok"]:
+        raise AssertionError(f"placement one-rank NCCL: {rec['checks']}")
+    return rec
+
+
+def placement_gloo_rank(device="cuda"):
+    """One rank of (b): the world from ``RANK``, ``WORLD_SIZE`` and
+    ``REPRO_TORCH_INIT`` over gloo (CUDA tensors staged through host
+    memory), both ranks on the one card. Every rank draws the same
+    weights, makes the (2, 1) and (1, 2) meshes and decodes the same
+    prompts on the host loop; rank 0 also decodes them alone and returns
+    the comparison."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import DecodeExecutor
+    # two processes and gloo's threads share the host's cores: each rank
+    # keeps a quarter of them for its intra-op pool
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 4))
+    dist.init_process_group("gloo", init_method=os.environ[
+        "REPRO_TORCH_INIT"], rank=int(os.environ["RANK"]),
+        world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        rank = dist.get_rank()
+        cfg, params = place_model(device)
+        dcfg = DecodeConfig(method="streaming", gen_len=PLACE_GLOO_GEN,
+                            block_size=BLOCK, window=WINDOW, fused=False)
+        prompts = family_prompts(cfg, PLACE_GLOO_N, SEED)
+        ref = DiffusionDecoder(cfg, params, dcfg, device=device).generate(
+            prompts.copy()) if rank == 0 else None
+        out = {"ranks": dist.get_world_size(), "backend": "gloo",
+               "n": PLACE_GLOO_N, "gen_len": PLACE_GLOO_GEN, "runs": []}
+        for shape in ((2, 1), (1, 2)):
+            mesh = make_host_mesh(*shape)
+            c = dataclasses.replace(cfg, tp=shape[1])
+            ex = DecodeExecutor(c, params, mesh, device=device)
+            try:      # the graph loop would capture gloo: refused
+                DiffusionDecoder(c, None, dataclasses.replace(
+                    dcfg, fused=True), executor=ex)
+                refused = False
+            except ValueError:
+                refused = True
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            r = DiffusionDecoder(c, None, dcfg, executor=ex).generate(
+                prompts.copy())
+            sync(device)
+            run = {"mesh": mesh.shape, "wall_s": time.perf_counter() - t0,
+                   "launches": dict(ops.LAUNCHES),
+                   "graph_loop_refused": refused,
+                   "shards": {"wq_heads": ex.params["layers"][0]["mixer"][
+                       "wq"].shape[1], "vocab": ex.params["embed"].shape[0],
+                       "d_ff": ex.params["layers"][0]["ffn"][
+                           "w_down"].shape[0]}}
+            if ref is not None:
+                run.update(exact=bool((r.tokens == ref.tokens).all()),
+                           agree=float((r.tokens == ref.tokens).mean()),
+                           nfe=r.nfe, ref_nfe=ref.nfe,
+                           valid=bool(((r.tokens >= 0) & (
+                               r.tokens < cfg.vocab_size)).all()))
+            out["runs"].append(run)
+            del ex
+        return out
+    finally:
+        dist.destroy_process_group()
+        torch.set_num_threads(threads)
+
+
+def check_gemm_f32_out(name, M, K, N):
+    """The bf16 GEMM's float32 output and its chain (the row-parallel
+    products on a model line of two, ``layers.row_parallel``): rounded,
+    the float32 output is the bf16 output's bits; the first half of K
+    from 0 and the second half continuing its float32 sums (``acc``)
+    rounds to the same bits (bit-equal to the unsharded product);
+    against the plain float32 product within 2e-5 of its max; the
+    float32 and bf16 outputs timed in turns."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=g, device="cuda")
+         / math.sqrt(K)).to(torch.bfloat16)
+    y32 = ops.gemm(x, w, torch.float32)
+    y16 = ops.gemm(x, w)
+    h = K // 2
+    chain = ops.gemm(x[:, h:].contiguous(), w[h:].contiguous(),
+                     torch.float32, acc=ops.gemm(x[:, :h].contiguous(),
+                                                 w[:h].contiguous(),
+                                                 torch.float32))
+    full = ref.gemm_ref(x, w, torch.float32)
+    torch.cuda.synchronize()
+    err = (y32 - full).abs().max().item()
+    sets = [(x, w)]
+    f32_out = lambda a, b: ops.gemm(a, b, torch.float32)  # noqa: E731
+    t = [time_ms(f32_out, sets), time_ms(ops.gemm, sets),
+         time_ms(ops.gemm, sets), time_ms(f32_out, sets)]
+    rec = {"phase": "kernels", "kernel": "gemm", "case": name,
+           "out": "float32", "shape": {"M": M, "K": K, "N": N},
+           "rounds_to_bf16_out": bool(torch.equal(y32.to(torch.bfloat16),
+                                                  y16)),
+           "chain_of_two_bit_equal": bool(torch.equal(chain, y32)),
+           "max_abs_err": err, "tol": 2e-5 * full.abs().max().item(),
+           "f32_out_ms": (t[0] + t[3]) / 2, "bf16_out_ms": (t[1] + t[2]) / 2}
+    rec["ok"] = (rec["rounds_to_bf16_out"] and rec["chain_of_two_bit_equal"]
+                 and err <= rec["tol"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"gemm float32 out {name}: {rec}")
+    return rec
+
+
+def placement_gloo(device):
+    """(b) Two ranks sharing the one card over gloo, on the host loop:
+    mesh (2, 1) bit-equal to the single-rank decode, mesh (1, 2) valid
+    at agreement >= 0.95 with the same NFE; the shards' widths run
+    through gemm.cu and block_attention.cu. Rank 1 is a process this
+    phase starts (and stops on any failure); this process is rank 0."""
+    t0 = time.perf_counter()
+    f32_out = []
+    if torch.device(device).type == "cuda":
+        # the (1, 2) shards' row-parallel products at the decode's rows
+        cfg = get_config(PLACE_ARCH)
+        M = PLACE_GLOO_N * (BLOCK + min(WINDOW, PLACE_GLOO_GEN - BLOCK) + 1)
+        f32_out = [check_gemm_f32_out("o_shard", M, cfg.d_model // 2,
+                                      cfg.d_model),
+                   check_gemm_f32_out("down_shard", M, cfg.d_ff // 2,
+                                      cfg.d_model)]
+    tmp = tempfile.mkdtemp()
+    env = dict(os.environ, WORLD_SIZE="2",
+               REPRO_TORCH_INIT="file://" + os.path.join(tmp, "rdv"))
+    log_path = os.path.join(tmp, "rank1.log")
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             f"{ROOT!r}); import chip_smoke as c; c.PLACE_ARCH = "
+             f"{PLACE_ARCH!r}; c.PLACE_DEPTH = {PLACE_DEPTH}; "
+             f"c.PLACE_DTYPE = {PLACE_DTYPE!r}; "
+             f"c.placement_gloo_rank({str(device)!r})"],
+            env=dict(env, RANK="1"), cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        os.environ.update(RANK="0", WORLD_SIZE="2",
+                          REPRO_TORCH_INIT=env["REPRO_TORCH_INIT"])
+        out = placement_gloo_rank(device)
+        code = child.wait(timeout=PLACE_TIMEOUT_S)
+    finally:
+        for k in ("RANK", "WORLD_SIZE", "REPRO_TORCH_INIT"):
+            os.environ.pop(k, None)
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        free_device()
+    with open(log_path) as f:
+        child_log = f.read()
+    shutil.rmtree(tmp, ignore_errors=True)
+    by = {tuple(r["mesh"].values()): r for r in out["runs"]}
+    rec = {"phase": "placement", "case": "two_rank_gloo", **out,
+           "rank1_exit": code, "arch": PLACE_ARCH, "layers": PLACE_DEPTH,
+           "gemm_f32_out": [r["ok"] for r in f32_out]}
+    rec["checks"] = {
+        "rank1_ok": code == 0,
+        "data_2_exact": by[(2, 1)]["exact"]
+        and by[(2, 1)]["nfe"] == by[(2, 1)]["ref_nfe"],
+        "model_2_agrees": by[(1, 2)]["valid"] and by[(1, 2)]["agree"] >= 0.95
+        and by[(1, 2)]["nfe"] == by[(1, 2)]["ref_nfe"],
+        "graph_loop_refused_on_gloo": torch.device(device).type != "cuda"
+        or all(r["graph_loop_refused"] for r in out["runs"]),
+        "kernels_launched": torch.device(device).type != "cuda" or all(
+            launched(r["launches"]) for r in out["runs"])}
+    rec["ok"] = all(rec["checks"].values())
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"placement two-rank gloo: {rec['checks']}\n"
+                             f"{child_log[-3000:]}")
+    return rec
+
+
+def phase_placement(device="cuda"):
+    """Placement across ranks at llada-8b full width, 2 layers, bf16:
+    (a) a one-rank NCCL world on the graph loop (``placement_nccl``) and
+    (b) two ranks on the one card over gloo on the host loop
+    (``placement_gloo``). NCCL with more than one rank needs more than
+    one card and does not run here."""
+    t_phase = time.perf_counter()
+    out = {"one_rank_nccl": placement_nccl(
+        device, "nccl" if torch.device(device).type == "cuda" else "gloo"),
+           "two_rank_gloo": placement_gloo(device)}
+    emit({"phase": "placement", "seconds": time.perf_counter() - t_phase})
+    return out
+
+
 def timed(phase, *args):
     """``phase(*args)``, then a line with its seconds."""
     t0 = time.perf_counter()
@@ -4371,6 +4827,9 @@ def main() -> int:
     timed(phase_families)
     # the families' weights are freed (serve_family) before this phase
     rec_serve, rec_cases = timed(phase_recurrent)
+    free_device()
+    timed(phase_frontends)
+    timed(phase_placement)
 
     kernels = [
         {"name": "block_attention", "route": "cuda",

@@ -15,6 +15,9 @@ from typing import Any, List
 import numpy as np
 import torch
 
+# the params leaves outside the layers, where a config has them
+TOP_LEVEL = ("embed", "out_norm", "lm_head", "frontend_proj")
+
 
 def to_tensor(a, device, dtype=None) -> torch.Tensor:
     """A numpy (or ml_dtypes bfloat16) array or tensor on ``device``; a
@@ -79,14 +82,12 @@ def _leaves(x):
 def params_from_jax(tree: dict, device, dtype=None) -> dict:
     """JAX ``init_params`` pytree (numpy or tensor leaves) -> the port's
     params:
-    ``embed``, ``out_norm``, ``lm_head`` and the per-layer list. A
+    ``embed``, ``out_norm``, ``lm_head``, ``frontend_proj`` (the
+    modality frontends) and the per-layer list. A
     ``dtype`` casts every floating leaf but the ``FLOAT32_LEAVES`` (the
     MoE router), which stay float32 as in the JAX package."""
-    out = {k: _convert(tree[k], device, dtype)
-           for k in ("embed", "out_norm", "lm_head") if k in tree}
-    if "frontend_proj" in tree:
-        raise NotImplementedError(
-            "modality frontends are ROADMAP A13 step 4")
+    out = {k: _convert(tree[k], device, dtype) for k in TOP_LEVEL
+           if k in tree}
     layers = _unstack(tree["scan"]) + list(tree["tail"])
     out["layers"] = [_convert(p, device, dtype) for p in layers]
     return out
@@ -118,8 +119,7 @@ def jax_layout(params: dict, cfg, leaf=lambda t: t.detach(),
     if len(layers) != reps * n_pos + len(cfg.tail):
         raise ValueError(f"{len(layers)} layers for a layout of {reps} x "
                          f"{n_pos} + {len(cfg.tail)}")
-    out = {k: leaf(params[k]) for k in ("embed", "out_norm", "lm_head")
-           if k in params}
+    out = {k: leaf(params[k]) for k in TOP_LEVEL if k in params}
     out["scan"] = tuple(
         _stack([layers[r * n_pos + j] for r in range(reps)], stack)
         for j in range(n_pos)) if reps else ()

@@ -15,8 +15,10 @@ prefix, across gen-length buckets and across decode methods.
 Placement: KV numerics depend on where a chunk was computed (the CPU's
 and the card's sums run in other orders), so a store is keyed by the
 device it serves (``device_placement``), like ``PrefixKVPool``: the
-scheduler refuses a store bound elsewhere. Placement across cards (the
-JAX package's executor) is ROADMAP A11.
+scheduler refuses a store bound elsewhere. On a mesh of ranks the key is
+the ``DecodeExecutor``'s placement (a shared store's: its mesh shape,
+``shape_key``); each rank's store holds its model shard of every row's
+chunks.
 
 Sharing: ``shared=True`` turns on internal locking, for several engine
 threads that match, insert and evict concurrently (pins protect chunks

@@ -4,10 +4,12 @@ attention families (``qwen3-32b``, ``phi4-mini-3.8b``, ``minitron-4b``,
 ``gemma2-27b``), the MoE families on the dense path (``olmoe-1b-7b``,
 ``kimi-k2-1t-a32b``), the recurrent families (``recurrentgemma-9b``:
 RG-LRU + local attention; ``xlstm-350m``: mLSTM + sLSTM), each with its
-``-smoke`` variant, and the tiny CPU configs (``tiny``, ``tiny-moe``,
-``tiny-100m``). The modality frontends (llava-next, musicgen) are
-ROADMAP A13 step 4."""
+``-smoke`` variant, the modality frontends (``llava-next-34b``: vision
+patches; ``musicgen-medium``: audio frames; each a stub of precomputed
+embeddings through ``frontend_proj``), and the tiny CPU configs
+(``tiny``, ``tiny-moe``, ``tiny-100m``)."""
 from repro_torch.configs import (dream_llada, gemma2_27b,  # noqa: F401
-                                 kimi_k2, minitron_4b, olmoe_1b_7b,
-                                 phi4_mini, qwen3_32b, recurrentgemma_9b,
-                                 tiny, xlstm_350m)
+                                 kimi_k2, llava_next_34b, minitron_4b,
+                                 musicgen_medium, olmoe_1b_7b, phi4_mini,
+                                 qwen3_32b, recurrentgemma_9b, tiny,
+                                 xlstm_350m)

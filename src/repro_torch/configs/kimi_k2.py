@@ -5,8 +5,8 @@
 vocab=163840. Per the assignment sheet all 61 layers are uniform MoE
 with GQA attention (the production model's MLA + first-dense-layer +
 shared expert are deviations noted in DESIGN.md §7). The port runs the
-dense MoE path on one card; the expert-parallel placement is ROADMAP
-A11. ``remat`` recomputes each layer in the backward pass.
+dense MoE path on one card and the expert-parallel one on a mesh
+(``models.moe``). ``remat`` recomputes each layer in the backward pass.
 """
 from repro_torch.configs.common import smoke_variant
 from repro_torch.models.config import MOE, LayerSpec, ModelConfig, register

@@ -1,9 +1,10 @@
 """olmoe-1b-7b [moe] — 64 experts top-8 [arXiv:2409.02060].
 
 16L d_model=2048 16H (kv=16) expert d_ff=1024, MoE 64e top-8,
-vocab=50304, qk-norm. Every layer's FFN is MoE. The port runs the dense
-path (every expert for every token); the JAX package's expert-parallel
-dispatch over a mesh is ROADMAP A11.
+vocab=50304, qk-norm. Every layer's FFN is MoE. On one card the port
+runs the dense path (every expert for every token); on a mesh with a
+data extent above one, the expert-parallel dispatch
+(``models.moe.apply_moe_ep``).
 """
 from repro_torch.configs.common import smoke_variant
 from repro_torch.models.config import MOE, LayerSpec, ModelConfig, register

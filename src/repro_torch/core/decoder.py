@@ -22,8 +22,20 @@ block refresh and lets the steps query only the block. ``prefix_cache``
 (``repro_torch.cache``) computes the prompt KV once at prefill by
 chunk-causal passes, shareable across requests through a
 ``PrefixKVCache`` store, and the block refreshes then rewrite only the
-generated region (a *tail* refresh). Executor placement (ROADMAP A11)
-raises ``NotImplementedError``.
+generated region (a *tail* refresh).
+
+Placement across ranks (``executor``, a ``serving.DecodeExecutor``): the
+decoder runs the executor's shard of the params on this rank's rows of
+each gang (all of them where the gang does not split over the data
+axes), and its host arrays keep every row, the same on every rank of the
+mesh. The loop condition is a maximum over the data line, so every rank
+runs the same steps; the block's outputs come back in one gather over
+the data line, then the block's one host sync (the host loop gathers
+each step's confidences the same way). On the card the graph loop
+captures those collectives with the block, so it takes NCCL groups; a
+gloo mesh on the card runs the host loop (``fused=False``), and the
+decoder refuses the graph loop there rather than take the host loop
+quietly.
 
 Two loops per block, as in the JAX package:
 
@@ -74,6 +86,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import graph_loop
 from repro_torch.core import schedule as sched
@@ -234,9 +247,10 @@ class _BlockBuffers:
     OUTPUTS = INPUTS + ("step", "counts", "hist", "cconf", "vsums",
                         "fill_n", "n_hit")
 
-    def __init__(self, dec: "DiffusionDecoder", B: int, T: int):
+    def __init__(self, dec: "DiffusionDecoder", batch: int, T: int):
         d, dev = dec.dcfg, dec.device
         K, cap = d.block_size, dec.steps_cap
+        B = dec._local(batch)                 # this rank's rows
         i32, f32, b8 = torch.int32, torch.float32, torch.bool
 
         def z(shape, dtype):
@@ -252,8 +266,8 @@ class _BlockBuffers:
         self.cconf, self.lconf = z((B, K), f32), z((B, K), f32)
         self.toks = z((B, K), i32)
         self.fill_n, self.n_hit = z((), i32), z((), i32)
-        self.cache = None if d.method == "vanilla" else init_cache(
-            dec.cfg, B, T, dev)
+        self.cache = None if d.method == "vanilla" else dec._new_cache(
+            batch, T)
         self.pinned = dev.type == "cuda"
         self.host = {n: torch.empty(getattr(self, n).shape,
                                     dtype=getattr(self, n).dtype,
@@ -264,27 +278,35 @@ class _BlockBuffers:
         self.carries = dec.cache_carries_state
         self.masks = d.method == "dkv"
 
-    def load(self, state: DecodeState) -> None:
-        """Copy a state's host arrays in (asynchronously from pinned
-        memory on the card) and, for a state that owns its buffer (dkv,
-        prefix cache), its KV into the bound buffer."""
+    def load(self, state: DecodeState, rows: slice) -> None:
+        """Copy a state's host arrays (its ``rows``: this rank's) in
+        (asynchronously from pinned memory on the card) and, for a state
+        that owns its buffer (dkv, prefix cache), its KV into the bound
+        buffer."""
         names = self.INPUTS if self.masks else self.INPUTS[:3]
         for n in names:
             src = self.host[n]
-            src.numpy()[...] = getattr(state, n)
+            src.numpy()[...] = getattr(state, n)[rows]
             getattr(self, n).copy_(src, non_blocking=self.pinned)
         if self.carries and state.cache is not self.cache:
             cache_map(lambda b, s: b.copy_(s), self.cache, state.cache)
 
-    def fetch(self, state: DecodeState) -> Dict[str, np.ndarray]:
+    def fetch(self, state: DecodeState, executor=None
+              ) -> Dict[str, np.ndarray]:
         """The block's one fetch: every output to host memory, then a
         single wait (the only one of the block on the card). A state that
         owns its buffer gets its cache copied back out of the bound
-        buffer first."""
+        buffer first. With an executor the outputs come through its one
+        gather over the data line (``gather_block``)."""
         if self.carries and state.cache is not self.cache:
             cache_map(lambda b, s: s.copy_(b), self.cache, state.cache)
         names = self.OUTPUTS if self.masks else tuple(
             n for n in self.OUTPUTS if n not in ("valid_mask", "cached_mask"))
+        if executor is not None:
+            return executor.gather_block(
+                {n: getattr(self, n) for n in names}, state.batch,
+                row_keys=self.INPUTS + ("cconf",),
+                sum_keys=("counts", "hist", "vsums", "fill_n", "n_hit"))
         for n in names:
             self.host[n].copy_(getattr(self, n), non_blocking=self.pinned)
         if self.pinned:
@@ -332,7 +354,8 @@ class _BlockProgram:
     def _model(self, toks, pos, mode, **kw):
         dec = self.dec
         return apply_model(dec.cfg, dec.params, tokens=toks, positions=pos,
-                           mode=mode, use_kernels=dec.dcfg.use_kernels, **kw)
+                           mode=mode, use_kernels=dec.dcfg.use_kernels,
+                           mesh=dec.mesh, **kw)
 
     def _conf_toks(self, out):
         if self.dec.dcfg.parallel:
@@ -371,10 +394,17 @@ class _BlockProgram:
         b.step.add_(1)
 
     def _open(self) -> None:
-        """The loop condition, written to ``pred`` on the device."""
+        """The loop condition, written to ``pred`` on the device: across
+        ranks, whether a row of any rank's is open (a maximum over the
+        data line), so every rank runs the same steps."""
         b = self.b
         open_rows = (~b.committed[:, self.blk]) & ~b.done[:, None]
-        b.pred.copy_((b.step < self.dec.steps_cap) & open_rows.any())
+        any_open = open_rows.any()
+        ex = self.dec.executor
+        if ex is not None and ex.data.active:
+            any_open = ex.data.all_reduce(any_open.to(torch.int32).reshape(1),
+                                          op=dist.ReduceOp.MAX)[0] > 0
+        b.pred.copy_((b.step < self.dec.steps_cap) & any_open)
 
     # ---------------------------------------------------- the program
 
@@ -434,8 +464,8 @@ class _BlockProgram:
             b.cached_mask |= newly
             b.valid_mask |= newly
             b.vsums.index_copy_(0, b.step.long().reshape(1),
-                                (b.valid_mask.sum() // self.B)
-                                .to(torch.int32).reshape(1))
+                                b.valid_mask.sum().to(torch.int32)
+                                .reshape(1))
         elif d.frozen:
             out = self._model(b.x[:, self.blk], self.bpos, "step",
                               cache=b.cache, kv_valid=b.fvalid,
@@ -488,9 +518,6 @@ class DiffusionDecoder:
 
     def __init__(self, cfg: ModelConfig, params, dcfg: DecodeConfig,
                  device=None, executor=None, prompt_cache=None):
-        if executor is not None:
-            raise NotImplementedError(
-                "executor / mesh placement is ROADMAP A11")
         if dcfg.prefix_cache:
             assert all(s.mixer in (ATTN, ATTN_LOCAL) for s in cfg.layout), \
                 ("prefix_cache needs an attention-only layout (recurrent "
@@ -502,6 +529,26 @@ class DiffusionDecoder:
         # May be None in prefix_cache mode: the chunk-aligned prefill and
         # the tail refresh still run, but nothing is shared across requests
         self.prompt_cache = prompt_cache
+        self.executor = executor
+        self.mesh = None
+        if executor is not None:
+            # the placement layer owns the placed params and the mesh; a
+            # decoder bound to an executor never touches raw params
+            if device is not None and torch.device(device) != \
+                    executor.device:
+                raise ValueError(f"device {device} but the executor places "
+                                 f"on {executor.device}")
+            device = executor.device
+            params = executor.params
+            self.mesh = executor.mesh
+            gloo = [g.backend for g in (executor.data, executor.model)
+                    if g.active and g.backend != "nccl"]
+            if dcfg.fused and executor.device.type == "cuda" and gloo:
+                raise ValueError(
+                    "the graph loop captures the block's collectives, which "
+                    f"needs NCCL groups (this mesh's: {gloo[0]}); run a "
+                    "gloo mesh on the card with DecodeConfig(fused=False)")
+            executor.attach(self)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and not dcfg.use_kernels:
             raise ValueError(
@@ -512,6 +559,13 @@ class DiffusionDecoder:
         self.params = params
         # the tied head and the recurrent mixers' weights: built here, once
         self.head = serving_layout(cfg, params)
+        # a vocabulary-sharded head's logits are gathered into whole rows
+        # over the model line before the confidence (ROADMAP B 2 would
+        # reduce over the shards instead)
+        self._head_gather = None
+        if executor is not None and self.head.shape[1] < cfg.vocab_size:
+            model = executor.model
+            self._head_gather = lambda t: model.all_gather(t, -1)
         self.steps_cap = dcfg.steps_per_block or dcfg.block_size
         self.n_commit = max(1, dcfg.block_size // self.steps_cap)
         self._buffers: Dict[tuple, _BlockBuffers] = {}
@@ -529,7 +583,7 @@ class DiffusionDecoder:
         fn = kops.head_confidence_argmax if self.dcfg.use_kernels \
             else sched.head_confidence_and_tokens
         return fn(h_blk, self.head, mask_id=cfg.mask_token_id,
-                  logit_softcap=cfg.logit_softcap)
+                  logit_softcap=cfg.logit_softcap, gather=self._head_gather)
 
     def _conf_from_logits(self, blk_logits):
         """Full-vocab path (fixed-schedule methods): ban [MASK], Eq. 4.
@@ -546,6 +600,48 @@ class DiffusionDecoder:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host -> device copy (never aliases the host array)."""
         return torch.tensor(np.ascontiguousarray(arr), device=self.device)
+
+    def _rows(self, batch: int) -> slice:
+        """This rank's rows of a gang of ``batch`` (every row without an
+        executor)."""
+        if self.executor is None:
+            return slice(0, batch)
+        return self.executor.rows(batch)
+
+    def _local(self, batch: int) -> int:
+        r = self._rows(batch)
+        return r.stop - r.start
+
+    def _new_cache(self, batch: int, total_len: int):
+        """An empty cache for a gang of ``batch``: this rank's shard."""
+        if self.executor is not None:
+            return self.executor.init_cache(batch, total_len)
+        return init_cache(self.cfg, batch, total_len, self.device)
+
+    def _host_rows(self, t: torch.Tensor, batch: int) -> torch.Tensor:
+        """Every row of a per-row device result, on the host."""
+        if self.executor is not None:
+            t = self.executor.gather_rows(t, batch)
+        return t.cpu()
+
+    def _full_cache(self, cache, batch: int):
+        """Every row of a gang's cache (across ranks, gathered over the
+        data line from this rank's rows)."""
+        if self.executor is None:
+            return cache
+        return self.executor.gather_cache(cache, batch)
+
+    def _local_cache(self, full, batch: int):
+        """This rank's rows of a cache that holds every row of a gang."""
+        if self.executor is None:
+            return full
+        return self.executor.local_cache(full, batch)
+
+    def _take_cache(self, cache, batch: int, rows):
+        """A new cache of ``rows`` of a gang of ``batch`` (a copy, of this
+        rank's rows of the new gang)."""
+        return self._local_cache(cache_take_rows(
+            self._full_cache(cache, batch), rows), len(rows))
 
     # ------------------------------------------------------ resumable API
 
@@ -577,6 +673,7 @@ class DiffusionDecoder:
         return len(self._programs)
 
     def _block_buffers(self, B: int, T: int) -> _BlockBuffers:
+        """The static buffers of a gang of (B, T), at this rank's rows."""
         if (B, T) not in self._buffers:
             self._buffers[(B, T)] = _BlockBuffers(self, B, T)
         return self._buffers[(B, T)]
@@ -617,8 +714,9 @@ class DiffusionDecoder:
         if not self.cache_carries_state:
             state.cache = self._bound_cache(B, T)
             return state
-        state.cache = cache if cache is not None else init_cache(
-            cfg, B, T, self.device)
+        state.cache = cache if cache is not None else self._new_cache(B, T)
+        if self.executor is not None:
+            self.executor.constrain_cache(state.cache, B, T)
         if d.prefix_cache:
             # dkv rides the same path: its masks mark the prompt valid and
             # frozen exactly as the full-sequence prefill would, but the
@@ -631,11 +729,12 @@ class DiffusionDecoder:
             return state
         tp0 = time.perf_counter()
         pos = torch.arange(T, dtype=torch.int32, device=self.device)[None]
+        loc = self._rows(B)
         with torch.no_grad():
-            apply_model(cfg, self.params, tokens=self._upload(x),
-                        positions=pos.expand(B, T), mode="encode",
-                        cache=state.cache, skip_head=True,
-                        use_kernels=d.use_kernels)
+            apply_model(cfg, self.params, tokens=self._upload(x[loc]),
+                        positions=pos.expand(self._local(B), T),
+                        mode="encode", cache=state.cache, skip_head=True,
+                        use_kernels=d.use_kernels, mesh=self.mesh)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         state.prefill_time = time.perf_counter() - tp0
@@ -680,10 +779,12 @@ class DiffusionDecoder:
             # the gang computes chunks from the common hit depth; the
             # scheduler's hit-aware admission keeps gangs hit-homogeneous
             n_hit = min(len(h) for h in hits)
+            loc = self._rows(B)
+            Bl = loc.stop - loc.start
             if n_hit:
                 slicing.assemble_batch(
                     state.cache, [[n.payload for n in hits[b][:n_hit]]
-                                  for b in range(B)])
+                                  for b in range(loc.start, loc.stop)])
             spans = [(c * C, (c + 1) * C) for c in range(n_hit, n_chunks)]
             if P > n_chunks * C:
                 spans.append((n_chunks * C, P))   # unaligned remainder
@@ -693,12 +794,13 @@ class DiffusionDecoder:
                                        device=self.device)
                     apply_model(
                         self.cfg, self.params,
-                        tokens=self._upload(state.x[:, t0:t1]),
-                        positions=pos[None].expand(B, t1 - t0),
+                        tokens=self._upload(state.x[loc, t0:t1]),
+                        positions=pos[None].expand(Bl, t1 - t0),
                         mode="append", cache=state.cache,
-                        kv_valid=torch.full((B,), t0, dtype=torch.int32,
+                        kv_valid=torch.full((Bl,), t0, dtype=torch.int32,
                                             device=self.device),
-                        skip_head=True, use_kernels=d.use_kernels)
+                        skip_head=True, use_kernels=d.use_kernels,
+                        mesh=self.mesh)
                     state.nfe += 1
                     state.q_tokens += B * (t1 - t0)
                     state.kv_tokens += B * (t1 - t0) * t1
@@ -711,11 +813,14 @@ class DiffusionDecoder:
             # (pad lanes replicate row 0) skip the extraction entirely
             if store is not None:
                 seen: set = set()
+                # across ranks every rank publishes every row (its model
+                # shard of the heads), so the stores stay alike
+                rows_kv = self._full_cache(state.cache, B)
                 for b in range(B):
                     key = state.x[b, :P].tobytes()
                     start = len(hits[b])
                     if n_chunks > start and key not in seen:
-                        kvs = [slicing.extract_row(state.cache, b, c * C,
+                        kvs = [slicing.extract_row(rows_kv, b, c * C,
                                                    (c + 1) * C)
                                for c in range(start, n_chunks)]
                         store.insert(state.x[b, :P], start, kvs,
@@ -757,12 +862,12 @@ class DiffusionDecoder:
         # index_select copies: the sub-state never aliases the gang it
         # left, whose buffer goes back to the pool
         if self.dcfg.method == "dkv":
-            sub.cache = cache_take_rows(state.cache, rows)
+            sub.cache = self._take_cache(state.cache, state.batch, rows)
             sub.valid_mask = state.valid_mask[rows].copy()
             sub.cached_mask = state.cached_mask[rows].copy()
         elif self.cache_carries_state:
             if alloc_cache:
-                sub.cache = cache_take_rows(state.cache, rows)
+                sub.cache = self._take_cache(state.cache, state.batch, rows)
         elif alloc_cache:
             sub.cache = self._bound_cache(len(rows), state.total_len)
         return sub
@@ -802,8 +907,10 @@ class DiffusionDecoder:
             sub.prefix_hit_tokens = np.concatenate(
                 [st.prefix_hit_tokens[rows] for st, rows in parts])
         if self.cache_carries_state:
-            gathered = [cache_take_rows(st.cache, rows) for st, rows in parts]
-            sub.cache = cache_map(lambda *ts: torch.cat(ts), *gathered)
+            gathered = [cache_take_rows(self._full_cache(st.cache, st.batch),
+                                        rows) for st, rows in parts]
+            sub.cache = self._local_cache(
+                cache_map(lambda *ts: torch.cat(ts), *gathered), sub.batch)
         else:
             sub.cache = self._bound_cache(sub.batch, ref.total_len)
         return sub
@@ -839,8 +946,8 @@ class DiffusionDecoder:
             state.kv_tokens += steps * B * T * T
         elif d.method == "dkv":
             state.q_tokens += steps * B * Sq
-            for vs in vsums[:steps]:
-                state.kv_tokens += B * Sq * (int(vs) + Sq)
+            for vs in vsums[:steps]:         # valid cache slots, all rows
+                state.kv_tokens += B * Sq * (int(vs) // B + Sq)
         elif steps > 0:
             # with the prefix cache the refresh covers only the generated
             # prefix + query (the prompt is attended, not recomputed)
@@ -916,9 +1023,9 @@ class DiffusionDecoder:
         if not self.cache_carries_state:
             state.cache = bufs.cache          # the binding rule (docstring)
         live_rows = int((~state.done).sum())
-        bufs.load(state)
+        bufs.load(state, self._rows(B))
         prog.run()
-        out = bufs.fetch(state)
+        out = bufs.fetch(state, self.executor)
 
         state.x, state.committed, state.done = (out["x"], out["committed"],
                                                 out["done"])
@@ -951,10 +1058,14 @@ class DiffusionDecoder:
         ``_decode_block_host``): the device runs each pass, every step
         fetches its confidences (or block logits) and selection, commit,
         tally, straggler fill and early exit run on the host. The
-        validation oracle of the device loop."""
+        validation oracle of the device loop. Across ranks the device
+        takes this rank's rows (``loc``) and each step's per-row results
+        are gathered over the data line before the host reads them."""
         cfg, d = self.cfg, self.dcfg
         t_block = time.perf_counter()
         B, P = state.batch, state.prompt_len
+        loc = self._rows(B)
+        Bl = loc.stop - loc.start
         K = d.block_size
         T = state.x.shape[1]
         dev = self.device
@@ -963,11 +1074,11 @@ class DiffusionDecoder:
         x, committed, done = state.x, state.committed, state.done
         valid_mask, cached_mask = state.valid_mask, state.cached_mask
         cache = state.cache
-        rows = np.arange(B)[:, None]
+        rows = np.arange(Bl)[:, None]
 
         region, qpos = self._query_region(state)
         Sq = len(qpos)
-        qpos_b = np.broadcast_to(qpos[None], (B, Sq))
+        qpos_b = np.broadcast_to(qpos[None], (Bl, Sq))
         qpos_d = self._upload(qpos_b)
         bstart, bend = region.block_start, region.block_start + K
         prefix_len = bstart
@@ -984,7 +1095,8 @@ class DiffusionDecoder:
         def model(toks_np, pos, mode, **kw):
             return apply_model(cfg, self.params, tokens=self._upload(toks_np),
                                positions=pos, mode=mode,
-                               use_kernels=d.use_kernels, **kw).logits
+                               use_kernels=d.use_kernels, mesh=self.mesh,
+                               **kw).logits
 
         with torch.no_grad():
             while step < self.steps_cap:
@@ -993,77 +1105,81 @@ class DiffusionDecoder:
                     break
                 step += 1
                 out = None                    # logits or hidden states
+                xl = x[loc]                   # this rank's rows
                 if d.method == "vanilla":
-                    out = model(x, self._upload(np.broadcast_to(
-                        np.arange(T, dtype=np.int32)[None], (B, T))),
+                    out = model(xl, self._upload(np.broadcast_to(
+                        np.arange(T, dtype=np.int32)[None], (Bl, T))),
                         "encode")[:, bstart:bend]
                 elif d.method == "dkv":
-                    out = model(x[rows, qpos_b], qpos_d, "append",
+                    out = model(xl[rows, qpos_b], qpos_d, "append",
                                 cache=cache,
-                                kv_valid=self._upload(valid_mask),
+                                kv_valid=self._upload(valid_mask[loc]),
                                 append_at=qpos_d,
                                 self_kv_mix=self._upload(
-                                    cached_mask[rows, qpos_b]))[:, :K]
+                                    cached_mask[loc][rows, qpos_b]))[:, :K]
                     newly = committed & ~cached_mask
                     cached_mask |= newly
                     valid_mask |= newly
-                    vsums.append(int(valid_mask.sum()) // B)
+                    vsums.append(int(valid_mask.sum()))
                 elif step == 1 and d.prefix_cache:
                     # tail refresh: [generated prefix || query] only; the
                     # prompt KV is attended via kv_valid = P
                     upto = prefix_len - P
                     full_pos = np.broadcast_to(np.concatenate(
                         [np.arange(P, prefix_len, dtype=np.int32), qpos])[None],
-                        (B, upto + Sq))
-                    out = model(x[rows, full_pos], self._upload(full_pos),
+                        (Bl, upto + Sq))
+                    out = model(xl[rows, full_pos], self._upload(full_pos),
                                 "append", cache=cache,
-                                kv_valid=torch.full((B,), P, dtype=torch.int32,
+                                kv_valid=torch.full((Bl,), P,
+                                                    dtype=torch.int32,
                                                     device=dev),
                                 skip_head=d.parallel)[:, upto:upto + K]
-                    valid = torch.full((B,), prefix_len, dtype=torch.int32,
+                    valid = torch.full((Bl,), prefix_len, dtype=torch.int32,
                                        device=dev)
                 elif step == 1:
                     full_pos = np.broadcast_to(np.concatenate(
                         [np.arange(prefix_len, dtype=np.int32), qpos])[None],
-                        (B, prefix_len + Sq))
+                        (Bl, prefix_len + Sq))
                     pos_d = self._upload(full_pos)
                     if d.frozen:
-                        out = model(x[rows, full_pos], pos_d, "append",
+                        out = model(xl[rows, full_pos], pos_d, "append",
                                     cache=cache,
-                                    kv_valid=torch.zeros((B,), dtype=torch.int32,
+                                    kv_valid=torch.zeros((Bl,),
+                                                         dtype=torch.int32,
                                                          device=dev),
                                     append_at=pos_d, cache_upto=prefix_len,
                                     skip_head=True)
-                        vb = np.zeros((B, T), bool)
+                        vb = np.zeros((Bl, T), bool)
                         vb[:, :prefix_len] = True
                         vb[:, qpos[K:]] = True
                         valid = self._upload(vb)
                     else:
-                        out = model(x[rows, full_pos], pos_d, "encode",
+                        out = model(xl[rows, full_pos], pos_d, "encode",
                                     cache=cache, cache_upto=prefix_len,
                                     skip_head=d.parallel)
-                        valid = torch.full((B,), prefix_len,
+                        valid = torch.full((Bl,), prefix_len,
                                            dtype=torch.int32, device=dev)
                     out = out[:, prefix_len:prefix_len + K]
                 elif d.frozen:
-                    out = model(x[:, bstart:bend], self._upload(
+                    out = model(xl[:, bstart:bend], self._upload(
                         np.broadcast_to(np.arange(bstart, bend,
                                                   dtype=np.int32)[None],
-                                        (B, K))), "step", cache=cache,
+                                        (Bl, K))), "step", cache=cache,
                         kv_valid=valid, skip_head=True)
                 else:
-                    out = model(x[rows, qpos_b], qpos_d, "step", cache=cache,
-                                kv_valid=valid,
+                    out = model(xl[rows, qpos_b], qpos_d, "step",
+                                cache=cache, kv_valid=valid,
                                 skip_head=d.parallel)[:, :K]
 
                 if d.parallel:
                     # only (B, K) conf + tokens cross to the host
                     conf_d, toks_d = self._conf_from_hidden(out)
-                    conf, toks = conf_d.cpu(), toks_d.cpu()
+                    conf, toks = (self._host_rows(t, B)
+                                  for t in (conf_d, toks_d))
                     state.host_syncs += 1
                 else:
                     # the full (B, K, V) block logits cross to the host
-                    blk = out.float().cpu()
+                    blk = self._host_rows(out.float(), B)
                     state.host_syncs += 1
                     state.logit_syncs += 1
                     if d.use_kernels:
@@ -1071,7 +1187,7 @@ class DiffusionDecoder:
                         # kernel on the card), so both loops select from
                         # the same bits; on the CPU the same operations
                         # as below
-                        conf, toks = (t.cpu() for t in
+                        conf, toks = (self._host_rows(t, B) for t in
                                       self._conf_from_logits(out))
                     else:
                         blk[..., cfg.mask_token_id] = -1e30

@@ -28,7 +28,7 @@ def confidence_and_tokens(logits: torch.Tensor
 
 
 def chunked_head_reduce(hidden: torch.Tensor, head: torch.Tensor, reduce_fn,
-                        *, row_chunk: int = 1024
+                        *, row_chunk: int = 1024, gather=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Project row chunks of the final hidden states through the LM head
     (in the hidden dtype) and hand each chunk's 2-D logits, as the
@@ -36,14 +36,17 @@ def chunked_head_reduce(hidden: torch.Tensor, head: torch.Tensor, reduce_fn,
     ``(..., V)`` logits never exist as one array. Shared by the plain
     reducer below and the kernel route in ``kernels.ops``.
 
-    hidden: (..., d); head: (d, V).
+    hidden: (..., d); head: (d, V), or this rank's columns of it with
+    ``gather`` (the model line's all-gather of the last axis), which
+    makes each chunk's logits whole rows before ``reduce_fn``.
     """
     shape = hidden.shape[:-1]
     h2 = hidden.reshape(-1, hidden.shape[-1])
     confs, toks = [], []
     for s in range(0, h2.shape[0], row_chunk):
         hc = h2[s:s + row_chunk]
-        c, t = reduce_fn(linear(hc, head.to(hc.dtype)))
+        logits = linear(hc, head.to(hc.dtype))
+        c, t = reduce_fn(logits if gather is None else gather(logits))
         confs.append(c)
         toks.append(t)
     conf = confs[0] if len(confs) == 1 else torch.cat(confs)
@@ -53,7 +56,7 @@ def chunked_head_reduce(hidden: torch.Tensor, head: torch.Tensor, reduce_fn,
 
 def head_confidence_and_tokens(hidden: torch.Tensor, head: torch.Tensor, *,
                                mask_id: int = -1, logit_softcap: float = 0.0,
-                               row_chunk: int = 1024
+                               row_chunk: int = 1024, gather=None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused-head path with the plain reducer: each chunk's logits in
     float32, softcapped, [MASK] banned, then Eq. 4. Row chunking leaves
@@ -68,7 +71,8 @@ def head_confidence_and_tokens(hidden: torch.Tensor, head: torch.Tensor, *,
             logits[:, mask_id] = -1e30
         return confidence_and_tokens(logits)
 
-    return chunked_head_reduce(hidden, head, reduce, row_chunk=row_chunk)
+    return chunked_head_reduce(hidden, head, reduce, row_chunk=row_chunk,
+                               gather=gather)
 
 
 def dynamic_threshold(tau0: float, alpha: float, r_mask: torch.Tensor

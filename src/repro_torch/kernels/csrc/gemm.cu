@@ -64,7 +64,11 @@
 //     and releases each stage without issuing its wgmmas, so the tail
 //     costs a warpgroup's 64 rows, not a tile's 128;
 //   - the epilogue rounds to bf16 (nearest even) and stores rows < M and
-//     columns < N straight from the accumulators.
+//     columns < N straight from the accumulators; with out_f32 it stores
+//     the float32 sums, and with acc_in too it starts them from y's
+//     float32 values: a tensor-parallel rank continues the previous
+//     rank's partial sum over its rows of K, so the ranks' chain sums
+//     in the one order a single rank's kernel does (bit-equal to it).
 // The float32 route (the `tiny` config) is a plain 64 x 64 FFMA tile
 // loop, 4 x 4 outputs per thread, no TF32 (it would change the numbers).
 // Where the time goes: chip_smoke.py times the kernel beside cuBLAS and
@@ -244,7 +248,8 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t a, uint64_t b) {
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmap_x,
                  const __grid_constant__ CUtensorMap tmap_w,
-                 __nv_bfloat16* __restrict__ y, int M, int N, int K) {
+                 void* __restrict__ y, int M, int N, int K, int out_f32,
+                 int acc_in) {
   constexpr int S = kStages;
   extern __shared__ __align__(1024) unsigned char smem[];
   // stage s: the x box at ring + s * kStageBytes, then the W boxes; the
@@ -306,9 +311,36 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmap_x,
       }
       return;
     }
+    // accumulator layout (m64nNk16, f32): warp w of the group holds rows
+    // 16 w + lane / 4 (acc[4 i], acc[4 i + 1]) and 8 below (acc[4 i + 2],
+    // acc[4 i + 3]), columns 8 i + 2 (lane % 4) and the next
+    const int ra = r0 + (warp & 3) * 16 + (lane >> 2), rb = ra + 8;
+    const int c0 = n0 + 2 * (lane & 3);
     float acc[kBN / 2];
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+    if (acc_in) {
+      // start from y's float32 sums (each thread reads the outputs it
+      // will write, so y is read and written in place)
+      const float* yf = static_cast<const float*>(y);
+#pragma unroll
+      for (int i = 0; i < kBN / 8; ++i) {
+        const int col = c0 + 8 * i;
+        if (col >= N) continue;
+        if (ra < M) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              yf + static_cast<long long>(ra) * N + col);
+          acc[4 * i] = v.x;
+          acc[4 * i + 1] = v.y;
+        }
+        if (rb < M) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              yf + static_cast<long long>(rb) * N + col);
+          acc[4 * i + 2] = v.x;
+          acc[4 * i + 3] = v.y;
+        }
+      }
+    }
     for (int kt = 0; kt < ktiles; ++kt) {
       const int s = kt % S;
       mbar_wait(full + 8 * s, (kt / S) & 1);
@@ -330,32 +362,48 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmap_x,
     wgmma_wait<0>();
     fence_acc<kBN / 2>(acc);
 
-    // accumulator layout (m64nNk16, f32): warp w of the group holds rows
-    // 16 w + lane / 4 (acc[4 i], acc[4 i + 1]) and 8 below (acc[4 i + 2],
-    // acc[4 i + 3]), columns 8 i + 2 (lane % 4) and the next
-    const int ra = r0 + (warp & 3) * 16 + (lane >> 2), rb = ra + 8;
-    const int c0 = n0 + 2 * (lane & 3);
+    // out_f32: the float32 sums as they are (a tensor-parallel partial
+    // sum, completed over the ranks before it is rounded once)
+    if (out_f32) {
+      float* yf = static_cast<float*>(y);
+#pragma unroll
+      for (int i = 0; i < kBN / 8; ++i) {
+        const int col = c0 + 8 * i;
+        if (col >= N) continue;
+        if (ra < M)
+          *reinterpret_cast<float2*>(yf + static_cast<long long>(ra) * N
+                                     + col) =
+              make_float2(acc[4 * i], acc[4 * i + 1]);
+        if (rb < M)
+          *reinterpret_cast<float2*>(yf + static_cast<long long>(rb) * N
+                                     + col) =
+              make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+      }
+      return;
+    }
+    __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
 #pragma unroll
     for (int i = 0; i < kBN / 8; ++i) {
       const int col = c0 + 8 * i;
       if (col >= N) continue;
       if (ra < M)
         *reinterpret_cast<__nv_bfloat162*>(
-            y + static_cast<long long>(ra) * N + col) =
+            yb + static_cast<long long>(ra) * N + col) =
             __floats2bfloat162_rn(acc[4 * i], acc[4 * i + 1]);
       if (rb < M)
         *reinterpret_cast<__nv_bfloat162*>(
-            y + static_cast<long long>(rb) * N + col) =
+            yb + static_cast<long long>(rb) * N + col) =
             __floats2bfloat162_rn(acc[4 * i + 2], acc[4 * i + 3]);
     }
   }
 }
 
 // float32: 64 x 64 outputs per CTA of 256 threads, 4 x 4 per thread; each
-// output is one fma chain over k = 0 .. K-1.
+// output is one fma chain over k = 0 .. K-1, from 0 or (acc_in) from its
+// value in y.
 __global__ void __launch_bounds__(kFThreads)
 gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                float* __restrict__ y, int M, int N, int K) {
+                float* __restrict__ y, int M, int N, int K, int acc_in) {
   __shared__ float as[kFBK][kFBM];            // x tile, transposed
   __shared__ float bs[kFBK][kFBN];
   const int m0 = blockIdx.x * kFBM, n0 = blockIdx.y * kFBN;
@@ -364,7 +412,11 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) {
+      const int row = m0 + ty * 4 + i, col = n0 + tx * 4 + j;
+      acc[i][j] = (acc_in && row < M && col < N)
+                      ? y[static_cast<long long>(row) * N + col] : 0.f;
+    }
 
   for (int k0 = 0; k0 < K; k0 += kFBK) {
 #pragma unroll
@@ -449,7 +501,7 @@ cudaError_t tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner,
 }
 
 cudaError_t launch_bf16(const void* x, const void* w, void* y, int M, int N,
-                        int K, cudaStream_t s) {
+                        int K, int out_f32, int acc_in, cudaStream_t s) {
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -463,17 +515,20 @@ cudaError_t launch_bf16(const void* x, const void* w, void* y, int M, int N,
   if (e == cudaSuccess) e = tensor_map(&tw, w, N, K, kBox, kBK);
   if (e != cudaSuccess) return e;
   const int grid = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  gemm_bf16_kernel<<<grid, kThreads, kSmemBytes, s>>>(
-      tx, tw, static_cast<__nv_bfloat16*>(y), M, N, K);
+  gemm_bf16_kernel<<<grid, kThreads, kSmemBytes, s>>>(tx, tw, y, M, N, K,
+                                                     out_f32, acc_in);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (or an error for arguments the kernels do not take).
+// dtype 0 = float32, 1 = bfloat16 (x and w); y is float32 where dtype is
+// 0 or out_f32 is set, else bfloat16. acc_in (a float32 y only): the sums
+// start from y's values. Returns cudaGetLastError() after the launch (or
+// an error for arguments the kernels do not take).
 extern "C" int gemm_launch(const void* x, const void* w, void* y, int M,
-                           int N, int K, int dtype, void* stream) {
+                           int N, int K, int dtype, int out_f32, int acc_in,
+                           void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
@@ -482,13 +537,14 @@ extern "C" int gemm_launch(const void* x, const void* w, void* y, int M,
     if (reinterpret_cast<uintptr_t>(x) % 16 != 0
         || reinterpret_cast<uintptr_t>(w) % 16 != 0)
       return cudaErrorMisalignedAddress;
-    return launch_bf16(x, w, y, M, N, K, s);
+    if (acc_in && !out_f32) return cudaErrorInvalidValue;
+    return launch_bf16(x, w, y, M, N, K, out_f32, acc_in, s);
   }
   if (dtype == 0) {
     dim3 grid((M + kFBM - 1) / kFBM, (N + kFBN - 1) / kFBN);
     gemm_f32_kernel<<<grid, kFThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(y), M, N, K);
+        static_cast<float*>(y), M, N, K, acc_in);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;

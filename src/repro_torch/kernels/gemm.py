@@ -98,7 +98,7 @@ def launch_plan(N: int, K: int, dtype: torch.dtype) -> GemmPlan:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gemm_launch.argtypes = [p, p, p, i, i, i, i, p]
+    lib.gemm_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.gemm_launch.restype = ctypes.c_int
     return lib
 
@@ -117,14 +117,18 @@ def load_probe() -> ctypes.CDLL:
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, *,
-           lib=None) -> None:
+           acc_in: bool = False, lib=None) -> None:
     """The kernel on the current stream: x (M, K), w (K, N), y (M, N),
-    contiguous, one dtype (checked by ``ops.gemm``). ``lib`` is a probe
-    build, else the port's library."""
+    contiguous, x and w of one dtype, y of theirs or float32 (the bf16
+    kernel then stores its float32 sums unrounded; checked by
+    ``ops.gemm``). ``acc_in``: a float32 y's values are where the sums
+    start (y is read and written in place). ``lib`` is a probe build,
+    else the port's library."""
     M, K = x.shape
     N = w.shape[1]
     err = (lib or _lib()).gemm_launch(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K,
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPES[x.dtype], int(y.dtype == torch.float32), int(acc_in),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gemm launch failed: cudaError {err}")

@@ -63,9 +63,14 @@ def _require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) -> (M, N) in x's dtype, summed in float32 in
+def gemm(x: torch.Tensor, w: torch.Tensor, out_dtype=None, acc=None
+         ) -> torch.Tensor:
+    """x (M, K) @ w (K, N) -> (M, N) in x's dtype (or ``out_dtype``
+    float32: the sums unrounded), summed in float32 in
     an order that depends on (N, K, dtype) only (``kernels/gemm.py``).
+    ``acc`` (float32 (M, N), with ``out_dtype`` float32): the sums start
+    from its values, and the kernel writes them in its place (the
+    tensor-parallel chain of ``models.layers.row_parallel``).
     CPU tensors take the plain version (``ref.gemm_ref``); CUDA tensors
     the kernel: float32 or bfloat16, both contiguous, one dtype, one
     device, and in bfloat16 (TMA tensor maps) K and N multiples of 8 and
@@ -73,8 +78,17 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     raises."""
     _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
              f"gemm: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    _require(out_dtype in (None, x.dtype, torch.float32),
+             f"gemm: out_dtype {out_dtype} (x's dtype or float32)")
+    _require(acc is None or (out_dtype == torch.float32
+                             and acc.dtype == torch.float32
+                             and acc.shape == (x.shape[0], w.shape[1])
+                             and acc.device == x.device
+                             and acc.is_contiguous()),
+             "gemm: acc must be a contiguous float32 (M, N) on x's device, "
+             "with out_dtype float32")
     if x.device.type == "cpu":
-        return ref.gemm_ref(x, w)
+        return ref.gemm_ref(x, w, out_dtype, acc)
     from repro_torch.kernels import gemm as kernel
     _require(x.is_cuda and w.device == x.device,
              f"gemm: devices {x.device} and {w.device}")
@@ -91,14 +105,15 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                  f"gemm: bfloat16 needs K and N multiples of 8 (K={K}, N={N})")
         _require(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
                  "gemm: x and w must be 16-byte aligned")
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    kernel.launch(x, w, y)
+    y = acc if acc is not None else torch.empty(
+        (M, N), dtype=out_dtype or x.dtype, device=x.device)
+    kernel.launch(x, w, y, acc_in=acc is not None)
     count({"gemm": 1})
     return y
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, *, train: bool = False
-           ) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor, *, train: bool = False,
+           out_dtype=None, acc=None) -> torch.Tensor:
     """``x @ w`` for every product of the model: x (..., K), w (K, N).
     On the CPU it is ``torch.matmul``, exactly as the plain path has it;
     on the card the GEMM kernel (``gemm``), whose sum order does not
@@ -108,11 +123,25 @@ def linear(x: torch.Tensor, w: torch.Tensor, *, train: bool = False
     ``train=True`` is the training route on every device: ``x @ w``,
     differentiable under autograd (the kernel has no backward). The JAX
     package trains on XLA's dot, never on a kernel; serving never takes
-    this route."""
+    this route.
+
+    ``out_dtype=torch.float32``: the float32 sums unrounded; ``acc`` (of
+    the output's shape, float32): the sums start from its values (a
+    tensor-parallel rank continuing the previous rank's partial sum,
+    ``models.layers.row_parallel``)."""
     if train or x.device.type == "cpu":
-        return x @ w
+        if acc is not None:
+            return acc + x.float() @ w.float()
+        if out_dtype is None or out_dtype == x.dtype:
+            return x @ w
+        return x.float() @ w.float()
     lead = x.shape[:-1]
-    y = gemm(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if out_dtype is None:
+        y = gemm(x2, w)
+    else:
+        y = gemm(x2, w, out_dtype, None if acc is None
+                 else acc.reshape(-1, w.shape[1]))
     return y.reshape(*lead, w.shape[1])
 
 
@@ -215,7 +244,7 @@ def confidence_argmax(logits: torch.Tensor, *, mask_id: int = -1):
 
 def head_confidence_argmax(hidden, head, *, mask_id: int = -1,
                            logit_softcap: float = 0.0,
-                           row_chunk: int = 1024):
+                           row_chunk: int = 1024, gather=None):
     """LM-head projection + confidence/argmax (Eq. 4) over row chunks, so
     the full ``(..., V)`` logits never exist as one array. hidden:
     (..., d); head: (d, V). ``mask_id >= 0`` bans that token. The
@@ -223,7 +252,9 @@ def head_confidence_argmax(hidden, head, *, mask_id: int = -1,
     ``torch.matmul`` on the CPU, the GEMM kernel on the card); its output
     goes to the kernel as it is (bf16 on the main path), and the kernel
     widens it and bans ``mask_id`` as it reads it. A softcap, which the
-    kernel does not take, is applied in float32 first."""
+    kernel does not take, is applied in float32 first. ``gather``: the
+    head is this rank's vocabulary columns, and the logits are gathered
+    into whole rows (``chunked_head_reduce``) before the kernel."""
     from repro_torch.core.schedule import chunked_head_reduce
 
     def reduce(logits):
@@ -231,7 +262,8 @@ def head_confidence_argmax(hidden, head, *, mask_id: int = -1,
             logits = ref.softcap_ref(logits.float(), logit_softcap)
         return _confidence_2d(logits, mask_id)
 
-    return chunked_head_reduce(hidden, head, reduce, row_chunk=row_chunk)
+    return chunked_head_reduce(hidden, head, reduce, row_chunk=row_chunk,
+                               gather=gather)
 
 
 # ------------------------------------------------------------------ scans

@@ -16,9 +16,14 @@ def softcap_ref(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
-def gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) in float32, cast to x's dtype."""
-    return (x.float() @ w.float()).to(x.dtype)
+def gemm_ref(x: torch.Tensor, w: torch.Tensor, out_dtype=None, acc=None
+             ) -> torch.Tensor:
+    """x (M, K) @ w (K, N) in float32 (added to ``acc``, float32, when
+    given), cast to ``out_dtype`` (x's by default)."""
+    y = x.float() @ w.float()
+    if acc is not None:
+        y = acc + y
+    return y.to(out_dtype or x.dtype)
 
 
 def block_attention_ref(q, k, v, q_pos, kv_pos, kv_mask, *, scale: float,

@@ -20,8 +20,9 @@ The JAX package's ``enable_compile_cache`` has no counterpart: the
 port's block programs are CUDA graphs captured in-process and never
 persisted (``--prewarm`` captures them before admission opens), and the
 two ``repro_persistent_cache_*`` series stay at 0. Faking host devices
-(``force_host_device_count``) belongs to the mesh placement, ROADMAP
-A11.
+(``force_host_device_count``) has its counterpart in the serve CLI:
+``--force-host-devices N`` starts N CPU ranks over gloo
+(``launch.serve.launch_ranks``).
 """
 from __future__ import annotations
 

@@ -61,7 +61,19 @@ and decodes them on M engines. ``--host-threads-per-engine`` sizes the
 process's intra-op pool (``repro_torch.launch.host``; default cores //
 engines). ``--prewarm`` captures every engine's graphs, one engine after
 another, before admission opens.
-``--mesh`` and ``--force-host-devices`` wait for ROADMAP A11.
+
+``--mesh DATA,MODEL`` places the continuous engine on a mesh of ranks
+(``serving.DecodeExecutor``; SPMD, one process a rank): every rank builds
+the same weights (rank 0's, broadcast), the same engine and the same
+requests, and rank 0 alone prints. The ranks come from the environment
+(``RANK``, ``WORLD_SIZE`` and ``MASTER_ADDR``/``MASTER_PORT``, as
+``torchrun`` sets them) or, with ``--force-host-devices N`` (the JAX
+CLI's fake host devices), this launcher starts N CPU ranks itself over a
+file rendezvous. ``--backend`` is the process groups' backend: gloo on
+the CPU, NCCL on the card unless named (the graph loop captures NCCL
+collectives only; gloo on the card needs ``--host-loop``). The front end
+(``--http``) and fleets (``--engines``) stay on one rank: with a mesh
+the ranks would need the front end's requests broadcast to them.
 """
 from __future__ import annotations
 
@@ -258,20 +270,41 @@ def main(argv=None):
                     help="PyTorch intra-op threads (process-wide); 0 = "
                     "cores // engines (repro_torch.launch.host)")
     ap.add_argument("--mesh", default="", metavar="DATA,MODEL",
-                    help="per-engine mesh placement (ROADMAP A11: not "
-                    "ported, raises)")
+                    help="place the engine on a (data, model) mesh of "
+                    "ranks (continuous mode)")
     ap.add_argument("--force-host-devices", type=int, default=0,
-                    help="fake host devices (ROADMAP A11: not ported, "
-                    "raises)")
+                    metavar="N",
+                    help="start N CPU ranks over gloo for --mesh "
+                    "(needs --device cpu)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="process group backend for --mesh (default: "
+                    "gloo on the CPU, nccl on CUDA)")
     args = ap.parse_args(argv)
 
     from repro_torch.obs.log import setup_logging
     setup_logging(json_mode=args.log_json)
     # flag validation up front, before any weights are made
-    if args.mesh or args.force_host_devices:
-        raise NotImplementedError(
-            "--mesh and --force-host-devices (mesh placement) are "
-            "ROADMAP A11")
+    mesh_dims = parse_mesh(args.mesh) if args.mesh else None
+    if args.force_host_devices and mesh_dims is None:
+        raise SystemExit("--force-host-devices starts the ranks of --mesh: "
+                         "pass --mesh DATA,MODEL")
+    if mesh_dims is not None:
+        if args.http or args.engines > 1 or args.mode != "continuous":
+            raise SystemExit(
+                "--mesh serves one continuous engine without --http: the "
+                "front end and a fleet run on one rank, and the ranks "
+                "would need their requests broadcast")
+        need = mesh_dims[0] * mesh_dims[1]
+        if args.force_host_devices:
+            if args.device != "cpu":
+                raise SystemExit("--force-host-devices starts CPU ranks: "
+                                 "pass --device cpu")
+            if args.force_host_devices < need:
+                raise SystemExit(f"--mesh {args.mesh} needs {need} ranks, "
+                                 f"--force-host-devices "
+                                 f"{args.force_host_devices}")
+            if "RANK" not in os.environ:
+                return launch_ranks(argv, args.force_host_devices)
     if args.engines > 1 and not args.http:
         raise SystemExit("--engines N > 1 needs --http (the router lives "
                          "in the HTTP front end)")
@@ -331,9 +364,23 @@ def main(argv=None):
                 pool_sizes, args.host_threads_per_engine)
         print(f"host budget: {budget.describe()}")
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, dtype=args.dtype, param_dtype=args.dtype)
+    over = {"tp": mesh_dims[1]} if mesh_dims is not None else {}
+    cfg = get_config(args.arch, dtype=args.dtype, param_dtype=args.dtype,
+                     **over)
+    executor = None
+    if mesh_dims is not None:
+        init_ranks(args, device)
     t0 = time.perf_counter()
     params = load_weights(args, cfg, device)
+    if mesh_dims is not None:
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.serving import DecodeExecutor
+        params = broadcast_params(params)
+        mesh = make_host_mesh(*mesh_dims)
+        if not mesh.member:                 # a rank the mesh leaves out
+            torch.distributed.destroy_process_group()
+            return None
+        executor = DecodeExecutor(cfg, params, mesh, device=device)
     d = DecodeConfig(method=args.method, gen_len=args.gen_len,
                      block_size=cfg.block_size, window=args.window,
                      tau0=args.tau0, alpha=args.alpha,
@@ -361,14 +408,16 @@ def main(argv=None):
             # affinity relies on that split
             store = PrefixKVCache(chunk_tokens=args.cache_chunk,
                                   max_bytes=args.cache_bytes,
-                                  placement=device_placement(device))
+                                  placement=(executor.placement
+                                             if executor is not None
+                                             else device_placement(device)))
         return ContinuousEngine(
             cfg, params, d, max_slots=args.max_slots,
             pad_pow2=args.pad_pow2, prefix_cache=store,
             prefill_only=(role == "prefill"),
             host_budget=(pool_budgets[role] if pool_budgets is not None
                          else budget),
-            device=device)
+            device=device, executor=executor)
 
     if args.mode == "batch":
         eng = ServingEngine(cfg, params, d, mode="batch", device=device)
@@ -443,9 +492,109 @@ def main(argv=None):
                 "prefix_cache_hit_tokens": snap["prefix_cache_hit_tokens"],
                 "prefix_cache_nodes": snap["prefix_cache_nodes"]})
     summary["launches"] = dict(kops.LAUNCHES)
+    if executor is not None:
+        summary.update({"mesh": dict(executor.mesh.shape),
+                        "ranks": int(torch.distributed.get_world_size()),
+                        "tokens_digest": tokens_digest(done)})
     export_trace(tracer, args.trace_dir)
-    print(json.dumps(summary))
+    if executor is None or torch.distributed.get_rank() == 0:
+        print(json.dumps(summary))
+    if executor is not None:
+        torch.distributed.destroy_process_group()
     return summary
+
+
+def parse_mesh(s: str):
+    try:
+        data, model = (int(v) for v in s.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh wants 'data,model' ints, got {s!r}")
+    return data, model
+
+
+def tokens_digest(done) -> str:
+    """A digest of every completion's tokens in uid order (two runs that
+    serve the same tokens print the same one)."""
+    import hashlib
+    h = hashlib.sha256()
+    for c in sorted(done, key=lambda c: c.uid):
+        h.update(np.asarray(c.tokens, np.int64).tobytes())
+    return h.hexdigest()[:16]
+
+
+def init_ranks(args, device) -> None:
+    """Join the world the environment names (``RANK``, ``WORLD_SIZE``,
+    and ``REPRO_TORCH_INIT`` from ``launch_ranks`` or ``MASTER_ADDR``/
+    ``MASTER_PORT``) with the backend of ``--backend`` (gloo on the CPU,
+    NCCL on CUDA unless named)."""
+    import torch.distributed as dist
+    backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    rank = int(os.environ.get("RANK", 0))
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    init = os.environ.get("REPRO_TORCH_INIT", "env://")
+    if init == "env://" and "MASTER_ADDR" not in os.environ:
+        if world != 1:
+            raise SystemExit("--mesh over several ranks needs RANK, "
+                             "WORLD_SIZE, MASTER_ADDR and MASTER_PORT "
+                             "(torchrun) or --force-host-devices")
+        import tempfile
+        init = "file://" + os.path.join(tempfile.mkdtemp(), "rendezvous")
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world)
+
+
+def broadcast_params(params):
+    """Every rank takes rank 0's weights (a trained or restored model is
+    then the same on every rank whatever its own run gave)."""
+    import torch.distributed as dist
+    if isinstance(params, dict):
+        return {k: broadcast_params(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(broadcast_params(v) for v in params)
+    t = params.contiguous()
+    dist.broadcast(t, src=0)
+    return t
+
+
+def launch_ranks(argv, n: int, timeout: float = 600.0):
+    """Start ``n`` CPU ranks of this CLI (``RANK``/``WORLD_SIZE`` and a
+    file rendezvous in a new temporary directory), wait for them and
+    relay rank 0's output; returns rank 0's summary. Raises if a rank
+    fails or outlives ``timeout`` seconds (every rank is then killed)."""
+    import subprocess
+    import sys
+    import tempfile
+    argv = list(argv if argv is not None else sys.argv[1:])
+    with tempfile.TemporaryDirectory() as tmp:
+        base = dict(os.environ, WORLD_SIZE=str(n),
+                    REPRO_TORCH_INIT="file://" + os.path.join(tmp, "rdv"))
+        procs = []
+        for r in range(n):
+            out = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                env=dict(base, RANK=str(r)), stdout=out,
+                stderr=subprocess.STDOUT), out))
+        deadline = time.monotonic() + timeout
+        try:
+            codes = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                     for p, _ in procs]
+        finally:
+            for p, out in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                out.close()
+        logs = [open(os.path.join(tmp, f"rank{r}.log")).read()
+                for r in range(n)]
+    if any(codes):
+        bad = next(r for r, c in enumerate(codes) if c)
+        raise SystemExit(f"rank {bad} of {n} exited with {codes[bad]}:\n"
+                         f"{logs[bad][-4000:]}")
+    print(logs[0], end="")
+    return json.loads(logs[0].strip().splitlines()[-1])
 
 
 def load_weights(args, cfg, device) -> dict:

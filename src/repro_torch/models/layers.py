@@ -54,6 +54,35 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (x * (1.0 + w.float())).to(dt)
 
 
+def row_parallel(x: torch.Tensor, w: torch.Tensor, tp, train: bool = False
+                 ) -> torch.Tensor:
+    """``x @ w`` through ``ops.linear``; with ``tp`` (the model line) w is
+    this rank's rows of a row-parallel weight (x its columns), and the
+    ranks sum in a chain, in mesh order: each continues the float32
+    partial sum of the rank before it over its own rows of K (the GEMM
+    kernel starts its sums from them), the last rounds once to x's dtype
+    and broadcasts. On the card the chain sums in the order one rank's
+    kernel does, so the product is bit-equal to the unsharded one (an
+    ``all_reduce`` of partial sums would round differently, and on a
+    random model's near-ties that moves tokens). The ranks' products
+    run one after another."""
+    if tp is None:
+        return linear(x, w, train=train)
+    shape = (*x.shape[:-1], w.shape[1])
+    acc = None
+    if tp.index > 0:
+        acc = tp.recv(torch.empty(shape, dtype=torch.float32,
+                                  device=x.device), tp.index - 1)
+    y = linear(x, w, out_dtype=torch.float32, acc=acc)
+    last = tp.size - 1
+    if tp.index < last:
+        tp.send(y, tp.index + 1)
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    else:
+        out = y.to(x.dtype)
+    return tp.broadcast(out, last)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
@@ -256,7 +285,7 @@ def attend_ref(q, k, v, *, scale, attn_softcap=0.0, window=0,
 def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
                     kv_valid=None, window=0, return_kv=False,
                     self_kv_override=None, rope=None, kv_mask=None,
-                    use_kernels=False, train=False):
+                    use_kernels=False, train=False, tp=None):
     """GQA attention over [kv_cache || self].
 
     x: (B, Sq, d). kv_cache: optional (k, v) each (B, P, Hkv, D) with
@@ -275,6 +304,9 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
     of ``attend_ref``. ``train`` is the training route: ``attend_ref``
     and every product ``x @ w`` (``ops.linear(train=True)``), so autograd
     reaches the weights on any device.
+    ``tp`` (a ``launch.mesh.AxisGroup``): the weights are this rank's
+    heads (column-parallel q/k/v, row-parallel o), so the o product is a
+    partial sum that an ``all_reduce`` over the model line completes.
     """
     B, Sq_self, d = x.shape
     H, hd = p["wq"].shape[1], p["wq"].shape[2]
@@ -320,18 +352,21 @@ def apply_attention(cfg, p, x, *, q_pos, kv_pos=None, kv_cache=None,
         out = attend_ref(q, k, v, scale=scale, attn_softcap=cfg.attn_softcap,
                          window=window, q_pos=q_pos, kv_pos=kv_pos,
                          kv_mask=kv_mask)
-    out = linear(out.reshape(B, Sq_self, H * hd),
-                 p["wo"].reshape(H * hd, d), train=train)
+    out = row_parallel(out.reshape(B, Sq_self, H * hd),
+                       p["wo"].reshape(H * hd, d), tp, train=train)
     return (out, new_kv) if return_kv else out
 
 
 # ---------------------------------------------------------------- ffn
 
-def apply_ffn(p, x, kind: str, train: bool = False):
+def apply_ffn(p, x, kind: str, train: bool = False, tp=None):
+    """SwiGLU or GELU FFN. ``tp``: the weights are this rank's d_ff
+    columns (gate/up) and rows (down); the down product's partial sum is
+    completed over the model line."""
     if kind == "swiglu":
         h = F.silu(linear(x, p["w_gate"], train=train)) \
             * linear(x, p["w_up"], train=train)
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(linear(x, p["w_up"], train=train), approximate="tanh")
-    return linear(h, p["w_down"], train=train)
+    return row_parallel(h, p["w_down"], tp, train=train)

@@ -4,7 +4,9 @@
 dense path, ``models.moe``) / no FFN.
 
 Params are a dict: ``embed (V, d)``, ``out_norm (d,)``, ``lm_head (d, V)``
-(absent with tied embeddings) and ``layers``, a list with one dict per
+(absent with tied embeddings), ``frontend_proj (F, d)`` (the modality
+frontends' stub: precomputed patch or frame embeddings of width F are
+projected to d) and ``layers``, a list with one dict per
 layer in layout order (the JAX package's scan-stacked groups unstacked:
 layer ``r * len(pattern) + i`` is repetition ``r`` of pattern position
 ``i``, then the tail). The cache is a list with one entry per layer: a
@@ -21,6 +23,21 @@ Three execution modes:
             at ``kv_valid`` offsets or at ``append_at`` slots
             (``self_kv_mix``: the dKV cache's frozen K/V stand in for
             the fresh ones where it holds).
+
+Across ranks (``mesh``, a ``launch.mesh.Mesh``) the params are this
+rank's shards as ``launch.sharding.SpecBuilder`` cuts them, and the
+collectives are written out where GSPMD inserts them for the reference:
+a vocabulary-sharded embedding is looked up where it holds the token and
+summed over the model line; q/k/v and gate/up are column-parallel, o
+and down row-parallel with an ``all_reduce`` over the model line after
+them; the vocabulary-sharded head's logits are gathered over the model
+line into whole rows; a sharded ``frontend_proj`` (d over model) is
+gathered the same way. A dimension that does not divide the line stays
+whole (the spec builder's guard), and the code reads which from the
+shards' widths. The reference's ``_seq_shard`` (a sequence-parallel
+layout hint for GSPMD between layers) has no counterpart: it moves no
+value, and the port's explicit ``all_reduce`` leaves every rank of the
+model line the whole residual stream.
 
 Unlike the JAX package, the cache buffers are updated in place (one KV
 buffer per decode state instead of one per call), the recurrent states
@@ -43,7 +60,7 @@ from repro_torch.models.layers import (apply_attention, apply_ffn,
                                        attention_kv_mask, dense_init,
                                        derived, init_attention, init_ffn,
                                        rms_norm, rope_table, softcap)
-from repro_torch.models.moe import apply_moe_dense, init_moe
+from repro_torch.models.moe import apply_moe, init_moe
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -104,6 +121,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(
             generator, (cfg.d_model, cfg.vocab_size), cfg.d_model, dtype)
+    if cfg.frontend_embed_dim:
+        params["frontend_proj"] = dense_init(
+            generator, (cfg.frontend_embed_dim, cfg.d_model),
+            cfg.frontend_embed_dim, dtype)
     params["layers"] = [init_layer(generator, cfg, spec, dtype)
                         for spec in cfg.layout]
     return params
@@ -219,7 +240,8 @@ def _write_state(cache, st) -> None:
         buf.copy_(new)
 
 
-def _apply_recurrent(cfg, p, spec, h, *, cache, mode, cache_upto, train):
+def _apply_recurrent(cfg, p, spec, h, *, cache, mode, cache_upto, train,
+                     tp=None):
     """The recurrent mixer of a layer (``src/repro/models/model.py``'s
     branch): a pass with no cache scans from the zero state; a refresh
     (encode or append with ``cache_upto``) scans the prefix from the zero
@@ -229,9 +251,9 @@ def _apply_recurrent(cfg, p, spec, h, *, cache, mode, cache_upto, train):
     ``cache_upto`` scans from the zero state, as the reference does from
     the fresh cache it is given. ``step`` leaves the cache as it was."""
     fn = rec.APPLY[spec.mixer]
-    kw = dict(return_state=True, train=train)
+    kw = dict(return_state=True, train=train, tp=tp)
     if cache is None:
-        return fn(cfg, p["mixer"], h, train=train)
+        return fn(cfg, p["mixer"], h, train=train, tp=tp)
     if mode in ("encode", "append") and cache_upto is not None:
         out1, st = fn(cfg, p["mixer"], h[:, :cache_upto], **kw)
         out2, _ = fn(cfg, p["mixer"], h[:, cache_upto:], state=st, **kw)
@@ -244,10 +266,15 @@ def _apply_recurrent(cfg, p, spec, h, *, cache, mode, cache_upto, train):
     return out
 
 
+def _tp_if(tp, local: int, full: int):
+    """The model line where a width is this rank's shard of ``full``."""
+    return tp if (tp is not None and local < full) else None
+
+
 def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
                 mode, append_at=None, self_kv_mix=None, kv_pos=None,
                 rope=None, kv_mask=None, cache_upto=None, use_kernels=False,
-                train=False):
+                train=False, mesh=None):
     """Returns (y, cache, aux); the cache is written in place; aux is the
     MoE layer's load-balance loss, None for other FFNs. ``kv_pos``,
     ``rope`` and ``kv_mask`` are the pass's key positions, RoPE table and
@@ -255,18 +282,23 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
     ``self_kv_mix`` (B, Sq) bool (dKV cache): where it holds, the query
     token's K/V is the cache's at its position instead of a fresh one.
     ``cache_upto`` is the block refresh's prefix boundary, which only a
-    recurrent layer reads (``_apply_recurrent``)."""
+    recurrent layer reads (``_apply_recurrent``). ``mesh``: the params
+    are this rank's shards (module docstring)."""
+    tp = mesh.model_group if mesh is not None else None
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.local_window if spec.mixer == ATTN_LOCAL else 0
     B = x.shape[0]
+    attn_tp = None if spec.mixer in rec.APPLY else _tp_if(
+        tp, p["mixer"]["wo"].shape[0],
+        plan_heads(cfg.n_heads, cfg.n_kv_heads, cfg.tp).pad_q)
     if spec.mixer in rec.APPLY:
         out = _apply_recurrent(cfg, p, spec, h, cache=cache, mode=mode,
-                               cache_upto=cache_upto, train=train)
+                               cache_upto=cache_upto, train=train, tp=tp)
     elif mode == "encode":
         out, kv = apply_attention(cfg, p["mixer"], h, q_pos=q_pos,
                                   window=window, return_kv=True, rope=rope,
                                   kv_mask=kv_mask, use_kernels=use_kernels,
-                                  train=train)
+                                  train=train, tp=attn_tp)
         if cache is not None:
             S = x.shape[1]
             if S > cache[0].shape[1]:
@@ -287,7 +319,8 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
                                   kv_valid=kv_valid, window=window,
                                   return_kv=True,
                                   self_kv_override=override, rope=rope,
-                                  kv_mask=kv_mask, use_kernels=use_kernels)
+                                  kv_mask=kv_mask, use_kernels=use_kernels,
+                                  tp=attn_tp)
         if mode == "append":
             for buf, new in zip(cache, kv):
                 if append_at is not None:
@@ -299,9 +332,11 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
     if spec.ffn != NONE:
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         if spec.ffn == MOE:
-            y, aux = apply_moe_dense(cfg, p["ffn"], h2, train=train)
+            y, aux = apply_moe(cfg, p["ffn"], h2, mesh=mesh, train=train)
         else:
-            y = apply_ffn(p["ffn"], h2, spec.ffn, train=train)
+            y = apply_ffn(p["ffn"], h2, spec.ffn, train=train,
+                          tp=_tp_if(tp, p["ffn"]["w_down"].shape[0],
+                                    cfg.d_ff))
         x = x + y
     return x, cache, aux
 
@@ -316,13 +351,48 @@ def cache_kv_positions(P_len: int, q_pos):
 
 # ------------------------------------------------------------- forward
 
-def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
+def _embed(cfg, params, tokens, tp):
+    """Token embeddings; with a vocabulary-sharded ``embed`` each rank
+    looks up the tokens it holds (zeros elsewhere) and the model line
+    sums them: one nonzero term a row, so the sum is exact."""
+    emb = params["embed"]
+    if tp is None or emb.shape[0] == cfg.vocab_size:
+        return emb[tokens.long()]
+    rows = emb.shape[0]
+    local = tokens.long() - tp.index * rows
+    inside = (local >= 0) & (local < rows)
+    x = emb[local.clamp(0, rows - 1)]
+    return tp.all_reduce(torch.where(inside[..., None], x, x.new_zeros(())))
+
+
+def _frontend(cfg, params, e, dtype, tp, train):
+    """Frontend-width embeddings (``cfg.frontend_embed_dim``) projected to
+    d through ``frontend_proj`` (``ops.linear``); d-wide ones as given.
+    A proj sharded over d gives this rank's columns, gathered over the
+    model line."""
+    e = e.to(dtype)
+    if not (cfg.frontend_embed_dim and e.shape[-1] == cfg.frontend_embed_dim):
+        return e
+    w = params["frontend_proj"]
+    e = linear(e, w.to(dtype), train=train)
+    if tp is not None and w.shape[1] < cfg.d_model:
+        e = tp.all_gather(e, -1)
+    return e
+
+
+def apply_model(cfg: ModelConfig, params, *, tokens=None, embeds=None,
+                prefix_embeds=None, positions=None,
                 mode: str = "encode", cache=None, kv_valid=None,
                 append_at=None, self_kv_mix=None,
                 cache_upto: Optional[int] = None, skip_head: bool = False,
-                use_kernels: bool = False, train: bool = False
+                use_kernels: bool = False, train: bool = False, mesh=None
                 ) -> ModelOutput:
-    """tokens: (B, S) int; positions: (B, S). ``use_kernels`` routes the
+    """tokens: (B, S) int, or ``embeds`` (B, S, F or d) in their place;
+    ``prefix_embeds`` (B, Sp, F or d): the modality frontends' stub
+    (precomputed patch or frame embeddings), projected and prepended to
+    the token embeddings before ``embed_scale``, so the pass covers
+    Sp + S positions; positions: (B, S) of the whole pass. ``mesh``: the
+    params are this rank's shards (module docstring). ``use_kernels`` routes the
     attention of every layer through ``kernels.ops.block_attention``.
     ``self_kv_mix`` (B, S) bool: the dKV cache's frozen tokens (their K/V
     is gathered from the cache at their position in every layer).
@@ -347,9 +417,16 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
     if mode != "encode" and cache is None:
         raise ValueError(f"mode={mode!r} needs a cache")
     dtype = DTYPES[cfg.dtype]
-    B, S = tokens.shape
-    dev = tokens.device
-    x = params["embed"][tokens.long()].to(dtype)
+    tp = mesh.model_group if mesh is not None else None
+    if tokens is not None:
+        x = _embed(cfg, params, tokens, tp).to(dtype)
+    else:
+        x = _frontend(cfg, params, embeds, dtype, tp, train)
+    if prefix_embeds is not None:
+        x = torch.cat([_frontend(cfg, params, prefix_embeds, dtype, tp,
+                                 train), x], dim=1)
+    B, S = x.shape[:2]
+    dev = x.device
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     if positions is None:
@@ -383,7 +460,8 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
                                append_at=append_at, self_kv_mix=self_kv_mix,
                                kv_pos=kv_pos, rope=rope, kv_mask=kv_mask,
                                cache_upto=cache_upto,
-                               use_kernels=use_kernels, train=train)
+                               use_kernels=use_kernels, train=train,
+                               mesh=mesh)
         if remat and i < n_scan:
             x, _, a = checkpoint(layer, params["layers"][i], x,
                                  use_reentrant=False)
@@ -403,7 +481,10 @@ def apply_model(cfg: ModelConfig, params, *, tokens, positions=None,
                 else params["lm_head"]
         else:
             head = serving_head(cfg, params)
-        logits = linear(x, head.to(x.dtype), train=train).float()
+        logits = linear(x, head.to(x.dtype), train=train)
+        if tp is not None and head.shape[1] < cfg.vocab_size:
+            logits = tp.all_gather(logits, -1)
+        logits = logits.float()
         if cfg.logit_softcap:
             logits = softcap(logits, cfg.logit_softcap)
 

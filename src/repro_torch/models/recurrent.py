@@ -24,6 +24,17 @@ own product's bit for bit. The serving route builds this layout once
 per weight tensor (``mixer_weights``; the decoder builds it when it
 takes its params); the training route builds it per call under
 autograd.
+
+Tensor parallelism (``tp``, the model line of a ``launch.mesh.Mesh``):
+the weights are this rank's shards as ``launch.sharding.SpecBuilder``
+cuts them, and each mixer finds from their widths which are sharded
+(a width that does not divide the line stays whole). Column-parallel
+input projections give this rank's channels; where the next step needs
+every channel (RG-LRU's ``u @ [w_a | w_x]``, the mLSTM and sLSTM scans,
+whose heads mix channels) they are gathered over the line, and the
+scan's state is kept in the cache as this rank's slice of it; the
+row-parallel output products' partial sums are completed by an
+``all_reduce``.
 """
 from __future__ import annotations
 
@@ -34,7 +45,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import linear
-from repro_torch.models.layers import dense_init, derived, rms_norm
+from repro_torch.models.layers import (dense_init, derived, rms_norm,
+                                       row_parallel)
 
 NEG_INF = -1e30
 ALIGN = 8            # bfloat16 GEMM operands: K and N multiples of 8
@@ -138,28 +150,38 @@ def init_rglru(generator: torch.Generator, cfg, dtype) -> dict:
     }
 
 
-def rglru_state(cfg, batch: int, dtype, device) -> RGLRUState:
-    w = cfg.lru_width or cfg.d_model
+def rglru_state(cfg, batch: int, dtype, device, width=None) -> RGLRUState:
+    """The zero state; ``width``: a rank's channels under tensor
+    parallelism (all of them by default)."""
+    w = width or cfg.lru_width or cfg.d_model
     return RGLRUState(
         torch.zeros((batch, w), dtype=torch.float32, device=device),
         torch.zeros((batch, cfg.rglru_conv_width - 1, w), dtype=dtype,
                     device=device))
 
 
+def _slice(t, tp, width):
+    """This rank's ``width`` channels of the last axis of ``t``."""
+    return t[..., tp.index * width:(tp.index + 1) * width]
+
+
 def apply_rglru(cfg, p, x, state: Optional[RGLRUState] = None,
-                return_state: bool = False, train: bool = False):
+                return_state: bool = False, train: bool = False, tp=None):
     B, S, _ = x.shape
     w = p["w_in"].shape[1]
+    if tp is not None and w == (cfg.lru_width or cfg.d_model):
+        tp = None
     lw = mixer_weights("rglru", p, train)
     if state is None:
-        state = rglru_state(cfg, B, x.dtype, x.device)
+        state = rglru_state(cfg, B, x.dtype, x.device, width=w)
     y = linear(x, lw["w_in_gate"], train=train)
     gate = F.gelu(y[..., w:], approximate="tanh")
     u, conv_state = causal_conv1d(y[..., :w], p["conv"], state.conv)
-    gx = linear(u.float(), lw["w_ax"], train=train)       # float32
+    u_all = tp.all_gather(u, -1) if tp is not None else u
+    gx = linear(u_all.float(), lw["w_ax"], train=train)   # float32
     hs, hT = ops.rglru_scan(gx, u, lw["lam"], state.h, assoc=not cfg.remat,
                             out_dtype=x.dtype, train=train)
-    out = linear(hs * gate, p["w_out"], train=train)
+    out = row_parallel(hs * gate, p["w_out"], tp, train=train)
     if return_state:
         return out, RGLRUState(hT, conv_state)
     return out
@@ -195,36 +217,58 @@ def init_mlstm(generator: torch.Generator, cfg, dtype) -> dict:
     }
 
 
-def mlstm_state(cfg, batch: int, dtype, device) -> MLSTMState:
+def mlstm_state(cfg, batch: int, dtype, device, conv_width=None,
+                v_width=None) -> MLSTMState:
+    """The zero state; ``conv_width`` and ``v_width``: a rank's channels
+    of the conv state and of C's value axis under tensor parallelism
+    (all of them by default)."""
     di = 2 * cfg.d_model
     H = cfg.n_heads
     f32 = dict(dtype=torch.float32, device=device)
     return MLSTMState(
-        torch.zeros((batch, H, di // H // 2, di // H), **f32),
+        torch.zeros((batch, H, di // H // 2, v_width or di // H), **f32),
         torch.zeros((batch, H, di // H // 2), **f32),
         torch.full((batch, H), NEG_INF, **f32),
-        torch.zeros((batch, 3, di), dtype=dtype, device=device))
+        torch.zeros((batch, 3, conv_width or di), dtype=dtype,
+                    device=device))
 
 
 def apply_mlstm(cfg, p, x, state: Optional[MLSTMState] = None,
-                return_state: bool = False, train: bool = False):
+                return_state: bool = False, train: bool = False, tp=None):
     B, S, _ = x.shape
     H = cfg.n_heads
     di = p["w_up"].shape[1]
+    if tp is not None and di == 2 * cfg.d_model:
+        tp = None
     dk, dv = p["wq"].shape[2], p["wv"].shape[2]
     lw = mixer_weights("mlstm", p, train)
     if state is None:
-        state = mlstm_state(cfg, B, x.dtype, x.device)
+        v_width = dv // tp.size if tp is not None and dv % tp.size == 0 \
+            else dv
+        state = mlstm_state(cfg, B, x.dtype, x.device, conv_width=di,
+                            v_width=v_width)
     uz = linear(x, lw["w_up_z"], train=train)
     c, conv_state = causal_conv1d(uz[..., :di], p["conv"], state.conv)
     c = F.silu(c)
-    proj = linear(c, lw["w_proj"], train=train)
-    hs, C, n, m = ops.mlstm_scan(proj, state.C, state.n, state.m, H=H,
+    # rows of the q/k/v/gate products are this rank's channels: the
+    # partial sums complete over the line; the scan runs whole
+    proj = row_parallel(c, lw["w_proj"], tp, train=train)
+    C, gn = state.C, p["gn"]
+    c_shard = C.shape[-1]
+    if tp is not None:
+        if c_shard < dv:
+            C = tp.all_gather(C, -1)
+        gn = tp.all_gather(gn, 0)
+    hs, C, n, m = ops.mlstm_scan(proj, C, state.n, state.m, H=H,
                                  dk=dk, dv=dv, out_dtype=x.dtype,
                                  train=train)
-    hs = rms_norm(hs, p["gn"], cfg.norm_eps)                 # group-norm-ish
+    hs = rms_norm(hs, gn, cfg.norm_eps)                      # group-norm-ish
+    if tp is not None:
+        hs = _slice(hs, tp, di)
+        if c_shard < dv:
+            C = _slice(C, tp, c_shard)
     y = (hs + c) * F.silu(uz[..., di:])
-    y = linear(y, p["w_down"], train=train)
+    y = row_parallel(y, p["w_down"], tp, train=train)
     if return_state:
         return y, MLSTMState(C, n, m, conv_state)
     return y
@@ -255,24 +299,42 @@ def init_slstm(generator: torch.Generator, cfg, dtype) -> dict:
     return p
 
 
-def slstm_state(cfg, batch: int, device) -> SLSTMState:
+def slstm_state(cfg, batch: int, device, width=None) -> SLSTMState:
+    """The zero state; ``width``: a rank's channels under tensor
+    parallelism (all of them by default)."""
+    w = width or cfg.d_model
     f32 = dict(dtype=torch.float32, device=device)
-    z = [torch.zeros((batch, cfg.d_model), **f32) for _ in range(3)]
-    return SLSTMState(*z, torch.full((batch, cfg.d_model), NEG_INF, **f32))
+    z = [torch.zeros((batch, w), **f32) for _ in range(3)]
+    return SLSTMState(*z, torch.full((batch, w), NEG_INF, **f32))
 
 
 def apply_slstm(cfg, p, x, state: Optional[SLSTMState] = None,
-                return_state: bool = False, train: bool = False):
+                return_state: bool = False, train: bool = False, tp=None):
     B, S, _ = x.shape
+    d = cfg.d_model
+    dl = p["w_z"].shape[1]
+    gates_tp = tp if (tp is not None and dl < d) else None
+    ffn_tp = tp if (tp is not None
+                    and p["w_ffn_up"].shape[1] < int(d * 4 / 3)) else None
     lw = mixer_weights("slstm", p, train)
     if state is None:
-        state = slstm_state(cfg, B, x.device)
+        state = slstm_state(cfg, B, x.device, width=dl)
     pre = linear(x, lw["w_gates"], train=train)
+    st_shard = state.h.shape[-1]
+    if gates_tp is not None:
+        # this rank's channels of each gate; a head's recurrence mixes
+        # its channels, so the scan runs whole
+        pre = gates_tp.all_gather(pre.reshape(B, S, 4, dl), -1).reshape(
+            B, S, 4 * d)
+        if st_shard < d:
+            state = SLSTMState(*(gates_tp.all_gather(t, -1) for t in state))
     hs, *st = ops.slstm_scan(pre, lw["r"], *state, out_dtype=x.dtype,
                              train=train)
+    if gates_tp is not None and st_shard < d:
+        st = [_slice(t, gates_tp, st_shard) for t in st]
     hs = rms_norm(hs, p["gn"], cfg.norm_eps)
     y = F.gelu(linear(hs, lw["w_ffn_up"], train=train), approximate="tanh")
-    y = linear(y, lw["w_ffn_down"], train=train)
+    y = row_parallel(y, lw["w_ffn_down"], ffn_tp, train=train)
     if return_state:
         return y, SLSTMState(*st)
     return y

@@ -11,15 +11,17 @@ Layering:
                         decoder's bound buffer
     StreamRouter      — per-block chunk callbacks / iterators
     ServeMetrics      — TTFB, latency percentiles, occupancy, NFE
+    DecodeExecutor    — placement on a mesh of ranks: sharded params and
+                        caches, this rank's rows of each gang
 
 Built on the resumable ``DiffusionDecoder.prefill`` / ``decode_block`` /
 ``take_rows`` / ``merge_rows`` API in ``repro_torch.core.decoder``. The
 synchronous path is ``repro_torch.core.engine.ServingEngine(mode="batch")``.
 The prefix KV store is ``repro_torch.cache``; fleets of engines (work
 stealing, prefill/decode pools) are ``repro_torch.server.EngineRouter``.
-The JAX package's ``DecodeExecutor`` (ROADMAP A11) is not ported yet.
 """
 from repro_torch.serving.engine import ContinuousEngine
+from repro_torch.serving.executor import DecodeExecutor
 from repro_torch.serving.metrics import RequestMetrics, ServeMetrics, percentile
 from repro_torch.serving.pool import PrefixKVPool
 from repro_torch.serving.scheduler import BlockScheduler, Gang
@@ -28,7 +30,7 @@ from repro_torch.serving.types import (BlockChunk, Completion, ServeRequest,
                                        round_up_blocks)
 
 __all__ = [
-    "ContinuousEngine", "BlockScheduler", "Gang", "PrefixKVPool",
+    "ContinuousEngine", "DecodeExecutor", "BlockScheduler", "Gang", "PrefixKVPool",
     "StreamRouter", "RequestStream", "ServeMetrics", "RequestMetrics",
     "percentile", "BlockChunk", "Completion", "ServeRequest",
     "round_up_blocks",

@@ -47,7 +47,10 @@ on the device crosses engines (a stolen row is host arrays, a handoff is
 a request plus the store's host-staged chunk KV). On the CPU
 ``cuda_stream`` is None.
 
-Not ported yet: executor placement (ROADMAP A11) raises.
+Placement across ranks: with an ``executor`` (``serving.DecodeExecutor``)
+the engine decodes on the executor's device and mesh, and holds one pool
+bound to it; every rank of the mesh runs the same engine on the same
+requests (SPMD), and rank 0 alone does the I/O.
 """
 from __future__ import annotations
 
@@ -85,6 +88,8 @@ class ContinuousEngine:
                  device=None):
         self.cfg = cfg
         self.dcfg = dcfg
+        if executor is not None:
+            device = executor.device
         self.device = resolve_device(device)
         # prefill-pool member (disaggregated serving): primes prompt KV
         # into the shared store and hands rows to the decode pool instead
@@ -100,8 +105,10 @@ class ContinuousEngine:
             self.cuda_stream.wait_stream(
                 torch.cuda.current_stream(self.device))
         self.tok = tokenizer or ByteTokenizer(cfg.vocab_size)
+        # one pool per executor: buffers are placed on the executor's
+        # mesh and must never migrate (see PrefixKVPool)
         self.pool = pool if pool is not None \
-            else PrefixKVPool(cfg, device=self.device)
+            else PrefixKVPool(cfg, device=self.device, executor=executor)
         self.metrics = ServeMetrics(max_slots=max(max_slots, 1))
         # per-(method, block index) decode dynamics — always on: the
         # numbers ride the block's existing host sync, and the

@@ -1,9 +1,12 @@
 """Shape- and placement-bucketed KV-cache buffer pool (the PyTorch
 counterpart of ``repro.serving.pool``).
 
-Buffers are keyed by ``(batch, total_len, placement)``. Only the
-single-device placement exists (``HOST_PLACEMENT``); placement across
-cards (the JAX package's ``DecodeExecutor``) is ROADMAP A11.
+Buffers are keyed by ``(batch, total_len, placement)``: the shape
+bucket, and the single-device placement (``HOST_PLACEMENT``) or a
+``DecodeExecutor``'s placement key. A pool is *bound to one executor*
+(one mesh): its buffers are that executor's shards (``init_cache``),
+so a buffer placed on one mesh can never be handed to a decoder
+driving another. Engines therefore hold one pool per executor.
 
 Which states draw from the pool — the graph binding rule
 (``repro_torch.core.decoder``): on the card a block graph bakes in
@@ -37,13 +40,14 @@ HOST_PLACEMENT = ("host",)    # the single-device world
 class PrefixKVPool:
     def __init__(self, cfg: ModelConfig, max_free: int = 8, executor=None,
                  device=None):
-        if executor is not None:
-            raise NotImplementedError(
-                "executor placement is ROADMAP A11")
         self.cfg = cfg
         self.max_free = max_free
+        self.executor = executor
+        if executor is not None:
+            device = executor.device
         self.device = resolve_device(device)
-        self.placement: Tuple = HOST_PLACEMENT
+        self.placement: Tuple = (executor.placement if executor is not None
+                                 else HOST_PLACEMENT)
         self._free: List[Tuple[int, tuple, Any]] = []
         self._seq = 0
         self.hits = 0
@@ -63,6 +67,8 @@ class PrefixKVPool:
                 self.hits += 1
                 return cache
         self.misses += 1
+        if self.executor is not None:
+            return self.executor.init_cache(batch, total_len)
         return init_cache(self.cfg, batch, total_len, self.device)
 
     def release(self, batch: int, total_len: int, cache) -> None:

@@ -56,8 +56,13 @@ never leave). A ``prefill_only`` scheduler primes gangs into the shared
 prefix store and hands the requests, not their states, to a decode
 engine (``take_handoffs`` / ``adopt_handoff``).
 
-Not ported yet: ``executor``/``mesh`` placement (ROADMAP A11) raises
-``NotImplementedError``.
+Placement across ranks (``executor``, a ``serving.DecodeExecutor``):
+gang sizes round up to the executor's data extent (``batch_multiple``),
+so a gang's rows split evenly over the data axes; the pool must be
+bound to the same executor, and the prefix store to its placement (a
+shared store to its mesh shape, ``shape_key``). Every rank of the mesh
+runs the same scheduler on the same requests and so makes the same
+decisions.
 """
 from __future__ import annotations
 
@@ -90,10 +95,6 @@ def _pow2_le(n: int) -> int:
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is ROADMAP {item}")
 
 
 class Gang:
@@ -143,11 +144,16 @@ class BlockScheduler:
                  merge_gangs: bool = True, prefix_cache=None,
                  prefill_only: bool = False, tracer=None, telemetry=None,
                  block_hist=None, device=None):
-        if executor is not None or mesh is not None:
-            _not_ported("executor / mesh placement", "A11")
+        if mesh is not None and (executor is None
+                                 or mesh is not executor.mesh):
+            raise ValueError("a mesh places the params through a "
+                             "DecodeExecutor: pass executor= (its mesh)")
         self.cfg = cfg
         self.params = params
         self.dcfg = dcfg
+        self.executor = executor
+        if executor is not None:
+            device = executor.device
         self.device = resolve_device(device)
         # Disaggregated serving: a prefill-only scheduler admits and
         # prefills gangs exactly like a co-located one (hit-homogeneous
@@ -163,8 +169,11 @@ class BlockScheduler:
         self.prefill_wall_s = 0.0
         self.decode_wall_s = 0.0
         # Gang batches are rounded up to this multiple (pad rows
-        # replicate row 0, exactly like pad_pow2 padding).
-        self.batch_multiple = batch_multiple or 1
+        # replicate row 0, exactly like pad_pow2 padding): the mesh's
+        # data extent by default, so a gang's rows split over the data
+        # axes (never silent padding; see DecodeExecutor)
+        self.batch_multiple = batch_multiple or (
+            executor.data_extent if executor is not None else 1)
         self.max_slots = max(max_slots, self.batch_multiple)
         self.max_gang = min(max_gang or self.max_slots, self.max_slots)
         # pad_pow2 snaps gang sizes to a power-of-two ladder: fewest
@@ -174,13 +183,21 @@ class BlockScheduler:
         # immediately stops costing FLOPs.
         self.pad_pow2 = pad_pow2
         if pool is None:
-            pool = PrefixKVPool(cfg, device=self.device)
+            pool = PrefixKVPool(cfg, device=self.device, executor=executor)
+        elif pool.executor is not executor:
+            # a shared pool across meshes would hand buffers placed on
+            # one mesh to decoders driving another: refuse up front
+            raise ValueError(
+                "PrefixKVPool must be bound to the scheduler's executor "
+                f"(pool.executor={pool.executor!r}, "
+                f"scheduler executor={executor!r})")
         self.pool = pool
         # the cross-request prefix KV store: like the pool, bound to the
         # device it serves (chunk KV bits differ between the CPU and the
         # card). vanilla has no KV cache, so a store could never be
         # filled or read: it runs storeless
-        placement = device_placement(self.device)
+        placement = (executor.placement if executor is not None
+                     else device_placement(self.device))
         use_store = dcfg.prefix_cache and dcfg.method != "vanilla"
         if prefix_cache is not None and not use_store:
             raise ValueError(
@@ -192,11 +209,18 @@ class BlockScheduler:
             prefix_cache = PrefixKVCache(chunk_tokens=dcfg.cache_chunk,
                                          placement=placement)
         if prefix_cache is not None:
-            if tuple(prefix_cache.placement) != placement:
+            # a shared store (disaggregated pools) is keyed by the mesh
+            # shape: its chunk KV is host-staged and the same for every
+            # executor of that shape on that kind of device
+            shape_key = (executor.shape_key if executor is not None
+                         else placement)
+            if not (tuple(prefix_cache.placement) == placement
+                    or (prefix_cache.shared and tuple(prefix_cache.placement)
+                        == tuple(shape_key))):
                 raise ValueError(
                     "PrefixKVCache must be bound to the scheduler's device "
-                    f"(store={prefix_cache.placement}, scheduler="
-                    f"{placement})")
+                    f"or executor placement (store={prefix_cache.placement},"
+                    f" scheduler={placement}, shared needs {shape_key})")
             if prefix_cache.chunk_tokens != dcfg.cache_chunk:
                 raise ValueError(
                     f"PrefixKVCache chunk {prefix_cache.chunk_tokens} != "
@@ -241,7 +265,7 @@ class BlockScheduler:
             d = dataclasses.replace(self.dcfg, gen_len=gen_len)
             self._decoders[gen_len] = DiffusionDecoder(
                 self.cfg, self.params, d, device=self.device,
-                prompt_cache=self.prefix_cache)
+                executor=self.executor, prompt_cache=self.prefix_cache)
         return self._decoders[gen_len]
 
     def decoder_for(self, gen_len: int) -> DiffusionDecoder:
@@ -324,7 +348,11 @@ class BlockScheduler:
     def graph_cache_size(self) -> int:
         """Block programs (on the card, captured CUDA graphs) across
         every decoder — the quantity whose growth the CompileWatch
-        ledger attributes to call sites."""
+        ledger attributes to call sites. With an executor, its count
+        (the graphs of every decoder driving it, ``jit_cache_size``'s
+        place in the JAX scheduler)."""
+        if self.executor is not None:
+            return self.executor.graph_cache_size()
         return sum(d.graph_cache_size() for d in self._decoders.values())
 
     # ------------------------------------------------------ submission

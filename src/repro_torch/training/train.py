@@ -52,7 +52,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         loss, metrics = loss_given_noise(
             cfg, tree.unflatten(treedef, leaves), tokens, *noise)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (a frontend's ``frontend_proj``
+        # in a token-only step) gets zeros, as ``jax.grad`` gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         new, opt_state, opt_metrics = adamw_update(
             opt_cfg, list(grads), opt_state, [p.detach() for p in leaves])
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -745,6 +745,35 @@ def test_gemm_kernel_matches_plain(cuda, shape, dtype):
     assert _gemm_ok(y, x, w)
 
 
+@pytest.mark.parametrize("shape", ["step_qkvo", "step_down", "request_b1"])
+def test_gemm_float32_out_rounds_to_the_bf16_out(cuda, shape):
+    """The bf16 kernel's float32 output (a tensor-parallel partial sum)
+    holds the sums its bf16 output rounds: the same bits once rounded,
+    and the plain float32 product to 2e-5 of its max."""
+    M, K, N = _GEMM_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=g, device=cuda)
+         / K ** 0.5).to(torch.bfloat16)
+    y32 = ops.gemm(x, w, torch.float32)
+    y16 = ops.gemm(x, w)
+    torch.cuda.synchronize()
+    assert y32.dtype == torch.float32 and y32.shape == (M, N)
+    assert torch.equal(y32.to(torch.bfloat16), y16)
+    full = x.float() @ w.float()
+    assert (y32 - full).abs().max() <= 2e-5 * full.abs().max()
+    # the tensor-parallel chain: the second half of K continues the first
+    # half's float32 sums, bit-equal to the whole product
+    h = K // 2
+    first = ops.gemm(x[:, :h].contiguous(), w[:h].contiguous(),
+                     torch.float32)
+    chain = ops.gemm(x[:, h:].contiguous(), w[h:].contiguous(),
+                     torch.float32, acc=first)
+    torch.cuda.synchronize()
+    assert chain.data_ptr() == first.data_ptr()
+    assert torch.equal(chain, y32)
+
+
 @pytest.mark.parametrize("KNR", [(4096, 4096, 129), (4096, 12288, 129),
                                  (12288, 4096, 129), (4096, 126464, 32)],
                          ids=["qkvo", "gate_up", "down", "head"])

@@ -228,11 +228,33 @@ def test_serve_cli_dkv_host_loop_on_cpu():
 
 # ------------------------------------------------------------ boundaries
 
-@pytest.mark.parametrize("kw,item", [(dict(executor=object()), "A11")])
+def _one_rank_executor():
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import DecodeExecutor
+    return DecodeExecutor(CFG, PARAMS, make_host_mesh(1, 1), device="cpu")
+
+
+@pytest.mark.parametrize("kw,item", [(lambda: dict(
+    executor=_one_rank_executor()), "A11")])
 def test_unported_paths_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        DiffusionDecoder(CFG, PARAMS, DecodeConfig(**BASE), device="cpu",
-                         **kw)
+    """The executor path (ROADMAP A11) that raised before it was ported:
+    a decoder on a one-rank mesh (an unbound mesh: its collectives are
+    the identity) decodes what the decoder without one does, on both
+    loops, and counts its graphs on the executor."""
+    for fused in (True, False):
+        d = DecodeConfig(fused=fused, **BASE)
+        ref = DiffusionDecoder(CFG, PARAMS, d, device="cpu").generate(
+            PROMPT.copy())
+        ex = kw()["executor"]
+        dec = DiffusionDecoder(CFG, None, d, executor=ex)
+        got = dec.generate(PROMPT.copy())
+        np.testing.assert_array_equal(got.tokens, ref.tokens)
+        assert got.nfe == ref.nfe and got.host_syncs == ref.host_syncs
+        assert ex.graph_cache_size() == dec.graph_cache_size()
+    with pytest.raises(NotImplementedError, match="A14"):
+        from repro_torch.launch import train as train_cli
+        train_cli.main(["--device", "cpu", "--arch", "tiny",
+                        "--lower-only"])
 
 
 def test_unported_engine_paths_raise():
@@ -240,7 +262,9 @@ def test_unported_engine_paths_raise():
     auditor and the fleet are ported (ROADMAP A6-A10): stealing, handoff,
     prefill-only engines, host budgets and a stealing router build and
     run without raising. What is not ported raises naming its item:
-    executor and mesh placement (A11)."""
+    executor and mesh placement (A11) build and run now: a scheduler on a
+    one-rank executor rounds gangs to its data extent and binds its pool
+    and store to its placement; a mesh without an executor is refused."""
     from repro_torch.launch import host
     from repro_torch.server import EngineLoop, EngineRouter
     from repro_torch.serving import BlockScheduler, ContinuousEngine
@@ -258,9 +282,13 @@ def test_unported_engine_paths_raise():
     auditor = object()
     eng.attach_auditor(auditor)
     assert eng.auditor is auditor
-    for kw in (dict(executor=object()), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="A11"):
-            BlockScheduler(CFG, PARAMS, d, device="cpu", **kw)
+    ex = _one_rank_executor()
+    placed = BlockScheduler(CFG, PARAMS, d, executor=ex, mesh=ex.mesh)
+    assert placed.batch_multiple == 1 and placed.device.type == "cpu"
+    assert placed.pool.placement == ex.placement == ("mesh", "cpu", 0)
+    assert placed.graph_cache_size() == 0
+    with pytest.raises(ValueError, match="DecodeExecutor"):
+        BlockScheduler(CFG, PARAMS, d, device="cpu", mesh=ex.mesh)
     sched = BlockScheduler(CFG, PARAMS, d, device="cpu", prefill_only=True)
     assert sched.debug_state()["prefill_only"] is True
 
@@ -314,7 +342,11 @@ NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.configs.recurrentgemma_9b",
                  "repro_torch.configs.xlstm_350m",
                  "repro_torch.models.recurrent",
-                 "repro_torch.kernels.recurrent")
+                 "repro_torch.kernels.recurrent",
+                 "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                 "repro_torch.serving.executor",
+                 "repro_torch.configs.llava_next_34b",
+                 "repro_torch.configs.musicgen_medium")
 
 
 def test_import_leaves_jax_out():

@@ -188,6 +188,33 @@ def test_linear_on_the_cpu_is_matmul_bit_for_bit(dtype):
         ops.gemm(x[0], w[:32])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float32_out_is_the_unrounded_product(dtype):
+    """``out_dtype=torch.float32`` (a tensor-parallel partial sum): the
+    float32 product of the same inputs, which rounds to the plain
+    output; anything but x's dtype or float32 is refused."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((7, 64), generator=g).to(dtype)
+    w = torch.randn((64, 24), generator=g).to(dtype)
+    y = ops.linear(x, w, out_dtype=torch.float32)
+    assert y.dtype == torch.float32
+    assert torch.equal(y, x.float() @ w.float())
+    assert torch.equal(ops.gemm(x, w, torch.float32), y)
+    assert torch.equal(ref.gemm_ref(x, w, torch.float32).to(dtype),
+                       ref.gemm_ref(x, w))
+    with pytest.raises(ValueError, match="out_dtype"):
+        ops.gemm(x, w, torch.float16)
+    # a tensor-parallel chain: the second half of K added to the first's
+    # float32 sums (on the CPU, the plain float32 sum)
+    acc = ops.gemm(x[:, :32], w[:32], torch.float32)
+    chain = ops.gemm(x[:, 32:], w[32:], torch.float32, acc=acc)
+    assert torch.allclose(chain, y, rtol=1e-5, atol=1e-5)
+    assert torch.equal(ops.linear(x[:, 32:], w[32:], out_dtype=torch.float32,
+                                  acc=acc), chain)
+    with pytest.raises(ValueError, match="acc"):
+        ops.gemm(x, w, acc=acc)
+
+
 def _products(path):
     """(line, what) of every matrix product written in ``path`` other than
     through ``linear``: ``@``, and calls of matmul/mm/bmm/einsum/linear

@@ -310,10 +310,10 @@ def test_init_params_and_cache_shapes():
 
 
 def test_recurrent_layers_not_ported():
-    """What A13 has not ported yet raises naming it: since step 3 the
-    recurrent mixers are built (an mLSTM layout initialises and runs), a
-    mixer nobody defines is refused, and a modality frontend (step 4)
-    raises ``NotImplementedError`` naming A13."""
+    """A13 is ported: since step 3 the recurrent mixers are built (an
+    mLSTM layout initialises and runs), a mixer nobody defines is
+    refused, and since step 4 a modality frontend's ``frontend_proj``
+    (which raised before) crosses the bridge like any other leaf."""
     from repro_torch.models.config import LayerSpec
     cfg = dataclasses.replace(get_config("tiny"),
                               pattern=(LayerSpec("mlstm", "none"),))
@@ -327,8 +327,8 @@ def test_recurrent_layers_not_ported():
         init_params(bad, torch.Generator(), "cpu")
     tree = {"embed": np.zeros((4, 2), np.float32), "frontend_proj":
             np.zeros((3, 2), np.float32), "scan": (), "tail": ()}
-    with pytest.raises(NotImplementedError, match="A13"):
-        params_from_jax(tree, "cpu")
+    out = params_from_jax(tree, "cpu")
+    assert out["frontend_proj"].shape == (3, 2) and out["layers"] == []
 
 
 # ------------------------------------------------------------ schedule

@@ -557,7 +557,16 @@ def test_cli_fleet_flags_are_validated(argv, err):
 
 
 def test_cli_mesh_flags_name_a11():
+    """The mesh flags (ROADMAP A11, ported) are validated before any
+    weights are made; ``tests/test_torch_sharded_decode.py`` serves
+    through them on two CPU ranks."""
     from repro_torch.launch import serve
-    for argv in (["--mesh", "2,1"], ["--force-host-devices", "4"]):
-        with pytest.raises(NotImplementedError, match="A11"):
+    for argv, err in ((["--force-host-devices", "4"], "pass --mesh"),
+                      (["--mesh", "2"], "data,model"),
+                      (["--mesh", "2,1", "--http", "1"], "without --http"),
+                      (["--mesh", "2,1", "--force-host-devices", "1"],
+                       "needs 2 ranks"),
+                      (["--mesh", "2,1", "--mode", "batch"],
+                       "continuous engine")):
+        with pytest.raises(SystemExit, match=err):
             serve.main(["--device", "cpu", *argv])
