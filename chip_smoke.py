@@ -57,18 +57,31 @@ package. Phases, each printing JSON lines:
               same block through the host loop for comparison, with the
               host's cost per eager launch (a tensor-map encode, the
               GEMM's launch and wrapper, a PyTorch elementwise op).
-10. continuous — ``ContinuousEngine`` at llada-8b full width and depth on
+10. dryrun  — the dry run (``launch/steps.py``, ``launch/dryrun.py``):
+              llada-8b's serve step at the serve phase's shape counted on
+              shape-only tensors on a (1, 1) mesh, then run on the card
+              on the serve phase's weights: the count's gemm FLOPs equal
+              the 2 M K N of the step's gemm.cu launches, its attention
+              FLOPs the attention launches' count (``kernels/cost.py``),
+              its argument bytes the card's tensors', and the step is
+              not faster than the count's bound; kimi-k2 and qwen3-32b
+              ``decode_32k`` counted on the production (16, 16) mesh (one
+              rank's FLOPs, bytes, collectives, dominant term, whether it
+              fits 80 GB); the launch counts and the card's allocated
+              bytes unchanged across the counts; at most 30 s
+              (``phase_dryrun``).
+11. continuous — ``ContinuousEngine`` at llada-8b full width and depth on
               the serve phase's weights: prewarm, then a scripted mix of
               arrivals, a preempt and a cancel, timed, with gangs of
               several sizes that compact and merge; against the same
               script through the host loop and against each request
               decoded alone (``phase_continuous``, ``continuous_script``).
-11. prefix_cache — the same model with the prefix cache: cold against
+12. prefix_cache — the same model with the prefix cache: cold against
               warm prefill of prompts sharing a 192-token prefix, then two
               waves through ``ContinuousEngine`` at gang sizes 1, 2 and 4
               with a preempt and resume, each request equal to its cold
               decode bit for bit (``phase_prefix_cache``).
-12. http    — the port's front end on the same weights, in this process:
+13. http    — the port's front end on the same weights, in this process:
               ``HttpFrontend`` over ``EngineLoop`` with the prefix cache,
               the shadow auditor (host and cold lanes), the block
               profiler, the metrics recorder, the SLO watchdog and the
@@ -78,7 +91,7 @@ package. Phases, each printing JSON lines:
               every endpoint, a burst above max_pending (429) and the
               drain; every finished request equal to its decode alone
               (``phase_http``, ``http_traffic``).
-13. fleet   — several engines on the card, each on its own CUDA stream
+14. fleet   — several engines on the card, each on its own CUDA stream
               and ``EngineLoop`` thread, on the same weights: a steal
               fleet of two engines under ``EngineRouter(steal=True)``
               (every request sent to loop 0; a parked row and waiting
@@ -89,7 +102,7 @@ package. Phases, each printing JSON lines:
               engine's thread while another engine decodes; launches
               counted per run and per engine, and the card's idle share
               bracketed by CUDA-event spans (``phase_fleet``).
-14. train   — the llada-8b weights freed, training and checkpoints: one
+15. train   — the llada-8b weights freed, training and checkpoints: one
               float32 train step of ``tiny`` on the card against the CPU
               (loss, every gradient, every weight after AdamW); tiny-100m
               trained at full size with ``examples/train_and_serve.py``'s
@@ -102,13 +115,13 @@ package. Phases, each printing JSON lines:
               IF nodes skipped, tok/s, speedup), graph loop against host
               loop; then ``ContinuousEngine`` on the 32 prompts, each
               equal to its decode alone (``phase_train``).
-15. families_reference — the trained model freed: qwen3-32b, phi4-mini,
+16. families_reference — the trained model freed: qwen3-32b, phi4-mini,
               minitron-4b (2 layers each) and kimi-k2 (1 layer, all 384
               experts) at full width, bf16 random weights: a refresh and
               a streaming step through the kernels against the plain
               route (``attend_ref``, ``torch.matmul``), the float32 router
               products counted (``phase_families_reference``).
-16. families — gemma2-27b (tied head, softcaps, local/global layers) and
+17. families — gemma2-27b (tied head, softcaps, local/global layers) and
               olmoe-1b-7b (64 experts, top-8) at full width, depth cut to
               8 and 2 layers (``FAM_DEPTH``): the graph loop against the
               host loop, block 0 profiled (one blocking sync), step ms
@@ -116,7 +129,7 @@ package. Phases, each printing JSON lines:
               ``ContinuousEngine(4, 4)`` after prewarm, every request equal
               to its decode alone at B = 1 (``phase_families``,
               ``serve_family``).
-17. recurrent — the families' weights freed: each scan kernel
+18. recurrent — the families' weights freed: each scan kernel
               (``csrc/recurrent.cu``: RG-LRU, mLSTM, sLSTM) against its
               plain version at both models' refresh and step shapes (bf16,
               and float32 at the step's; the plain version's own error
@@ -128,7 +141,7 @@ package. Phases, each printing JSON lines:
               width and depth as the families phase serves its models,
               xlstm also through ``ContinuousEngine(4, 4)``
               (``phase_recurrent``).
-18. frontends — the modality frontends at full width, bf16 random
+19. frontends — the modality frontends at full width, bf16 random
               weights: musicgen-medium at full size (48 layers, V 2048)
               and llava-next-34b cut to 4 of 60 layers (``FRONT_DEPTH``):
               each frontend projection's GEMM and the head's confidence
@@ -137,7 +150,7 @@ package. Phases, each printing JSON lines:
               plus 128 text tokens through the kernels against the plain
               route, both beside a float32 pass; a streaming decode on
               the graph loop against the host loop (``phase_frontends``).
-19. placement — llada-8b at full width, 2 layers, on a
+20. placement — llada-8b at full width, 2 layers, on a
               ``DecodeExecutor``: (a) a one-rank NCCL world, graph loop,
               bit-equal to the decoder without one, one sync a block,
               then ``ContinuousEngine`` on it, each request equal to its
@@ -209,8 +222,11 @@ from repro_torch.training.optimizer import (AdamWConfig,  # noqa: E402
 from repro_torch.training.train import (TrainConfig,  # noqa: E402
                                         make_train_step, train)
 
-HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
+# the H100's rates and each kernel's bound: one count with the dry run's
+# (``kernels/cost.py``; ``launch/dryrun.py``)
+from repro_torch.kernels.cost import (HBM_BYTES_S, PEAK_OPS_S,  # noqa: E402
+                                      attention_bound, confidence_bound,
+                                      gemm_bound, scan_bound)
 SEED = 0
 PROMPT_LEN = 128
 N_PROMPTS = 4
@@ -326,24 +342,6 @@ def attention_inputs(B, Sq, Skv, H, Hkv, D, dtype, *, n_valid=None,
         km = torch.ones((B, Skv), dtype=torch.bool, device="cuda")
         km[:, n_valid:Skv - Sq] = False      # cache slots past prefix_len
     return q, k, v, qp, kp, km
-
-
-def attention_bound(q, k, v, qp, kp, km, out, window):
-    """Bytes and operations this run's data needs: K/V rows that no query
-    may attend (masked, or outside every query's window) are never read,
-    and only valid (query, key) pairs are multiplied."""
-    valid = km[:, None, :].expand(q.shape[0], q.shape[1], k.shape[1])
-    if window:
-        valid = valid & ((qp[:, :, None] - kp[:, None, :]).abs() <= window)
-    pairs = int(valid.sum()) * q.shape[2]          # (b, q, key, head)
-    ops = 4 * pairs * q.shape[3]                   # QK^T and PV
-    peak = PEAK_OPS_S["bfloat16" if q.dtype == torch.bfloat16 else "float32"]
-    kv_rows = int(valid.any(dim=1).sum())          # (b, key) read at all
-    kv_bytes = 2 * kv_rows * k.shape[2] * k.shape[3] * k.element_size()
-    t_bytes = (nbytes(q, qp, kp, km, out) + kv_bytes) / HBM_BYTES_S
-    t_ops = ops / peak
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
-        else "operations"
 
 
 def check_attention(name, shape, dtype, *, softcap=0.0, window=0,
@@ -578,10 +576,8 @@ def check_confidence(name, N, V, dtype, *, mask_id=-1, timed=False,
         rec["eager_ms"] = eager_ms(new, sets)
         rec["plain_ms"] = time_ms(plain, sets)
         rec["library_ms"] = None     # no single PyTorch call computes it
-        t_bytes = (nbytes(x) + N * 8) / HBM_BYTES_S
-        t_ops = 5 * N * V / PEAK_OPS_S["float32"]   # max, sub, exp, add, cmp
-        rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec["bound_ms"], rec["bound_by"] = confidence_bound(
+            N, V, x.element_size())
         rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
         rec["ok"] = ok
     emit(rec)
@@ -780,15 +776,18 @@ LLADA_PRODUCTS = (("qkvo", 4096, 4096, 4), ("gate_up", 4096, 12288, 2),
 LLADA_HEAD = (4096, 126464)
 # the other families' products new to gemm.cu, as (name, K, N, dtype):
 # gemma2-27b's gate/up, an olmoe expert's gate/up and down, a kimi-k2
-# expert's gate/up, and the float32 routers (olmoe E = 64, kimi E = 384);
-# then each new LM head (K, N)
+# expert's gate/up, the float32 routers (olmoe E = 64, kimi E = 384) and
+# recurrentgemma-9b's float32 u @ [w_a | w_x]; then each new LM head (K, N)
 FAMILY_PRODUCTS = (("gemma2_27b_gate_up", 4608, 36864, torch.bfloat16),
                    ("olmoe_expert_gate_up", 2048, 1024, torch.bfloat16),
                    ("olmoe_expert_down", 1024, 2048, torch.bfloat16),
                    ("kimi_expert_gate_up", 7168, 2048, torch.bfloat16),
                    ("olmoe_router_f32", 2048, 64, torch.float32),
-                   ("kimi_router_f32", 7168, 384, torch.float32))
-FAMILY_PLAIN = ("gemma2_27b_gate_up", "olmoe_expert_gate_up")
+                   ("kimi_router_f32", 7168, 384, torch.float32),
+                   ("recurrentgemma_9b_u_wa_wx_f32", 4096, 8192,
+                    torch.float32))
+FAMILY_PLAIN = ("gemma2_27b_gate_up", "olmoe_expert_gate_up",
+                "recurrentgemma_9b_u_wa_wx_f32")
 FAMILY_HEADS = {"gemma2-27b": (4608, 256000), "olmoe-1b-7b": (2048, 50304),
                 "qwen3-32b": (5120, 151936), "kimi-k2": (7168, 163840),
                 "phi4-mini": (3072, 200064)}
@@ -815,16 +814,6 @@ def gemm_close(y, x, w):
         return bool(err <= 2e-5 * scale.item()), err
     tol = bf16_ulp(torch.maximum(full.abs(), scale * 2.0 ** -10))
     return bool(((y.float() - want).abs() <= tol).all()), err
-
-
-def gemm_bound(M, K, N, dtype):
-    """The least time for (M, K) @ (K, N): x and W read once, y written
-    once, against 2 M K N operations at the dense peak of ``dtype``."""
-    es = torch.empty((), dtype=dtype).element_size()
-    t_bytes = (M * K + K * N + M * N) * es / HBM_BYTES_S
-    t_ops = 2 * M * K * N / PEAK_OPS_S[str(dtype).split(".")[-1]]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
-        else "operations"
 
 
 def check_gemm(name, M, K, N, dtype=torch.bfloat16, *, plain=False):
@@ -2433,6 +2422,7 @@ FLEET_SLOTS, FLEET_GANG = 4, 2
 FLEET_NEW_BUCKET = 128          # the capture under load's prompt length
 FLEET_WAVE1 = 5                 # wave 1 fills 2 gangs of 2 and queues 1
 FLEET_WAIT_S = 600
+FLEET_HOLD_S = 120              # the victim holds its parked row at most
 
 
 def fleet_prompts(seed):
@@ -2528,13 +2518,29 @@ class ThreadLaunches:
         return self.rows.get(lp._thread.ident, dict.fromkeys(ops.LAUNCHES, 0))
 
 
-def preempt_after_first_block(eng, out):
+def preempt_after_first_block(eng, out, thief=None):
     """Wrap ``eng.step`` (called on its loop's thread): after the first
     step that leaves a gang past its first block, preempt that gang's
-    first live row, once. The row parks at the next block boundary."""
+    first live row, once. The row parks at the next block boundary.
+
+    ``thief`` (the steal fleet's other engine): while a row is parked
+    here and the thief has adopted fewer than two requests, ``eng``
+    holds at the block boundary (``step`` returns nothing) instead of
+    ticking, for at most ``FLEET_HOLD_S``. Its loop keeps serving
+    commands between the calls, steals included, so the parked row is
+    stolen rather than resumed here. Without the hold, which of the two
+    happens is decided by the two threads' timing
+    (``tests/test_torch_steal_race.py``)."""
     step = eng.step
+    held = {}
 
     def wrapped():
+        if thief is not None and eng.scheduler.paused \
+                and thief.metrics.steals_in < 2:
+            t0 = held.setdefault("t0", time.perf_counter())
+            if time.perf_counter() - t0 < FLEET_HOLD_S:
+                time.sleep(0.002)
+                return []
         comps = step()
         if not out:
             for g in eng.scheduler.gangs:
@@ -2553,26 +2559,34 @@ def engine_busy(engines):
             for e in engines]
 
 
-def run_fleet(loops, target, prompts, spans, wave2, preempt_eng):
+def run_fleet(loops, target, prompts, spans, wave2, preempt_eng,
+              thief=None):
     """Start ``loops``, submit wave 1 (the first ``FLEET_WAVE1`` of
     ``prompts``) to ``target``, then the rest once ``wave2(t0)`` returns,
     and wait for every request; one row of ``preempt_eng`` is preempted
-    after its first block. The launch counts are zeroed just before the
-    run and read just after it, in all and by engine. Returns the run's
-    record (client, preempted uid, span marks, busy seconds and launches
-    per engine) and the wave-2 offset."""
+    after its first block. With ``thief`` (a steal fleet) wave 1 is
+    queued before the loops start, so the victim forms its gangs from
+    all of it at once, and the victim holds its parked row for the
+    thief (``preempt_after_first_block``). The launch counts are zeroed
+    just before the run and read just after it, in all and by engine.
+    Returns the run's record (client, preempted uid, span marks, busy
+    seconds and launches per engine) and the wave-2 offset."""
     engines = [lp.engine for lp in loops]
     busy0 = engine_busy(engines)
     client, preempted = FleetClient(), []
-    preempt_after_first_block(preempt_eng, preempted)
-    for lp in loops:
-        if not lp.running:
-            lp.start()
+    preempt_after_first_block(preempt_eng, preempted, thief)
+    if thief is None:
+        for lp in loops:
+            if not lp.running:
+                lp.start()
     ops.reset_launches()
     with ThreadLaunches() as by_thread:
         start = spans.mark()
         for name, p in prompts[:FLEET_WAVE1]:
             client.submit(target, name, p)
+        for lp in loops:
+            if not lp.running:
+                lp.start()
         t0 = client.recs[0]["t_submit"]
         wave2(t0)
         offset = time.perf_counter() - t0
@@ -2623,7 +2637,11 @@ def phase_fleet(cfg, params, device="cuda"):
       store, under ``EngineRouter(steal=True)`` after ``prewarm_all``;
       every request goes to loop 0, so loop 1 serves only what it
       steals: the queued request at once, then the parked row; wave 2
-      follows loop 1's adoption of the parked row. Then,
+      follows loop 1's adoption of the parked row. Wave 1 is queued
+      before the loops start, and loop 0 holds at the block boundary
+      while its parked row waits (``preempt_after_first_block``), so
+      both steals happen by construction, not by the threads' timing.
+      Then,
       while loop 0 decodes two more requests, loop 1's engine captures
       one block graph of a new bucket (128-token prompts) on its own
       thread, checked against the host loop;
@@ -2708,7 +2726,7 @@ def phase_fleet(cfg, params, device="cuda"):
                 time.sleep(0.005)
 
         steal_run, offset = run_fleet(sloops, sloops[0], prompts, spans,
-                                      after_paused_steal, eng0)
+                                      after_paused_steal, eng0, thief=eng1)
         recs = steal_run["client"].recs
         steal_run.update(
             steals_in=[e.metrics.steals_in for e in steal_engines],
@@ -3526,6 +3544,197 @@ def phase_profile(cfg, dec, hdec, tokens):
                              f"host loop: {same}")
 
 
+# ------------------------------------------------------------ dry run
+
+# the serve phase's step: 4 prompts of 128 + 256 generated tokens, one
+# streaming step (block + window + 1 queries) against the whole cache
+DRY_SHAPE = dict(seq=PROMPT_LEN + GEN_LEN, batch=N_PROMPTS, kind="decode")
+# counted on the production (16, 16) mesh: sizes that fit no card
+DRY_BIG = (("kimi-k2-1t-a32b", "decode_32k"), ("qwen3-32b", "decode_32k"))
+DRY_LIMIT_S = 30.0
+DRY_RUNS = 5
+
+
+def card_step(cfg, params, spec, device):
+    """``spec``'s step on the card on real tensors of its shapes: the
+    serve phase's weights, a cache of its (B, T) whose every slot is
+    valid, the block's positions. Returns (ms a step, the (M, K, N) of
+    every gemm.cu launch and the operations of every attention launch
+    of one step (``kernels.cost``, from the launch's own inputs), the
+    bytes of the step's arguments, the bytes the cache took)."""
+    from repro_torch.kernels import cost
+    B, T, Sq = spec.meta["batch"], spec.meta["seq"], spec.meta["q_len"]
+    on_card = torch.device(device).type == "cuda"
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    cache = init_cache(cfg, B, T, device)
+    cache_alloc = (torch.cuda.memory_allocated() - mem0) if on_card else None
+    g = torch.Generator(device=device).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, Sq), generator=g,
+                         device=device, dtype=torch.int32)
+    pos = (PROMPT_LEN + torch.arange(Sq, device=device, dtype=torch.int32)
+           )[None].expand(B, Sq).contiguous()
+    kv_valid = torch.full((B,), T, dtype=torch.int32, device=device)
+    args = (params, toks, pos, cache, kv_valid)
+    arg_bytes = sum(t.numel() * t.element_size()
+                    for t in tree.flatten(list(args))[0])
+    products, attention = [], []
+    gemm_fn, attn_fn = ops.gemm, ops.block_attention
+
+    def gemm_rec(x, w, *a):
+        products.append((x.shape[0], w.shape[0], w.shape[1]))
+        return gemm_fn(x, w, *a)
+
+    def attn_rec(q, k, v, qp, kp, km, **kw):
+        out = attn_fn(q, k, v, qp, kp, km, **kw)
+        attention.append(cost.attention_cost(q, k, qp, kp, km, out,
+                                             kw.get("window", 0))[0])
+        return out
+
+    ops.gemm, ops.block_attention = gemm_rec, attn_rec
+    try:
+        with torch.no_grad():
+            spec.fn(*args)
+    finally:
+        ops.gemm, ops.block_attention = gemm_fn, attn_fn
+    sync(device)
+    with torch.no_grad():
+        spec.fn(*args)
+        sync(device)
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(DRY_RUNS):
+                spec.fn(*args)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms = ev[0].elapsed_time(ev[1]) / DRY_RUNS
+        else:
+            t0 = time.perf_counter()
+            for _ in range(DRY_RUNS):
+                spec.fn(*args)
+            ms = (time.perf_counter() - t0) * 1e3 / DRY_RUNS
+    del cache, args
+    return ms, products, attention, arg_bytes, cache_alloc
+
+
+def dry_summary(rec) -> dict:
+    """The numbers of a dry-run record this phase prints."""
+    per = rec["per_device"]
+    return {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "rank": rec["rank"], "flops": per["flops"],
+            "hbm_bytes": per["hbm_bytes"],
+            "argument_bytes": per["argument_bytes"],
+            "temp_bytes": per["temp_bytes"],
+            "total_bytes": per["total_bytes"], "fits_80gb": rec["fits_80gb"],
+            "collectives": rec["collectives"], "links": rec["links"],
+            "roofline": rec["roofline"],
+            "dominant_term": rec["dominant_term"],
+            "count_s": rec["compile_s"]}
+
+
+def phase_dryrun(cfg, params, device="cuda"):
+    """The dry run (ROADMAP A14: ``launch/steps.py``, ``launch/dryrun.py``)
+    held against the card. (a) llada-8b's serve step at the serve phase's
+    shape (``DRY_SHAPE``) on a (1, 1) mesh, counted on shape-only tensors;
+    the same step function then runs on the card on the serve phase's
+    weights (``card_step``): the count's gemm FLOPs equal the sum of 2 M K
+    N over the step's gemm.cu launches, its attention FLOPs the sum of
+    ``attention_bound``'s count over the attention launches, its argument
+    bytes the card's tensors' bytes (the cache's allocation printed
+    beside), and the measured step is not below the count's lower bound
+    (max of its compute time and ``memory_floor_s``: the kernels' own
+    bytes or the arguments read once, over the HBM rate), which a wrong
+    count could make it; the unfused count's time is printed beside it
+    as an upper estimate. (b) kimi-k2 and qwen3-32b ``decode_32k`` on the production
+    (16, 16) mesh (``DRY_BIG``): one rank's FLOPs, bytes, collectives and
+    dominant term, and whether its total fits 80 GB. (c) The counts
+    launch nothing and allocate nothing on the card: ``ops.LAUNCHES`` and
+    ``torch.cuda.memory_allocated()`` are the same before and after (a)
+    and (b). The phase takes at most ``DRY_LIMIT_S``."""
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_production_mesh
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    cfg = dataclasses.replace(cfg, block_size=BLOCK)
+    spec = steps.build_serve(cfg, make_production_mesh(data=1, model=1),
+                             DRY_SHAPE)
+    step_ms, products, attention, card_args, cache_alloc = card_step(
+        cfg, params, spec, device)
+    # the card step's cache and inputs go before the snapshot
+    free_device()
+    sync(device)
+    # no collection while the counts run: only they could move the
+    # card's allocated bytes between the two snapshots
+    gc.disable()
+    try:
+        before = (dict(ops.LAUNCHES),
+                  torch.cuda.memory_allocated() if on_card else 0)
+        t0 = time.perf_counter()
+        small = dryrun.count(spec)
+        small_s = time.perf_counter() - t0
+        big = []
+        with tempfile.TemporaryDirectory() as out:
+            for arch, shape in DRY_BIG:
+                big.append(dry_summary(dryrun.run_one(arch, shape, False,
+                                                      out_dir=out)))
+        after = (dict(ops.LAUNCHES),
+                 torch.cuda.memory_allocated() if on_card else 0)
+    finally:
+        gc.enable()
+    kernels = small["meter"].kernels
+    terms = dryrun.roofline_terms(small, 1)
+    # held against the lower bound (the kernels' own bytes or the
+    # arguments read once); the unfused count's time printed beside it
+    bound_ms = 1e3 * max(terms["compute_s"], terms["memory_floor_s"])
+    unfused_ms = 1e3 * max(terms["compute_s"], terms["memory_s"])
+    gemm_card = sum(2 * M * K * N for M, K, N in products)
+    rec = {"phase": "dryrun", "arch": cfg.name, "shape": DRY_SHAPE,
+           "q_len": spec.meta["q_len"], "count_s": small_s,
+           "count": {"flops": small["flops"],
+                     "gemm_flops": kernels["gemm"]["flops"],
+                     "gemm_calls": kernels["gemm"]["calls"],
+                     "attention_flops": kernels["block_attention"]["flops"],
+                     "attention_calls": kernels["block_attention"]["calls"],
+                     "hbm_bytes": small["hbm_bytes"],
+                     "argument_bytes": small["argument_bytes"],
+                     "temp_bytes": small["temp_bytes"],
+                     "kernel_bytes": sum(k["bytes"]
+                                         for k in kernels.values()),
+                     "roofline": terms, "bound_ms": bound_ms,
+                     "unfused_upper_estimate_ms": unfused_ms},
+           "card": {"step_ms": step_ms, "gemm_launches": len(products),
+                    "gemm_flops": gemm_card,
+                    "attention_launches": len(attention),
+                    "attention_flops": sum(attention),
+                    "argument_bytes": card_args,
+                    "cache_allocated_bytes": cache_alloc,
+                    "step_over_bound": step_ms / bound_ms},
+           "big": big, "launches_before_after": [before[0], after[0]],
+           "allocated_before_after": [before[1], after[1]]}
+    checks = {
+        "gemm_flops_equal_launches": not on_card or (
+            kernels["gemm"]["flops"] == gemm_card
+            and kernels["gemm"]["calls"] == len(products)),
+        "attention_flops_equal_bound_count": not on_card or (
+            kernels["block_attention"]["flops"] == sum(attention)
+            and kernels["block_attention"]["calls"] == len(attention)),
+        "argument_bytes_equal_card": small["argument_bytes"] == card_args,
+        "step_not_below_bound": step_ms >= bound_ms,
+        "big_counted": len(big) == len(DRY_BIG)
+        and all(b["flops"] > 0 for b in big),
+        "count_touched_no_card": before == after}
+    rec["seconds"] = time.perf_counter() - t_phase
+    checks["within_limit"] = rec["seconds"] <= DRY_LIMIT_S
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    for b in big:
+        print(json.dumps({"phase": "dryrun_rank", **b}), flush=True)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"dryrun phase failed: {checks}")
+    return rec
+
+
 # ------------------------------------------------------------ families
 
 # families_reference: (arch, layers) at full width, the depth cut
@@ -4103,26 +4312,6 @@ def scan_plain(kind, shape, acc=torch.float32):
     return lambda *a: ref.slstm_scan_ref(*a, acc=acc)
 
 
-def scan_bound(kind, shape, args, outs):
-    """Each input read once and each output written once at the HBM
-    rate, against the float32 operations at the peak: RG-LRU ~15 a
-    (row, step, channel); mLSTM 5 dk dv a (row, step, head); sLSTM the
-    four block-diagonal products, 8 hd d a (row, step), and ~20 d."""
-    B, S = shape[:2]
-    if kind == "rglru":
-        ops_n = 15 * B * S * shape[2]
-    elif kind == "mlstm":
-        _, _, H, dk, dv = shape
-        ops_n = B * S * H * (5 * dk * dv + 5 * dk)
-    else:
-        _, _, H, hd = shape
-        ops_n = B * S * (8 * hd * H * hd + 20 * H * hd)
-    t_bytes = nbytes(*args, *outs) / HBM_BYTES_S
-    t_ops = ops_n / PEAK_OPS_S["float32"]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
-        else "operations"
-
-
 def check_scan(kind, name, shape, dtype):
     """A scan kernel against its plain version on the same inputs:
     every output (the per-step values in float32 and the final state),
@@ -4389,7 +4578,8 @@ def serve_frontend(arch, device):
                        cfg.frontend_embed_dim, cfg.d_model)["max_abs_err"],
             check_confidence(f"{arch}_head_V{cfg.vocab_size}",
                              FAM_N * BLOCK, cfg.vocab_size, torch.bfloat16,
-                             mask_id=cfg.mask_token_id)["max_abs_err"]]
+                             mask_id=cfg.mask_token_id,
+                             timed=True)["max_abs_err"]]
     ops.reset_launches()
     with gemm_calls() as calls:
         got = frontend_encode(cfg, params, device, True)
@@ -4807,6 +4997,7 @@ def main() -> int:
     timed(phase_methods, prompts)
     *model, serve = timed(phase_serve)
     timed(phase_profile, *model)
+    timed(phase_dryrun, model[0], model[1].params)
     cont = timed(phase_continuous, model[0], model[1].params,
                  inv["batch_invariant"])
     timed(phase_prefix_cache, model[0], model[1].params)

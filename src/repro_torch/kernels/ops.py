@@ -9,6 +9,10 @@ threads count into it at once: ``count`` adds under a lock, and a thread
 inside ``capturing()`` (a CUDA graph capture, which launches nothing)
 counts into its own tally instead, so a capture never rewinds the
 shared counts.
+
+Each wrapper's call is one op of a dry run's meter when one is on its
+thread (``kernels.cost.call``; ``launch.dryrun``): the kernel's own
+operations and bytes, whichever route runs it.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
 
 LAUNCHES = {"block_attention": 0, "confidence_argmax": 0, "gemm": 0,
             "rglru_scan": 0, "mlstm_scan": 0, "slstm_scan": 0}
@@ -87,6 +91,18 @@ def gemm(x: torch.Tensor, w: torch.Tensor, out_dtype=None, acc=None
                              and acc.is_contiguous()),
              "gemm: acc must be a contiguous float32 (M, N) on x's device, "
              "with out_dtype float32")
+    return cost.call("gemm", lambda y: cost.gemm_cost(
+        x.shape[0], x.shape[1], w.shape[1], x.dtype, out_dtype,
+        acc is not None), _gemm, x, w, out_dtype, acc, like=_product_like)
+
+
+def _product_like(x, w, out_dtype, acc):
+    """An empty result of ``x @ w`` (a dry run's count)."""
+    return x.new_empty((*x.shape[:-1], w.shape[1]),
+                       dtype=out_dtype or x.dtype)
+
+
+def _gemm(x, w, out_dtype, acc):
     if x.device.type == "cpu":
         return ref.gemm_ref(x, w, out_dtype, acc)
     from repro_torch.kernels import gemm as kernel
@@ -129,12 +145,24 @@ def linear(x: torch.Tensor, w: torch.Tensor, *, train: bool = False,
     the output's shape, float32): the sums start from its values (a
     tensor-parallel rank continuing the previous rank's partial sum,
     ``models.layers.row_parallel``)."""
-    if train or x.device.type == "cpu":
-        if acc is not None:
-            return acc + x.float() @ w.float()
-        if out_dtype is None or out_dtype == x.dtype:
-            return x @ w
-        return x.float() @ w.float()
+    if train:
+        return _linear_plain(x, w, out_dtype, acc)
+    route = _linear_plain if x.device.type == "cpu" else _linear_kernel
+    return cost.call("gemm", lambda y: cost.gemm_cost(
+        x.numel() // x.shape[-1], x.shape[-1], w.shape[1], x.dtype,
+        out_dtype, acc is not None), route, x, w, out_dtype, acc,
+        like=_product_like)
+
+
+def _linear_plain(x, w, out_dtype, acc):
+    if acc is not None:
+        return acc + x.float() @ w.float()
+    if out_dtype is None or out_dtype == x.dtype:
+        return x @ w
+    return x.float() @ w.float()
+
+
+def _linear_kernel(x, w, out_dtype, acc):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if out_dtype is None:
@@ -160,6 +188,14 @@ def block_attention(q, k, v, q_pos, kv_pos, kv_mask, *, scale=None,
     ``SIMPLE_D``); any other (dtype, D) raises."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    return cost.call("block_attention", lambda out: cost.attention_cost(
+        q, k, q_pos, kv_pos, kv_mask, out, window), _block_attention, q, k,
+        v, q_pos, kv_pos, kv_mask, scale, softcap, window, out_dtype,
+        like=lambda q, *a: q.new_empty(q.shape, dtype=out_dtype))
+
+
+def _block_attention(q, k, v, q_pos, kv_pos, kv_mask, scale, softcap,
+                     window, out_dtype):
     if q.device.type == "cpu":
         return ref.block_attention_ref(q, k, v, q_pos, kv_pos, kv_mask,
                                        scale=scale, softcap=softcap,
@@ -215,6 +251,14 @@ def _confidence_2d(logits: torch.Tensor, mask_id: int):
     mask_id = max(int(mask_id), -1)          # any negative id bans nothing
     _require(mask_id < V, f"confidence_argmax: mask_id {mask_id} is not a "
              f"column of V={V}")
+    return cost.call("confidence_argmax", lambda out: cost.confidence_cost(
+        N, V, logits.element_size()), _confidence_kernel, logits, mask_id,
+        like=lambda x, _: (x.new_empty((N,), dtype=torch.float32),
+                           x.new_empty((N,), dtype=torch.int32)))
+
+
+def _confidence_kernel(logits, mask_id):
+    N, V = logits.shape
     if logits.device.type == "cpu":
         return ref.confidence_argmax_ref(logits, mask_id=mask_id)
     from repro_torch.kernels import confidence as kernel
@@ -272,7 +316,8 @@ def head_confidence_argmax(hidden, head, *, mask_id: int = -1,
 # gates are float32, the per-step output is ``out_dtype`` (float32, or the
 # activations' dtype: the float32 value rounded to nearest even). On the
 # card each is one launch; ``train=True`` is the training route (the plain
-# version under autograd, on any device), as for ``linear``.
+# version under autograd, on any device), as for ``linear``. A dry run's
+# count takes a scan on either route as one op of its own count.
 
 def _scan_inputs(name, acts, f32s, *, out_dtype):
     """Check a scan's operands for the card (raises on any it refuses)."""
@@ -303,6 +348,14 @@ def rglru_scan(gx, u, lam, h0, *, assoc: bool = True, out_dtype=None,
     the reference's form on the plain route (associative unless
     ``cfg.remat``); the kernel is sequential."""
     out_dtype = out_dtype or u.dtype
+    return cost.call("rglru_scan", lambda out: cost.scan_cost(
+        "rglru", u.shape, (gx, u, lam, h0), out), _rglru_scan, gx, u, lam,
+        h0, assoc, out_dtype, train, like=lambda gx, u, lam, h0, *_: (
+            u.new_empty(u.shape, dtype=out_dtype),
+            h0.new_empty(h0.shape)))
+
+
+def _rglru_scan(gx, u, lam, h0, assoc, out_dtype, train):
     if train or u.device.type == "cpu":
         hs, hT = ref.rglru_scan_ref(gx, u, lam, h0, assoc=assoc)
         return hs.to(out_dtype), hT
@@ -329,6 +382,15 @@ def mlstm_scan(proj, C, n, m, *, H: int, dk: int, dv: int, out_dtype=None,
     C, n, m). The kernel takes dk in ``recurrent.MLSTM_DK`` and dv a
     multiple of 32."""
     out_dtype = out_dtype or proj.dtype
+    return cost.call("mlstm_scan", lambda out: cost.scan_cost(
+        "mlstm", (*proj.shape[:2], H, dk, dv), (proj, C, n, m), out),
+        _mlstm_scan, proj, C, n, m, H, dk, dv, out_dtype, train,
+        like=lambda proj, *st_and_rest: (
+            proj.new_empty((*proj.shape[:2], H * dv), dtype=out_dtype),
+            *(t.new_empty(t.shape) for t in st_and_rest[:3])))
+
+
+def _mlstm_scan(proj, C, n, m, H, dk, dv, out_dtype, train):
     if train or proj.device.type == "cpu":
         hs, *st = ref.mlstm_scan_ref(proj, C, n, m, H=H, dk=dk, dv=dv)
         return (hs.to(out_dtype), *st)
@@ -356,6 +418,15 @@ def slstm_scan(pre, r, h, c, n, m, *, out_dtype=None, train: bool = False):
     d) in ``out_dtype`` (pre's by default), h, c, n, m). The kernel takes
     hd a multiple of 32, at most 1024."""
     out_dtype = out_dtype or pre.dtype
+    return cost.call("slstm_scan", lambda out: cost.scan_cost(
+        "slstm", (*pre.shape[:2], *r.shape[1:3]), (pre, r, h, c, n, m), out),
+        _slstm_scan, pre, r, h, c, n, m, out_dtype, train,
+        like=lambda pre, r, *st_and_rest: (
+            pre.new_empty((*pre.shape[:2], h.shape[1]), dtype=out_dtype),
+            *(t.new_empty(t.shape) for t in st_and_rest[:4])))
+
+
+def _slstm_scan(pre, r, h, c, n, m, out_dtype, train):
     if train or pre.device.type == "cpu":
         hs, *st = ref.slstm_scan_ref(pre, r, h, c, n, m)
         return (hs.to(out_dtype), *st)

@@ -20,7 +20,10 @@ mesh gets no groups and takes no part in its decodes. Without an
 initialised world, a mesh of one rank is unbound: its lines have no
 group and every collective is the identity. ``make_production_mesh``
 gives the shape of the TPU target only (the spec builder reads nothing
-else), never groups.
+else), never groups; ``Mesh.for_count`` gives the dry run
+(``launch.dryrun``) that shape as one rank sees it, each line a
+``CountingGroup`` of its true size that tallies the collectives a step
+issues instead of running them.
 
 Collectives of a gloo group on CUDA tensors are staged through host
 memory explicitly; NCCL takes CUDA tensors as they are (and inside a
@@ -138,6 +141,79 @@ class AxisGroup:
             o, t, group=self.group), out, x)[0]
 
 
+class _Counted(torch.autograd.Function):
+    """A counting line's collective: a tensor of the result's shape (no
+    values move), its kind and bytes added to the tally; under autograd
+    the backward adds the adjoint collective (``CountingGroup``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind, back, shape):
+        ctx.group, ctx.back, ctx.shape = group, back, x.shape
+        out = x.new_empty(shape)
+        group.note(kind, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grad = g.new_empty(ctx.shape)
+        ctx.group.note(ctx.back, grad)
+        return grad, None, None, None, None
+
+
+class CountingGroup(AxisGroup):
+    """A mesh line of ``size`` ranks in a count of one rank's step
+    (``launch.dryrun``): no process group behind it. Each collective
+    returns a tensor of its result's shape, whose values are not the
+    line's (a count reads shapes only), and adds ``(kind, result bytes,
+    line size)`` to ``tally``, as the reference's dry run sums the result
+    shapes of the collectives in its compiled program. Under autograd a
+    collective's backward adds its adjoint: all_reduce's an all_reduce,
+    all_gather's a reduce_scatter, all_to_all's an all_to_all,
+    broadcast's a reduce. A line of one rank moves nothing: its
+    collectives are the identity, as on an unbound mesh."""
+
+    ADJOINT = {"all_reduce": "all_reduce", "all_gather": "reduce_scatter",
+               "all_to_all": "all_to_all", "broadcast": "reduce"}
+
+    def __init__(self, size: int, index: int, tally: list):
+        super().__init__(None, size, index)
+        self.tally = tally
+
+    def __repr__(self):
+        return f"CountingGroup(size={self.size}, index={self.index})"
+
+    def note(self, kind: str, t: torch.Tensor) -> None:
+        self.tally.append((kind, t.numel() * t.element_size(), self.size))
+
+    def _count(self, kind, x, shape=None):
+        if self.size == 1:
+            return x
+        shape = tuple(x.shape) if shape is None else shape
+        return _Counted.apply(x, self, kind, self.ADJOINT[kind], shape)
+
+    def all_reduce(self, x, op=None):
+        return self._count("all_reduce", x)
+
+    def all_gather(self, x, dim: int = 0):
+        dim = dim % x.dim()
+        shape = list(x.shape)
+        shape[dim] *= self.size
+        return self._count("all_gather", x, tuple(shape))
+
+    def all_to_all(self, x):
+        return self._count("all_to_all", x)
+
+    def broadcast(self, x, frm: int):
+        return self._count("broadcast", x)
+
+    def send(self, x, to: int) -> None:
+        self.note("send", x)
+
+    def recv(self, buf, frm: int):
+        self.note("recv", buf)
+        return buf.new_empty(buf.shape)
+
+
 class Mesh:
     """Ranks ``base .. base + prod(shape) - 1`` laid out over
     ``axis_names``. ``shape`` maps each axis to its extent (as
@@ -235,6 +311,23 @@ class Mesh:
                 raise ValueError(f"rank {self.rank} is not in {self}")
             raise KeyError(axes)
         return g
+
+    def for_count(self, coords: Optional[Dict[str, int]] = None
+                  ) -> "Mesh":
+        """This mesh's shape as seen by the rank at ``coords`` (each axis's
+        index, 0 where not named) in a count of its step: every line a
+        ``CountingGroup`` of its true size, all adding to one ``tally``
+        (a list of (kind, bytes, line size)), no process group."""
+        m = Mesh(tuple(self.shape.values()), self.axis_names, bind=False)
+        at = {a: 0 for a in self.axis_names}
+        at.update(coords or {})
+        m.rank = int(self.devices[tuple(at[a] for a in self.axis_names)])
+        m.tally = []
+        for axes in m._line_kinds():
+            line = next(ln for ln in m._lines(axes) if m.rank in ln)
+            m._groups[axes] = CountingGroup(len(line), line.index(m.rank),
+                                            m.tally)
+        return m
 
     @property
     def model_group(self) -> AxisGroup:

@@ -15,8 +15,14 @@ xlstm-350m-smoke``).
 ``.json``), which ``python -m repro_torch.launch.serve --ckpt`` and the
 JAX package's ``checkpoint.restore`` both read. ``--dtype`` is the
 compute dtype; the weights and the optimizer's moments stay float32, as
-every config's ``param_dtype`` is. The production-shape lowering check
-(``--lower-only``) is the dry run, ROADMAP A14.
+every config's ``param_dtype`` is.
+
+Production-shape check of the train step (any registered arch; one
+rank's count on shape-only tensors, on the CPU, touching no card; see
+``launch/dryrun.py`` for the full matrix), written to
+results/torch/dryrun/:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \
+        --lower-only
 """
 from __future__ import annotations
 
@@ -35,14 +41,13 @@ def main(argv=None):
                     choices=["float32", "bfloat16"],
                     help="compute dtype (default: the config's)")
     ap.add_argument("--lower-only", action="store_true",
-                    help="production-shape lowering check (ROADMAP A14: "
-                    "not ported, raises)")
+                    help="the train step's production-shape dry run "
+                    "(launch.dryrun, train_4k on the production mesh)")
     args = ap.parse_args(argv)
 
     if args.lower_only:
-        raise NotImplementedError(
-            "--lower-only (the dry run's lowering specs, launch/steps.py) "
-            "is ROADMAP A14")
+        from repro_torch.launch.dryrun import run_one
+        return run_one(args.arch, "train_4k", False)
 
     from repro_torch.device import resolve_device
     from repro_torch.models import get_config

@@ -18,6 +18,7 @@ import weakref
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.ops import linear
 from repro_torch.models.heads import HeadPlan
 
@@ -65,7 +66,8 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, tp, train: bool = False
     kernel does, so the product is bit-equal to the unsharded one (an
     ``all_reduce`` of partial sums would round differently, and on a
     random model's near-ties that moves tokens). The ranks' products
-    run one after another."""
+    run one after another (``kernels.cost.chain``: a dry run's count
+    adds that wait to its roofline)."""
     if tp is None:
         return linear(x, w, train=train)
     shape = (*x.shape[:-1], w.shape[1])
@@ -73,7 +75,8 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, tp, train: bool = False
     if tp.index > 0:
         acc = tp.recv(torch.empty(shape, dtype=torch.float32,
                                   device=x.device), tp.index - 1)
-    y = linear(x, w, out_dtype=torch.float32, acc=acc)
+    with cost.chain():
+        y = linear(x, w, out_dtype=torch.float32, acc=acc, train=train)
     last = tp.size - 1
     if tp.index < last:
         tp.send(y, tp.index + 1)

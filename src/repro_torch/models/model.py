@@ -274,7 +274,7 @@ def _tp_if(tp, local: int, full: int):
 def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
                 mode, append_at=None, self_kv_mix=None, kv_pos=None,
                 rope=None, kv_mask=None, cache_upto=None, use_kernels=False,
-                train=False, mesh=None):
+                train=False, mesh=None, data_axes=None):
     """Returns (y, cache, aux); the cache is written in place; aux is the
     MoE layer's load-balance loss, None for other FFNs. ``kv_pos``,
     ``rope`` and ``kv_mask`` are the pass's key positions, RoPE table and
@@ -283,7 +283,9 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
     token's K/V is the cache's at its position instead of a fresh one.
     ``cache_upto`` is the block refresh's prefix boundary, which only a
     recurrent layer reads (``_apply_recurrent``). ``mesh``: the params
-    are this rank's shards (module docstring)."""
+    are this rank's shards (module docstring); ``data_axes`` the MoE
+    layer's (``moe.apply_moe``: the mesh's by default, () for the
+    replicated-token path, as the reference passes them)."""
     tp = mesh.model_group if mesh is not None else None
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.local_window if spec.mixer == ATTN_LOCAL else 0
@@ -332,7 +334,8 @@ def apply_layer(cfg, p, spec: LayerSpec, x, *, q_pos, cache, kv_valid,
     if spec.ffn != NONE:
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         if spec.ffn == MOE:
-            y, aux = apply_moe(cfg, p["ffn"], h2, mesh=mesh, train=train)
+            y, aux = apply_moe(cfg, p["ffn"], h2, mesh=mesh,
+                               data_axes=data_axes, train=train)
         else:
             y = apply_ffn(p["ffn"], h2, spec.ffn, train=train,
                           tp=_tp_if(tp, p["ffn"]["w_down"].shape[0],
@@ -385,14 +388,15 @@ def apply_model(cfg: ModelConfig, params, *, tokens=None, embeds=None,
                 mode: str = "encode", cache=None, kv_valid=None,
                 append_at=None, self_kv_mix=None,
                 cache_upto: Optional[int] = None, skip_head: bool = False,
-                use_kernels: bool = False, train: bool = False, mesh=None
-                ) -> ModelOutput:
+                use_kernels: bool = False, train: bool = False, mesh=None,
+                data_axes=None) -> ModelOutput:
     """tokens: (B, S) int, or ``embeds`` (B, S, F or d) in their place;
     ``prefix_embeds`` (B, Sp, F or d): the modality frontends' stub
     (precomputed patch or frame embeddings), projected and prepended to
     the token embeddings before ``embed_scale``, so the pass covers
     Sp + S positions; positions: (B, S) of the whole pass. ``mesh``: the
-    params are this rank's shards (module docstring). ``use_kernels`` routes the
+    params are this rank's shards (module docstring); ``data_axes``: the
+    MoE layers' (``apply_layer``). ``use_kernels`` routes the
     attention of every layer through ``kernels.ops.block_attention``.
     ``self_kv_mix`` (B, S) bool: the dKV cache's frozen tokens (their K/V
     is gathered from the cache at their position in every layer).
@@ -461,7 +465,7 @@ def apply_model(cfg: ModelConfig, params, *, tokens=None, embeds=None,
                                kv_pos=kv_pos, rope=rope, kv_mask=kv_mask,
                                cache_upto=cache_upto,
                                use_kernels=use_kernels, train=train,
-                               mesh=mesh)
+                               mesh=mesh, data_axes=data_axes)
         if remat and i < n_scan:
             x, _, a = checkpoint(layer, params["layers"][i], x,
                                  use_reentrant=False)

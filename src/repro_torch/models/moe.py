@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.cost import shape_only
 from repro_torch.kernels.ops import linear
 from repro_torch.models.layers import dense_init, row_parallel
 
@@ -41,8 +42,11 @@ def _stacked_init(generator: torch.Generator, shape, in_axis_size: int,
                   dtype) -> torch.Tensor:
     """``dense_init`` of an (E, ...) stack drawn one expert at a time, so
     the float32 draw never holds more than one expert (kimi-k2's
-    (384, 7168, 2048) would take 22.5 GB at once)."""
+    (384, 7168, 2048) would take 22.5 GB at once). A shape-only stack
+    (``launch.steps`` builds the params as fake tensors) draws nothing."""
     out = torch.empty(shape, dtype=dtype, device=generator.device)
+    if shape_only(out):
+        return out
     for e in range(shape[0]):
         out[e] = dense_init(generator, shape[1:], in_axis_size, dtype)
     return out

@@ -236,7 +236,7 @@ def _one_rank_executor():
 
 @pytest.mark.parametrize("kw,item", [(lambda: dict(
     executor=_one_rank_executor()), "A11")])
-def test_unported_paths_raise(kw, item):
+def test_unported_paths_raise(kw, item, tmp_path, monkeypatch):
     """The executor path (ROADMAP A11) that raised before it was ported:
     a decoder on a one-rank mesh (an unbound mesh: its collectives are
     the identity) decodes what the decoder without one does, on both
@@ -251,10 +251,12 @@ def test_unported_paths_raise(kw, item):
         np.testing.assert_array_equal(got.tokens, ref.tokens)
         assert got.nfe == ref.nfe and got.host_syncs == ref.host_syncs
         assert ex.graph_cache_size() == dec.graph_cache_size()
-    with pytest.raises(NotImplementedError, match="A14"):
-        from repro_torch.launch import train as train_cli
-        train_cli.main(["--device", "cpu", "--arch", "tiny",
-                        "--lower-only"])
+    # ROADMAP A14, ported: --lower-only writes the train step's record
+    from repro_torch.launch import train as train_cli
+    monkeypatch.chdir(tmp_path)
+    rec = train_cli.main(["--device", "cpu", "--arch", "tiny",
+                          "--lower-only"])
+    assert rec["shape"] == "train_4k" and rec["meta"]["kind"] == "train"
 
 
 def test_unported_engine_paths_raise():
@@ -317,8 +319,9 @@ def test_defaulted_device_raises_without_cuda(monkeypatch):
 
 # modules the import checks must reach by name: the prefix cache copies
 # JAX-free modules of the JAX package (radix, store), which the port must
-# not import from there; so do the training slice (data.synthetic) and
-# the other families (the MoE layer and the config modules)
+# not import from there; so do the training slice (data.synthetic), the
+# other families (the MoE layer and the config modules) and the dry run
+# (steps, dryrun and the kernels' count)
 NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.cache.store", "repro_torch.cache.slicing",
                  "repro_torch.kernels.gemm", "repro_torch.server",
@@ -346,7 +349,9 @@ NAMED_MODULES = ("repro_torch.cache", "repro_torch.cache.radix",
                  "repro_torch.launch.mesh", "repro_torch.launch.sharding",
                  "repro_torch.serving.executor",
                  "repro_torch.configs.llava_next_34b",
-                 "repro_torch.configs.musicgen_medium")
+                 "repro_torch.configs.musicgen_medium",
+                 "repro_torch.kernels.cost", "repro_torch.launch.steps",
+                 "repro_torch.launch.dryrun")
 
 
 def test_import_leaves_jax_out():

@@ -146,6 +146,59 @@ def test_train_step_loss_and_grads_match_jax(name):
     assert not bool(np.asarray(jgrads["frontend_proj"]).any())
 
 
+def jax_frontend_noise(rng, loss_mask):
+    """The draw of the JAX package's frontend step
+    (``repro.launch.steps._dl_frontend``): no first position forced."""
+    B, S = loss_mask.shape
+    k_t, k_mask = jax.random.split(rng)
+    t = jax.random.uniform(k_t, (B, 1), minval=0.05, maxval=1.0)
+    return t, (jax.random.uniform(k_mask, (B, S)) < t) & loss_mask
+
+
+@pytest.mark.parametrize("name", FRONTENDS)
+def test_frontend_train_loss_and_grads_match_jax(name):
+    """The frontend train step's loss (the dry run's ``train_4k`` step on
+    these configs): ``loss_given_noise(..., prefix_embeds=)`` given the
+    draw of ``_dl_frontend`` equals it in loss, ce, aux, masked_acc and
+    every gradient, ``frontend_proj``'s now nonzero; ``frontend_draw``
+    makes a draw of the same form."""
+    from repro.launch.steps import _dl_frontend
+    from repro_torch.training.loss import frontend_draw
+    cj, ct, jp, tp = pair(name)
+    toks, pe, _, _ = draws(cj, seed=3, S=24)
+    lm = np.ones((2, 24), bool)
+    lm[1, :5] = False                   # a prompt the loss leaves out
+    rng = jax.random.PRNGKey(2)
+    (jloss, jm), jgrads = jax.value_and_grad(
+        lambda p: _dl_frontend(cj, p, jnp.asarray(toks), jnp.asarray(lm),
+                               jnp.asarray(pe), rng, None, ()),
+        has_aux=True)(jp)
+    leaves, td = tree.flatten(tp)
+    leaves = [p.clone().requires_grad_(True) for p in leaves]
+    t, mask = (torch.tensor(np.asarray(a))
+               for a in jax_frontend_noise(rng, jnp.asarray(lm)))
+    loss, m = loss_given_noise(ct, tree.unflatten(td, leaves),
+                               torch.tensor(toks), t, mask,
+                               prefix_embeds=torch.tensor(pe))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=TOL)
+    for key in ("ce", "aux", "masked_acc"):
+        np.testing.assert_allclose(float(m[key].detach()), float(jm[key]),
+                                   rtol=TOL, atol=TOL)
+    assert int(m["n_masked"]) == int(jm["n_masked"])
+    want = tree.flatten(params_from_jax(jax.tree.map(np.asarray, jgrads),
+                                        "cpu"))[0]
+    assert len(want) == len(grads)
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=TOL, atol=TOL)
+    assert bool(np.asarray(jgrads["frontend_proj"]).any())
+    t2, mask2 = frontend_draw(torch.tensor(lm),
+                              torch.Generator().manual_seed(0))
+    assert t2.shape == (2, 1) and bool(((t2 >= 0.05) & (t2 < 1)).all())
+    assert mask2.dtype == torch.bool and not bool(mask2[1, :5].any())
+
+
 def test_train_cli_step_runs_on_a_frontend_config():
     """The port's train loop on a frontend config: the token-only step
     leaves ``frontend_proj`` a zero gradient (weight decay alone moves

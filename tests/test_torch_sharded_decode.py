@@ -27,7 +27,9 @@ the tests assert over:
   the dense path on ``tiny-moe`` (capacity 8: no drops; capacity 0.05:
   finite);
 * the other families placed on (2, 2): RG-LRU, mLSTM and sLSTM mixers
-  and the frontends tensor parallel, the MoE expert parallel.
+  and the frontends tensor parallel, the MoE expert parallel;
+* the frontend training loss with its head's vocabulary sharded over
+  the model line (the streamed CE's gather) against one rank's.
 
 Also the serve CLI with ``--mesh 2,1 --force-host-devices 2``: two CPU
 ranks serve the same tokens as one.
@@ -168,6 +170,19 @@ def test_families_placed_on_data_and_model(name):
     assert r["valid"], r
     assert r["agree"] >= 0.95, r
     assert r["nfe"] == r["ref_nfe"], r
+
+
+def test_vocab_sharded_streamed_loss_matches_one_rank():
+    """``loss_given_noise`` with a frontend prefix (the streamed CE) on
+    llava-next-34b-smoke's weights sharded over (2, 2), the head's
+    vocabulary split in two, against the same loss on one rank: within
+    1e-5 (float32; the row-parallel sums run in another order)."""
+    r = _report()["sharded_loss"]
+    assert r["head_cols"] * 2 == r["vocab"]
+    for key in ("loss", "ce", "masked_acc"):
+        one, placed = r[key]
+        assert abs(placed - one) <= 1e-5 * max(1.0, abs(one)), (key, r)
+    assert r["n_masked"][0] == r["n_masked"][1] > 0
 
 
 def test_serve_cli_on_two_cpu_ranks():
@@ -359,6 +374,31 @@ def _rank_main():
         r = DiffusionDecoder(fcfg, None, fd, executor=ex).generate(
             fam_prompts.copy())
         out["families"][name] = compare(ref, r, fcfg)
+
+    # the training loss with a vocabulary-sharded head on (data 2, model
+    # 2): the frontend step's streamed CE gathers each chunk's logits
+    # over the model line into whole rows (values only: the port trains
+    # on one rank, the dry run counts the rest)
+    from repro_torch.training.loss import loss_given_noise
+    lcfg = get_config("llava-next-34b-smoke", tp=2)
+    lp = weights(lcfg, 2)
+    g = torch.Generator().manual_seed(5)
+    B, S = 2, 12
+    toks = torch.randint(0, lcfg.vocab_size - 4, (B, S), generator=g)
+    pe = torch.randn((B, lcfg.frontend_prefix_len, lcfg.frontend_embed_dim),
+                     generator=g)
+    t = 0.05 + 0.95 * torch.rand((B, 1), generator=g)
+    m = torch.rand((B, S), generator=g) < t
+    sh = shard_tree(lp, SpecBuilder(lcfg, mesh).params(), mesh)
+    with torch.no_grad():
+        whole = loss_given_noise(lcfg, lp, toks, t, m, prefix_embeds=pe)
+        part = loss_given_noise(lcfg, sh, toks, t, m, prefix_embeds=pe,
+                                mesh=mesh)
+    out["sharded_loss"] = {
+        "head_cols": sh["lm_head"].shape[1], "vocab": lcfg.vocab_size,
+        "loss": [float(whole[0]), float(part[0])],
+        **{k: [float(whole[1][k]), float(part[1][k])]
+           for k in ("ce", "masked_acc", "n_masked")}}
 
     if rank == 0:
         json.dump(out, sys.stdout)

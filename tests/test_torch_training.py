@@ -433,10 +433,18 @@ def test_eval_exact_match_metric():
 
 # ------------------------------------------------------------ CLIs
 
-def test_train_cli_lower_only_names_a14():
+def test_train_cli_lower_only_names_a14(tmp_path, monkeypatch):
+    """``--lower-only`` is the dry run of the train step (ROADMAP A14):
+    it writes a ``train_4k`` record of the production mesh and trains
+    nothing."""
+    import json
     from repro_torch.launch import train as train_cli
-    with pytest.raises(NotImplementedError, match="A14"):
-        train_cli.main(["--device", "cpu", "--lower-only"])
+    monkeypatch.chdir(tmp_path)
+    rec = train_cli.main(["--device", "cpu", "--lower-only"])
+    path = tmp_path / "results/torch/dryrun/tiny__train_4k__16x16.json"
+    assert json.loads(path.read_text()) == json.loads(json.dumps(rec))
+    assert rec["meta"] == {"kind": "train", "batch": 256, "seq": 4096}
+    assert rec["per_device"]["flops"] > 0
 
 
 def _serve_args(**kw):
