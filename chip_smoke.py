@@ -15,7 +15,9 @@ package. Phases, each printing JSON lines:
               in parallel; ptxas
               registers and spills per kernel; from ``cuobjdump -sass``
               each kernel's HGMMA, UTMALDG and HMMA counts: the bf16 GEMM
-              must use wgmma and TMA and no mma.sync).
+              must use wgmma and TMA and no mma.sync, the float32 GEMM
+              mma.sync; the sLSTM kernel's registers and its plan's
+              shared bytes).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the main path's shapes and at small edge cases, with its
               time, the plain version's, the library call's and the bound;
@@ -26,7 +28,9 @@ package. Phases, each printing JSON lines:
               GEMM at every product of a llada-8b denoise step at
               B = 1..8, at a refresh and at the LM head, against its
               plain version, cuBLAS and its bound, with its tile plan
-              (tile, stages, CTAs, waves on the card's SMs).
+              (tile, stages, CTAs, waves on the card's SMs); the float32
+              kernel (3xTF32) at the routers' and RG-LRU's products, and
+              its ``acc`` chain cut at K / 2 bit-equal to the whole.
 4. probe    — the GEMM against its probe build (its load path alone)
               at a step's products and the head; the bf16 attention
               kernel against its load path alone and its math alone, at
@@ -106,8 +110,8 @@ package. Phases, each printing JSON lines:
               float32 train step of ``tiny`` on the card against the CPU
               (loss, every gradient, every weight after AdamW); tiny-100m
               trained at full size with ``examples/train_and_serve.py``'s
-              recipe (300 steps, batch 16, seq_len 76; 1200 if no method
-              answers any prompt at 300): loss, masked
+              recipe (300 steps, batch 16, seq_len 76; ``TRAIN_STEPS``
+              lists counts to rerun at if no method answers): loss, masked
               accuracy, step ms, tokens/s, peak bytes; its checkpoint
               written and read back bit for bit; the methods table on the
               trained weights in bf16 and f32 (exact-match accuracy, NFE,
@@ -211,6 +215,7 @@ from repro_torch.data.synthetic import (ArithmeticDataset,  # noqa: E402
 from repro_torch.data.tokenizer import ByteTokenizer  # noqa: E402
 from repro_torch.kernels import block_attention as kba  # noqa: E402
 from repro_torch.kernels import build, confidence, gemm, ops, ref  # noqa: E402
+from repro_torch.kernels import recurrent as krec  # noqa: E402
 from repro_torch.models import apply_model, get_config, init_params  # noqa: E402
 from repro_torch.models.model import (DTYPES, init_cache,  # noqa: E402
                                       params_to, serving_head)
@@ -297,13 +302,17 @@ SCAN_OF = {"rglru": "rglru_scan", "mlstm": "mlstm_scan",
 
 def path_kernels(cfg=None) -> tuple:
     """The kernels a decode of ``cfg`` launches (llada-8b's path when
-    None): the confidence kernel and the GEMM, attention where the
-    layout has an attention layer, each recurrent mixer's scan."""
+    None): the confidence kernel and the GEMM, the GEMM's float32 kernel
+    where the config has float32 products (a MoE router, RG-LRU's gates,
+    a float32 model), attention where the layout has an attention layer,
+    each recurrent mixer's scan."""
     if cfg is None:
         return ATTN_PATH
     mixers = {s.mixer for s in cfg.layout}
     return tuple(k for k in ops.LAUNCHES
                  if k in ("confidence_argmax", "gemm")
+                 or (k == "gemm_f32" and (cfg.n_experts or "rglru" in mixers
+                                          or cfg.dtype == "float32"))
                  or (k == "block_attention"
                      and mixers & {"attn", "attn_local"})
                  or k in {SCAN_OF[m] for m in mixers if m in SCAN_OF})
@@ -869,8 +878,10 @@ def phase_gemm():
     product of a denoise step (Sq = 129 rows a request) at B = 1..8, the
     same products at a middle block's refresh (B = 4, prefix 256 + 129),
     and the LM head of a step (32 rows a request) at B = 1 and 4; then
-    float32 (the ``tiny`` config's route) at a small shape. Per B, the
-    step's 32 layers of products summed: kernel, cuBLAS and bound."""
+    float32 (the ``tiny`` config's route) at small shapes, and the other
+    families' products (``family_gemm_cases``). Per B, the step's 32
+    layers of products summed: kernel, cuBLAS and bound. Returns the
+    gate/up record at B = 4 and the float32 products' records."""
     layers = get_config("llada-8b").n_layers
     for B in range(1, 9):
         tot = {"kernel_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
@@ -890,19 +901,26 @@ def phase_gemm():
     check_gemm("f32_tiny_ffn", 2 * 13, 256, 768, torch.float32)
     check_gemm("f32_ragged", 37, 72, 40, torch.float32)
     check_gemm("bf16_ragged", 37, 72, 40)
-    family_gemm_cases()
-    return main
+    check_gemm_f32_chain("f32_ragged", 37, 80, 42)
+    return main, family_gemm_cases()
 
 
 def family_gemm_cases():
-    """gemm.cu at the other families' new shapes, beside cuBLAS."""
+    """gemm.cu at the other families' new shapes, beside cuBLAS, and the
+    float32 kernel's ``acc`` chain at its products. Returns the records of
+    the float32 products by name."""
     # the other families' new shapes, at a block-0 step of the families
     # phase (FAM_N x FAM_SQ rows) and its head (FAM_N x BLOCK rows)
     M = FAM_N * FAM_SQ
+    f32 = {}
     for name, K, N, dtype in FAMILY_PRODUCTS:
-        check_gemm(name, M, K, N, dtype, plain=name in FAMILY_PLAIN)
+        rec = check_gemm(name, M, K, N, dtype, plain=name in FAMILY_PLAIN)
+        if dtype == torch.float32:
+            f32[name] = rec
+            check_gemm_f32_chain(name, M, K, N)
     for arch, (K, N) in FAMILY_HEADS.items():
         check_gemm(f"{arch}_head", FAM_N * BLOCK, K, N)
+    return f32
 
 
 def phase_gemm_probe():
@@ -2954,9 +2972,11 @@ def phase_fleet(cfg, params, device="cuda"):
 
 # examples/train_and_serve.py's recipe at tiny-100m, and its decode
 TRAIN_ARCH = "tiny-100m"
-# the example's count; the bench's (benchmarks/common.py) if no method
-# answers any prompt at 300 (on the H100, 600 steps answered none either)
-TRAIN_STEPS = (300, 1200)
+# the example's count. A rerun at the bench's count (benchmarks/common.py)
+# when no method answers any prompt at 300, TRAIN_STEPS = (300, 1200),
+# answered 2 of 32 and took ~185 s on the H100, which the script's
+# 1200 s limit no longer holds (on the H100, 600 steps answered none)
+TRAIN_STEPS = (300,)
 TRAIN_BATCH, TRAIN_SEQ = 16, 76
 EVAL_N, TRAIN_GEN, TRAIN_BLOCK, TRAIN_WINDOW = 32, 64, 8, 16
 TRAIN_TAU0, TRAIN_ALPHA = 0.9, 0.3
@@ -3314,7 +3334,8 @@ def phase_train(device="cuda"):
        NFE, steps per block, tokens per step, the share of blocks whose IF
        nodes skipped, tok/s and speedup; graph loop = host loop; some
        method commits several tokens in a step and some block exits
-       early. If every accuracy is 0, the recipe reruns with 1200 steps;
+       early. If every accuracy is 0, the recipe reruns at the next count
+       of ``TRAIN_STEPS``, if it lists one;
     5. continuous serving of the 32 prompts, each equal to its decode
        alone, no capture after prewarm;
     6. on the card, each kernel at the trained model's shapes against its
@@ -3341,8 +3362,9 @@ def phase_train(device="cuda"):
         if any(r["acc"] > 0 for r in rows):
             break
         why = f"every method's accuracy was 0 at {steps} steps"
-        print(json.dumps({"phase": "train_retrain", "steps": steps,
-                          "why": why}), flush=True)
+        if steps != TRAIN_STEPS[-1]:
+            print(json.dumps({"phase": "train_retrain", "steps": steps,
+                              "why": why}), flush=True)
     cont = continuous_on_trained(cfg, params, [s.prompt for s in samples],
                                  device)
     kern = prof = None
@@ -4510,11 +4532,18 @@ def phase_build():
     ptxas = [f for lib in libs[:5]
              for f in ptxas_report(lib.with_suffix(".log").read_text())]
     tool = cuobjdump_path()
-    sass = ([dict(f, library=name) for (name, _), lib in zip(jobs[:5], libs)
-             for f in sass_report(tool, lib)] if tool
-            else "not available (no cuobjdump in the toolkit or Triton)")
+    if tool:
+        # one cuobjdump per library, all started together
+        with ThreadPoolExecutor(5) as pool:
+            reports = list(pool.map(lambda lib: sass_report(tool, lib),
+                                    libs[:5]))
+        sass = [dict(f, library=name) for (name, _), rep
+                in zip(jobs[:5], reports) for f in rep]
+    else:
+        sass = "not available (no cuobjdump in the toolkit or Triton)"
     spills = [f for f in ptxas if f["spill_stores"] or f["spill_loads"]]
     emit({"phase": "build", "nvcc_s": t_nvcc,
+          "reports_s": time.perf_counter() - t0 - t_nvcc,
           "libraries": [os.path.relpath(lib, ROOT) for lib in libs[:5]],
           "ptxas": ptxas, "spills": bool(spills),
           "cuobjdump": tool, "sass": sass})
@@ -4522,12 +4551,31 @@ def phase_build():
     # kernel's included, fits its registers
     if spills:
         raise AssertionError(f"ptxas spills: {spills}")
+    # the redesigned float32 GEMM (3xTF32 on mma.sync: HMMA) and sLSTM
+    # scan (R in a cluster's shared memory: its dynamic bytes the plan's
+    # at xlstm-350m's head dim, beside ptxas's registers)
+    f32 = [f for f in sass if f["kernel"].startswith("gemm_f32")] \
+        if tool else []
+    xl = get_config("xlstm-350m")
+    hd = xl.d_model // xl.n_heads
+    plan = krec.slstm_plan(hd)
+    emit({"phase": "build", "gemm_f32_sass": [
+              {"kernel": f["kernel"], "HMMA": f["HMMA"]} for f in f32],
+          "slstm_ptxas": [{"kernel": f["kernel"], "registers": f["registers"],
+                           "smem_static": f["smem_static"]}
+                          for f in ptxas if f["kernel"].startswith("slstm")],
+          "slstm_plan": {"head_dim": hd, "cluster": plan.cluster,
+                         "channels": plan.channels, "threads": plan.threads,
+                         "smem_dynamic_bytes": plan.smem_bytes}})
     if tool:
         # the bf16 GEMM reaches wgmma and TMA, and no mma.sync is left
         bf16 = [f for f in sass if f["kernel"].startswith("gemm_bf16")]
         if not bf16 or not all(f["HGMMA"] and f["UTMALDG"] and not f["HMMA"]
                                for f in bf16):
             raise AssertionError(f"gemm_bf16_kernel SASS: {bf16}")
+        # every float32 instantiation runs on the tensor cores
+        if not f32 or not all(f["HMMA"] for f in f32):
+            raise AssertionError(f"gemm_f32_kernel SASS: {f32}")
 
 
 # ------------------------------------------------------------ frontends
@@ -4880,6 +4928,31 @@ def check_gemm_f32_out(name, M, K, N):
     return rec
 
 
+def check_gemm_f32_chain(name, M, K, N):
+    """The float32 kernel's ``acc`` chain (``layers.row_parallel`` on a
+    model line of two): the second half of K continuing the first half's
+    sums (a cut at a multiple of 8) is bit-equal to the whole product."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((M, K), generator=g, device="cuda")
+    w = torch.randn((K, N), generator=g, device="cuda") / math.sqrt(K)
+    h = K // 2
+    whole = ops.gemm(x, w)
+    chain = ops.gemm(x[:, h:].contiguous(), w[h:].contiguous(),
+                     torch.float32, acc=ops.gemm(x[:, :h].contiguous(),
+                                                 w[:h].contiguous(),
+                                                 torch.float32))
+    torch.cuda.synchronize()
+    rec = {"phase": "kernels", "kernel": "gemm", "case": name + "_chain",
+           "dtype": "float32", "shape": {"M": M, "K": K, "N": N},
+           "cut": h, "chain_of_two_bit_equal": bool(torch.equal(chain,
+                                                                whole))}
+    rec["ok"] = h % 8 == 0 and rec["chain_of_two_bit_equal"]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"gemm float32 chain {name}: {rec}")
+    return rec
+
+
 def placement_gloo(device):
     """(b) Two ranks sharing the one card over gloo, on the host loop:
     mesh (2, 1) bit-equal to the single-rank decode, mesh (1, 2) valid
@@ -4985,7 +5058,7 @@ def main() -> int:
 
     timed(phase_build)
     step, conf = timed(phase_kernels)
-    gemm_main = timed(phase_gemm)
+    gemm_main, gemm_f32 = timed(phase_gemm)
     timed(phase_gemm_probe)
     timed(phase_probe)
     timed(phase_reference)
@@ -5048,6 +5121,23 @@ def main() -> int:
          "bound_ms": gemm_main["bound_ms"], "bound_by": gemm_main["bound_by"],
          "library_ms": gemm_main["library_ms"]},
     ]
+    # gemm.cu's float32 kernel (3xTF32): RG-LRU's u @ [w_a | w_x] (the
+    # reference's float32 dot), timed at recurrentgemma-9b's block-0
+    # step, launches from the recurrent phase's timed decode of it
+    f32 = gemm_f32["recurrentgemma_9b_u_wa_wx_f32"]
+    f32_launches = rec_serve["recurrentgemma-9b"]["decode"]["launches"][
+        "gemm_f32"]
+    if not f32_launches:
+        raise AssertionError("gemm_f32_kernel: no launch on recurrentgemma's "
+                             "decode")
+    kernels.append({
+        "name": "gemm_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gemm.cu",
+        "replaces": "src/repro/models/recurrent.py:101",
+        "launches": f32_launches, "max_abs_err": f32["max_abs_err"],
+        "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"]})
     # no TPU kernel either: the JAX package scans with lax.scan; launches
     # from the recurrent phase's timed decode of the model that runs each,
     # times at the step's shape in bf16

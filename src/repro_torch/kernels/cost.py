@@ -17,7 +17,12 @@ the meter, and nothing inside it is counted again; with no meter on
 Rates (``hopper-kernels``, NVIDIA's data sheet of the SXM part at its
 700 W limit; dense, no sparsity): 989e12 operations/s in bfloat16 on the
 tensor cores, 67e12 in float32 outside them (TF32 is off), 3.35e12 B/s
-of HBM, NVLink 450e9 B/s each way between the 8 cards of a host. A mesh
+of HBM, NVLink 450e9 B/s each way between the 8 cards of a host.
+``gemm.cu``'s float32 products run on the tensor cores as three TF32
+products each (3xTF32): their 2 M K N counted operations run at a third
+of the 495e12 TF32 rate (``"tf32x3"``), so a bound set at the FFMA rate
+does not read below the kernel's time; every other float32 operation
+keeps 67e12. A mesh
 line of more than 8 ranks leaves the host: ``NETWORK_BYTES_S`` is an
 assumption (one 400 Gb/s link a card), and a record that uses it says so.
 """
@@ -29,7 +34,7 @@ import threading
 import torch
 
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 NVLINK_BYTES_S = 450e9
 HOST_CARDS = 8
 NETWORK_BYTES_S = 50e9
@@ -41,7 +46,10 @@ def dtype_name(dtype) -> str:
 
 def peak_ops_s(dtype) -> float:
     """The dense peak of ``dtype``'s operations: the tensor cores' for
-    bfloat16 and float16, float32's for every other type."""
+    bfloat16 and float16, float32's for every other type; a name of
+    ``PEAK_OPS_S`` (``"tf32x3"``) its rate."""
+    if isinstance(dtype, str):
+        return PEAK_OPS_S[dtype]
     half = dtype in (torch.bfloat16, torch.float16)
     return PEAK_OPS_S["bfloat16" if half else "float32"]
 
@@ -74,11 +82,13 @@ def bound(ops: float, n_bytes: float, dtype):
 def gemm_cost(M: int, K: int, N: int, dtype, out_dtype=None,
               acc: bool = False):
     """(M, K) @ (K, N): x and W read once, y written once (and, with a
-    float32 ``acc`` to start from, read once), 2 M K N operations."""
+    float32 ``acc`` to start from, read once), 2 M K N operations, at
+    the 3xTF32 rate in float32."""
     out = (out_dtype or dtype).itemsize
     n_bytes = (M * K + K * N) * dtype.itemsize + M * N * out \
         + (M * N * 4 if acc else 0)
-    return 2 * M * K * N, n_bytes, dtype
+    return 2 * M * K * N, n_bytes, \
+        "tf32x3" if dtype == torch.float32 else dtype
 
 
 def shape_only(t: torch.Tensor) -> bool:

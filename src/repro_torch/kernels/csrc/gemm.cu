@@ -13,7 +13,8 @@
 //     of K;
 //   - K is walked in one fixed order: BLOCK_K tiles ascending, then the
 //     tile's k16 wgmma steps ascending, all into the same registers
-//     (bf16), or k ascending with one fma each (float32);
+//     (bf16), or BLOCK_K tiles ascending, then the tile's k8 mma.sync
+//     steps ascending, three products each in a fixed order (float32);
 //   - the tile configuration is a function of (N, K, dtype) only
 //     (kernels/gemm.py:launch_plan takes no M);
 //   - rows past M are zeros (TMA's out-of-bounds fill), never another
@@ -69,9 +70,47 @@
 //     float32 values: a tensor-parallel rank continues the previous
 //     rank's partial sum over its rows of K, so the ranks' chain sums
 //     in the one order a single rank's kernel does (bit-equal to it).
-// The float32 route (the `tiny` config) is a plain 64 x 64 FFMA tile
-// loop, 4 x 4 outputs per thread, no TF32 (it would change the numbers).
-// Where the time goes: chip_smoke.py times the kernel beside cuBLAS and
+// The float32 route (the MoE routers, RG-LRU's u @ [w_a | w_x], the
+// `tiny` config) runs on the tensor cores as three TF32 products per
+// float32 product (3xTF32). Each operand value v is split once, as its
+// fragment is loaded from shared memory, into big = tf32(v) and small =
+// tf32(v - big) (cvt.rna's rounding), and each k8 step issues small.big,
+// big.small and big.big, in that order, into a fragment of the step's
+// own, which one float32 add (round to nearest) then adds to the
+// output's accumulator. The dropped small.small term is below 2^-22 of
+// each product, so the result keeps float32's accuracy (2e-5 of max
+// |ref| at K = 7168), which one TF32 product (a 10-bit mantissa) would
+// not. The step's own fragment is not a choice of speed: the tensor
+// cores truncate where they add into their accumulator, and with every
+// step's products added there the error grew with K to 2.1e-4 at the
+// kimi-k2 router (K 7168; 2.4x the tolerance; H100, chip_smoke.py's
+// check_gemm). Each output is still one accumulator over all of K, k8
+// steps ascending, and an acc chain cut at a multiple of 8 is the same
+// sequence of adds.
+//   - mma.sync.m16n8k8.tf32, not wgmma: wgmma's .tf32 form reads both
+//     operands K-major only (its transpose bits exist for 16-bit types
+//     alone), and W is (K, N) row-major, N-major. mma.sync's B fragment
+//     is loaded by hand from a K x N tile (b0 = W[k = lane % 4][n =
+//     lane / 4]), so W lands in shared memory as it is, with no
+//     transpose pass, and the split runs in registers;
+//   - tiles of 64 rows x BN columns x 32 k, 4 warps, a cp.async ring of
+//     4 stages (rows past M, columns past N and the K tail zero-filled).
+//     BN is the widest of 64, 32, 16, 8 that gives N at least 32 column
+//     tiles (kernels/gemm.py:f32_block_n): a router (N 64 or 384), bound
+//     by latency, spreads over more CTAs without splitting K, and a wide
+//     product runs two 64 x 64 CTAs an SM, 8 warps to hide the latency
+//     of mma.sync (on the H100 both beat one 64 x 128 CTA of 4 warps an
+//     SM). BN 64: 2 x 2 warps of 32 x 32; BN <= 32: 4 x 1 warps of 16 x
+//     BN;
+//   - per output the serial chain is K / 8 float32 adds; each step's
+//     three mma.sync are a chain of their own, independent of the other
+//     steps', so a router (its bytes take 0.0005 ms) is bound by issue
+//     and latency, while RG-LRU's product (M 128, K 4096, N 8192) is
+//     bound by the tensor cores: 3 x 2 M K N operations at 495 TFLOP/s
+//     (kernels/cost.py counts 2 M K N at a third of that rate);
+//   - shared-memory rows padded (x rows 36 floats, W rows 8 mod 32), so
+//     each fragment load hits 32 distinct banks.
+// Where the bf16 kernel's time goes: chip_smoke.py times it beside cuBLAS and
 // its bound at every product of a step at B = 1..8, and its probe build
 // below against it. On the H100 the load path alone (probe 1)
 // takes most of the kernel's time from B = 4 on: the feed of x and W
@@ -93,7 +132,9 @@ namespace {
 
 // must match kernels/gemm.py:_TILES and launch_plan
 constexpr int kBM = 128, kBN = 256, kBK = 64, kStages = 4, kThreads = 384;
-constexpr int kFBM = 64, kFBN = 64, kFBK = 16, kFThreads = 256;
+constexpr int kFBM = 64, kFBK = 32, kFStages = 4, kFThreads = 128;
+constexpr int kFBNMax = 64, kFBNMin = 8, kFColTiles = 32;
+constexpr int kFAStride = kFBK + 4;              // floats a row of x's tile
 
 constexpr int kBox = 64;              // bf16 in a 128-byte swizzled row
 constexpr int kConsumers = 2;         // warpgroups of 64 rows each
@@ -398,62 +439,212 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmap_x,
   }
 }
 
-// float32: 64 x 64 outputs per CTA of 256 threads, 4 x 4 per thread; each
-// output is one fma chain over k = 0 .. K-1, from 0 or (acc_in) from its
-// value in y.
+// ------------------------------------------------------------- float32
+
+// A row of W's tile in floats: 8 mod 32, so the fragment loads (k = lane
+// % 4, n = lane / 4) hit 32 distinct banks.
+__host__ __device__ constexpr int f32_b_stride(int bn) {
+  return (bn + 31) / 32 * 32 + 8;
+}
+// One stage of the ring in floats: x's 64 x 32 tile, then W's 32 x BN.
+__host__ __device__ constexpr int f32_stage_floats(int bn) {
+  return kFBM * kFAStride + kFBK * f32_b_stride(bn);
+}
+
+// v rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; finite v): an integer add of half the dropped ulp to the
+// magnitude, then the 13 low mantissa bits cleared. ptxas expands
+// cvt.rna.tf32.f32 into a compare-and-select sequence per value; this is
+// two integer ops.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = big + small, both TF32 (v - big is exact in float32).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(v);
+  small = to_tf32(v - __uint_as_float(big));
+}
+
+// d (16 x 8, f32) += a (16 x 8, row-major) * b (8 x 8, column-major),
+// TF32 operands.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d (16 x 8, f32) = a * b, from zero.
+__device__ __forceinline__ void mma_tf32_zero(float* d, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// VEC floats from global to shared memory, or zeros where !valid.
+template <int VEC>
+__device__ __forceinline__ void cp_async(uint32_t dst, const float* src,
+                                         bool valid) {
+  if constexpr (VEC == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 ::"r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// float32 (3xTF32): one CTA per 64 x BN tile, CTA (i, j) computing row
+// tile i of column tile j, on WM x (4 / WM) warps of MI x NI m16n8
+// fragments each. Each output is one accumulator, from 0 or (acc_in) from
+// its value in y, over the k8 steps in ascending order. VEC: floats per
+// cp.async (4 where K, N and the bases allow 16-byte copies, else 1).
+template <int WM, int MI, int NI, int VEC>
 __global__ void __launch_bounds__(kFThreads)
 gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 float* __restrict__ y, int M, int N, int K, int acc_in) {
-  __shared__ float as[kFBK][kFBM];            // x tile, transposed
-  __shared__ float bs[kFBK][kFBN];
-  const int m0 = blockIdx.x * kFBM, n0 = blockIdx.y * kFBN;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + ty * 4 + i, col = n0 + tx * 4 + j;
-      acc[i][j] = (acc_in && row < M && col < N)
-                      ? y[static_cast<long long>(row) * N + col] : 0.f;
-    }
+  constexpr int WN = kFThreads / 32 / WM;
+  constexpr int BN = WN * NI * 8;
+  constexpr int BS = f32_b_stride(BN);
+  constexpr int kStage = f32_stage_floats(BN);
+  static_assert(WM * MI * 16 == kFBM, "the warps cover the tile's rows");
+  extern __shared__ __align__(16) float fsm[];
+  const int m0 = blockIdx.x * kFBM, n0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp / WN) * MI * 16;     // the warp's rows in the tile
+  const int wc = (warp % WN) * NI * 8;      // and its columns
+  const int ktiles = (K + kFBK - 1) / kFBK;
 
-  for (int k0 = 0; k0 < K; k0 += kFBK) {
+  // k tile kt of x (64 x 32) and of W (32 x BN) into stage s; rows past
+  // M, columns past N and k past K are zeros
+  auto load = [&](int kt, int s) {
+    float* as = fsm + s * kStage;
+    float* bs = as + kFBM * kFAStride;
+    const int k0 = kt * kFBK;
+    constexpr int AC = kFBM * kFBK / VEC, BC = kFBK * BN / VEC;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < (AC + kFThreads - 1) / kFThreads; ++i) {
       const int c = threadIdx.x + i * kFThreads;
-      const int r = c >> 4, kc = c & 15;       // x: 64 rows x 16 k
-      as[kc][r] = (m0 + r < M && k0 + kc < K)
-                      ? x[static_cast<long long>(m0 + r) * K + k0 + kc] : 0.f;
-      const int kr = c >> 6, nc = c & 63;      // W: 16 k x 64 cols
-      bs[kr][nc] = (k0 + kr < K && n0 + nc < N)
-                       ? w[static_cast<long long>(k0 + kr) * N + n0 + nc] : 0.f;
+      if (AC % kFThreads != 0 && c >= AC) break;
+      const int r = c / (kFBK / VEC), kc = c % (kFBK / VEC) * VEC;
+      const bool ok = m0 + r < M && k0 + kc < K;
+      cp_async<VEC>(smem_u32(as + r * kFAStride + kc),
+                    ok ? x + static_cast<long long>(m0 + r) * K + k0 + kc
+                       : x, ok);
     }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kFBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int i = 0; i < (BC + kFThreads - 1) / kFThreads; ++i) {
+      const int c = threadIdx.x + i * kFThreads;
+      if (BC % kFThreads != 0 && c >= BC) break;
+      const int kr = c / (BN / VEC), nc = c % (BN / VEC) * VEC;
+      const bool ok = k0 + kr < K && n0 + nc < N;
+      cp_async<VEC>(smem_u32(bs + kr * BS + nc),
+                    ok ? w + static_cast<long long>(k0 + kr) * N + n0 + nc
+                       : w, ok);
     }
-    __syncthreads();
+  };
+
+  // fragment layout (m16n8, f32): acc[mi][ni][q] is row wr + 16 mi + g
+  // (+ 8 for q >= 2), column wc + 8 ni + 2 t (+ 1 for odd q)
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = m0 + wr + mi * 16 + g + (q >> 1) * 8;
+        const int col = n0 + wc + ni * 8 + 2 * t + (q & 1);
+        acc[mi][ni][q] = (acc_in && row < M && col < N)
+                             ? y[static_cast<long long>(row) * N + col]
+                             : 0.f;
+      }
+  // a warp whose rows all lie past M skips its mma.sync (no other sum
+  // changes)
+  const bool live = m0 + wr < M;
+
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kFStages - 2>();     // tile kt has landed
+    __syncthreads();                   // and every warp is done with kt - 1
+    if (kt + kFStages - 1 < ktiles)
+      load(kt + kFStages - 1, (kt + kFStages - 1) % kFStages);
+    cp_async_commit();
+    if (!live) continue;
+    const float* as = fsm + (kt % kFStages) * kStage;
+    const float* bs = as + kFBM * kFAStride;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= M) continue;
+    for (int kk = 0; kk < kFBK; kk += 8) {
+      uint32_t a_big[MI][4], a_small[MI][4];
+      uint32_t b_big[NI][2], b_small[NI][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < N) y[static_cast<long long>(row) * N + col] = acc[i][j];
+      for (int mi = 0; mi < MI; ++mi) {
+        const float* a = as + (wr + mi * 16 + g) * kFAStride + kk + t;
+        split_tf32(a[0], a_big[mi][0], a_small[mi][0]);
+        split_tf32(a[8 * kFAStride], a_big[mi][1], a_small[mi][1]);
+        split_tf32(a[4], a_big[mi][2], a_small[mi][2]);
+        split_tf32(a[8 * kFAStride + 4], a_big[mi][3], a_small[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const float* b = bs + (kk + t) * BS + wc + ni * 8 + g;
+        split_tf32(b[0], b_big[ni][0], b_small[ni][0]);
+        split_tf32(b[4 * BS], b_big[ni][1], b_small[ni][1]);
+      }
+      // small.big, big.small, big.big, the fixed order of each k8 step,
+      // into a fragment of the step's own, then one float32 add into the
+      // output's accumulator
+      float step[MI][NI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+          mma_tf32_zero(step[mi][ni], a_small[mi], b_big[ni]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+          mma_tf32(step[mi][ni], a_big[mi], b_small[ni]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          mma_tf32(step[mi][ni], a_big[mi], b_big[ni]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mi][ni][q] += step[mi][ni][q];
+        }
     }
   }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = m0 + wr + mi * 16 + g + (q >> 1) * 8;
+        const int col = n0 + wc + ni * 8 + 2 * t + (q & 1);
+        if (row < M && col < N)
+          y[static_cast<long long>(row) * N + col] = acc[mi][ni][q];
+      }
 }
 
 // cuTensorMapEncodeTiled is a driver call: reached through the runtime's
@@ -520,6 +711,50 @@ cudaError_t launch_bf16(const void* x, const void* w, void* y, int M, int N,
   return cudaGetLastError();
 }
 
+// The float32 kernel's column tile: the widest of kFBNMax .. kFBNMin
+// (halving) that gives N at least kFColTiles column tiles (a function of
+// N alone, as kernels/gemm.py:f32_block_n).
+int f32_block_n(int N) {
+  int bn = kFBNMax;
+  while (bn > kFBNMin && (N + bn - 1) / bn < kFColTiles) bn /= 2;
+  return bn;
+}
+
+template <int WM, int MI, int NI, int VEC>
+cudaError_t launch_f32_tile(const float* x, const float* w, float* y, int M,
+                            int N, int K, int acc_in, cudaStream_t s) {
+  constexpr int BN = kFThreads / 32 / WM * NI * 8;
+  constexpr int smem = kFStages * f32_stage_floats(BN) * 4;
+  static_assert(smem <= 232448, "dynamic shared memory");
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gemm_f32_kernel<WM, MI, NI, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const dim3 grid((M + kFBM - 1) / kFBM, (N + BN - 1) / BN);
+  gemm_f32_kernel<WM, MI, NI, VEC><<<grid, kFThreads, smem, s>>>(
+      x, w, y, M, N, K, acc_in);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch_f32(const float* x, const float* w, float* y, int M,
+                       int N, int K, int acc_in, cudaStream_t s) {
+  switch (f32_block_n(N)) {
+    case 64: return launch_f32_tile<2, 2, 4, VEC>(x, w, y, M, N, K, acc_in,
+                                                  s);
+    case 32: return launch_f32_tile<4, 1, 4, VEC>(x, w, y, M, N, K, acc_in,
+                                                  s);
+    case 16: return launch_f32_tile<4, 1, 2, VEC>(x, w, y, M, N, K, acc_in,
+                                                  s);
+    default: return launch_f32_tile<4, 1, 1, VEC>(x, w, y, M, N, K, acc_in,
+                                                  s);
+  }
+}
+
 }  // namespace
 
 // dtype 0 = float32, 1 = bfloat16 (x and w); y is float32 where dtype is
@@ -541,11 +776,14 @@ extern "C" int gemm_launch(const void* x, const void* w, void* y, int M,
     return launch_bf16(x, w, y, M, N, K, out_f32, acc_in, s);
   }
   if (dtype == 0) {
-    dim3 grid((M + kFBM - 1) / kFBM, (N + kFBN - 1) / kFBN);
-    gemm_f32_kernel<<<grid, kFThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(y), M, N, K, acc_in);
-    return cudaGetLastError();
+    const bool vec = K % 4 == 0 && N % 4 == 0
+                     && reinterpret_cast<uintptr_t>(x) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const float* xf = static_cast<const float*>(x);
+    const float* wf = static_cast<const float*>(w);
+    float* yf = static_cast<float*>(y);
+    return vec ? launch_f32<4>(xf, wf, yf, M, N, K, acc_in, s)
+               : launch_f32<1>(xf, wf, yf, M, N, K, acc_in, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -14,10 +14,10 @@
 //   reference;
 //   the per-step output is written in OutT (float32, or T rounded to
 //   nearest even from the float32 value);
-// - a CTA (or thread) owns one batch row and walks t = 0 .. S-1 in order;
-//   every sum runs in a fixed order and no atomics are used, so a run is
-//   deterministic and a row's bits do not depend on its batch or its
-//   place in it;
+// - a CTA (or thread, or the sLSTM's cluster) walks t = 0 .. S-1 in
+//   order for its rows; every sum runs in a fixed order and no atomics
+//   are used, so a run is deterministic and a row's bits do not depend on
+//   its batch or its place in it;
 // - the final state is written to separate buffers (the caller copies it
 //   into the cache where the reference keeps it).
 //
@@ -31,11 +31,25 @@
 //   Per step: the stabiliser m, i' = exp(i - m'), f' = exp(logsig(f) + m
 //   - m'); C = f' C + i' (k v^T); n = f' n + i' k; h = (C^T q) /
 //   max(|n . q|, 1). The step's q, k, v, i, f are loaded one step ahead.
-// slstm_scan_kernel<T, OutT>: one CTA of hd threads per (row, head);
-//   thread j owns channel j. Per step it computes the four gates' rows of
-//   the block-diagonal recurrent products h_{t-1} R_g (k ascending), then
-//   the stabilised c, n, m, h. R_g (4 x hd x hd per head) is re-read from
-//   L2 every step; h lives in shared memory, double-buffered.
+// slstm_scan_kernel<ROWS, T, OutT>: per step the four gates' rows of the
+//   block-diagonal recurrent products h_{t-1} R_g (k ascending, one fma
+//   chain each), then the stabilised c, n, m, h. The recurrence is serial
+//   in t, so the kernel is bound by each step's latency, not by its
+//   arithmetic (xlstm-350m: 8 x 256 x 1024 operations a row and step) or
+//   its bytes. A head's R (4 x 256 x 256 float32 = 1 MiB at xlstm-350m)
+//   does not fit one SM, and re-reading it from L2 every step made a step
+//   cost ~45 us. So one thread-block cluster of C = hd / 32 CTAs (8 at
+//   hd 256) holds a head: each CTA keeps the R columns of its 32
+//   channels, all four gates (128 KiB at hd 256), in shared memory for
+//   the whole launch and walks up to ROWS = 8 batch rows together,
+//   reading each R value once per step for all of them. A thread owns
+//   one (channel, gate) and its ROWS sums; the four gates of a channel
+//   meet by warp shuffles, and each CTA sends its channels' h_t into
+//   every CTA's next h buffer through distributed shared memory
+//   (st.async, counted on the receiver's mbarrier; a cluster barrier a
+//   step, whose release fenced all of device memory, cost more). No
+//   step reads R from L2.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -205,73 +219,219 @@ mlstm_scan_kernel(const T* __restrict__ proj, const float* __restrict__ C0,
 
 // ================================================================ sLSTM
 
-// pre: (B, S, 4 d) rows [z | i | f | o]; r: (4, H, hd, hd); state (B, d);
-// grid (H, B), block hd threads.
-template <typename T, typename OutT>
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// The address of shared-memory address a in cluster rank's CTA.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(a), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+// Arrive, adding `bytes` to the transaction count the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+// Returns once the phase of the given parity has completed; the writes
+// other CTAs completed on it are visible after.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1],"
+        " %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// must match kernels/recurrent.py:slstm_plan
+constexpr int kSlstmMaxCluster = 8;      // CTAs of a head (portable size)
+constexpr int kSlstmChannels = 32;       // a CTA's channels
+constexpr int kSlstmMaxRows = 8;         // batch rows a cluster walks
+constexpr int kSlstmThreads = 4 * kSlstmChannels;   // a thread a gate
+constexpr int kSlstmSmemLimit = 232448;  // dynamic shared memory a CTA
+
+// pre: (B, S, 4 d) rows [z | i | f | o]; r: (4, H, hd, hd); state (B, d).
+// grid (C H, ceil(B / ROWS)) in clusters of C CTAs along x: cluster hh is
+// head hh, and its CTA of rank q owns the head's channels [q P, q P + P)
+// (P = kSlstmChannels, C = hd / P) for rows [ROWS y, ROWS y + ROWS). 4 P
+// threads, a row of rs (its stride a constant, so the k loop's loads
+// take immediate offsets): thread tid
+// is gate g = (tid / 4) % 4 of channel j = (tid / 16) * 4 + tid % 4, so a
+// channel's four gates sit in one warp, 4 lanes apart.
+// Shared memory: R's columns of this CTA's channels, all four gates (each
+// thread's column, loaded once), then h of each row, double-buffered:
+// hb[2][kSlstmMaxRows][hd], then a "full" mbarrier for each buffer.
+template <int ROWS, typename T, typename OutT>
+__global__ void __launch_bounds__(kSlstmThreads)
 slstm_scan_kernel(const T* __restrict__ pre, const float* __restrict__ r,
                   const float* __restrict__ h0, const float* __restrict__ c0,
                   const float* __restrict__ n0, const float* __restrict__ m0,
                   OutT* __restrict__ hs, float* __restrict__ h1,
                   float* __restrict__ c1, float* __restrict__ n1,
-                  float* __restrict__ m1, int S, int H) {
-  extern __shared__ float hbuf[];               // 2 x hd
-  const int hd = blockDim.x;
-  const int j = threadIdx.x;
-  const int hh = blockIdx.x;
-  const int b = blockIdx.y;
+                  float* __restrict__ m1, int B, int S, int H, int hd) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float slsm[];
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int q = static_cast<int>(cluster.block_rank());
+  constexpr int P = kSlstmChannels, W = kSlstmThreads;
+  float* rs = slsm;
+  float* hb = slsm + hd * W;
+  // full[i]: h of every channel has landed in hb[i] (each CTA's
+  // st.async of its channels completes bytes on it)
+  uint64_t* full = reinterpret_cast<uint64_t*>(hb + 2 * kSlstmMaxRows * hd);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = (tid >> 2) & 3;
+  const int jl = (tid >> 4) * 4 + (tid & 3);     // channel in the CTA
+  const int hh = blockIdx.x / C;
   const int d = H * hd;
-  const int ch = hh * hd + j;                    // this thread's channel
-  const int64_t st = int64_t(b) * d + ch;
-  float c = c0[st], n = n0[st], m = m0[st];
-  hbuf[j] = h0[st];
-  const int64_t gate = int64_t(H) * hd * hd;     // between R_z, R_i, ...
-  const float* rj = r + int64_t(hh) * hd * hd + j;   // R_g[hh][k][j]
-  const T* pb = pre + int64_t(b) * S * 4 * d + ch;
-  float pz = 0.f, pi = 0.f, pf = 0.f, po = 0.f;
-  if (S > 0) {
-    pz = to_f32(pb[0]); pi = to_f32(pb[d]);
-    pf = to_f32(pb[2 * d]); po = to_f32(pb[3 * d]);
+  const int jh = q * P + jl;                     // channel in the head
+  const int ch = hh * hd + jh;                   // channel in d
+  const int row0 = blockIdx.y * ROWS;
+
+  // this thread's column of R_g[hh] (its gate and channel), every k, as
+  // rs4[k / 4][tid]: four consecutive k in one 16-byte word, so the k
+  // loop reads R with one 16-byte load per 4 k
+  float4* rs4 = reinterpret_cast<float4*>(rs);
+  {
+    const float* src = r + (static_cast<int64_t>(g) * H + hh) * hd * hd
+                       + jh;
+#pragma unroll 16
+    for (int k4 = 0; k4 < hd / 4; ++k4) {
+      const float* sk = src + static_cast<int64_t>(4 * k4) * hd;
+      rs4[k4 * W + tid] = make_float4(sk[0], sk[hd], sk[2 * hd], sk[3 * hd]);
+    }
   }
-  float h = hbuf[j];
+  // h_0 of every channel of the head, for this cluster's rows
+  for (int i = tid; i < ROWS * hd; i += W) {
+    const int b = i / hd, k = i % hd;
+    hb[b * hd + k] = row0 + b < B
+        ? h0[static_cast<int64_t>(row0 + b) * d + hh * hd + k] : 0.f;
+  }
+  float c[ROWS], n[ROWS], m[ROWS], pv[ROWS], h[ROWS];
+#pragma unroll
+  for (int b = 0; b < ROWS; ++b) {
+    const bool live = row0 + b < B;
+    const int64_t st = static_cast<int64_t>(row0 + b) * d + ch;
+    c[b] = live ? c0[st] : 0.f;
+    n[b] = live ? n0[st] : 1.f;
+    m[b] = live ? m0[st] : 0.f;
+    h[b] = 0.f;
+    // this thread's gate of step 0
+    pv[b] = live ? to_f32(pre[static_cast<int64_t>(row0 + b) * S * 4 * d
+                              + g * d + ch]) : 0.f;
+  }
+  if (tid == 0) {
+    mbar_init(smem_addr(&full[0]), 1);
+    mbar_init(smem_addr(&full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every CTA of the cluster has started and set up its buffers and
+  // barriers before any writes into another's
+  cluster.sync();
+
+  const float4* rj = rs4 + tid;
+  const int quad = lane & ~12;                   // gate 0's lane
   int cur = 0;
+  uint32_t parity = 0;                           // bit i: full[i]'s phase
   for (int t = 0; t < S; ++t) {
-    __syncthreads();                             // h_{t-1} complete in hbuf[cur]
-    const float* hp = hbuf + cur * hd;
-    float az = 0.f, ai = 0.f, af = 0.f, ao = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < hd; ++k) {
-      const float hk = hp[k];
-      const float* rk = rj + int64_t(k) * hd;
-      az += hk * rk[0];
-      ai += hk * rk[gate];
-      af += hk * rk[2 * gate];
-      ao += hk * rk[3 * gate];
+    if (t > 0) {                                 // h_{t-1} from every CTA
+      mbar_wait(smem_addr(&full[cur]), (parity >> cur) & 1);
+      parity ^= 1u << cur;
     }
-    const float zt = tanhf(pz + az);
-    const float it = pi + ai;
-    const float ft = log_sigmoid(pf + af);
-    const float ot = sigmoid(po + ao);
-    if (t + 1 < S) {                             // the next step's inputs
-      const T* row = pb + int64_t(t + 1) * 4 * d;
-      pz = to_f32(row[0]); pi = to_f32(row[d]);
-      pf = to_f32(row[2 * d]); po = to_f32(row[3 * d]);
+    // this gate's row of h_{t-1} R_g for each row, k ascending
+    const float* hp = hb + cur * kSlstmMaxRows * hd;
+    float a[ROWS];
+#pragma unroll
+    for (int b = 0; b < ROWS; ++b) a[b] = 0.f;
+    // in whole chunks of KC k (hd is a multiple of 32), each unrolled so
+    // its loads run ahead of the fma chains; fewer rows, longer chunks
+    constexpr int KC = ROWS <= 2 ? 32 : (ROWS <= 4 ? 16 : 8);
+    for (int k0 = 0; k0 < hd; k0 += KC) {
+#pragma unroll
+      for (int k = k0; k < k0 + KC; k += 4) {
+        const float4 rv = rj[(k >> 2) * W];
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b) {
+          const float4 hv =
+              *reinterpret_cast<const float4*>(hp + b * hd + k);
+          a[b] = fmaf(hv.x, rv.x, a[b]);
+          a[b] = fmaf(hv.y, rv.y, a[b]);
+          a[b] = fmaf(hv.z, rv.z, a[b]);
+          a[b] = fmaf(hv.w, rv.w, a[b]);
+        }
+      }
     }
-    const float m_new = fmaxf(ft + m, it);
-    const float i_p = expf(it - m_new);
-    const float f_p = expf(ft + m - m_new);
-    c = f_p * c + i_p * zt;
-    n = f_p * n + i_p;
-    h = ot * (c / fmaxf(n, 1.f));
-    m = m_new;
+    float x[ROWS];
+#pragma unroll
+    for (int b = 0; b < ROWS; ++b) {
+      x[b] = pv[b] + a[b];
+      if (t + 1 < S && row0 + b < B)             // the next step's input
+        pv[b] = to_f32(pre[(static_cast<int64_t>(row0 + b) * S + t + 1)
+                           * 4 * d + g * d + ch]);
+    }
     cur ^= 1;
-    hbuf[cur * hd + j] = h;
-    store(hs + (int64_t(b) * S + t) * d + ch, h);
+    float* hn = hb + cur * kSlstmMaxRows * hd;
+#pragma unroll
+    for (int b = 0; b < ROWS; ++b) {
+      const float zt = tanhf(__shfl_sync(0xffffffffu, x[b], quad));
+      const float it = __shfl_sync(0xffffffffu, x[b], quad | 4);
+      const float ft = log_sigmoid(__shfl_sync(0xffffffffu, x[b], quad | 8));
+      const float ot = sigmoid(__shfl_sync(0xffffffffu, x[b], quad | 12));
+      const float m_new = fmaxf(ft + m[b], it);
+      const float i_p = expf(it - m_new);
+      const float f_p = expf(ft + m[b] - m_new);
+      c[b] = f_p * c[b] + i_p * zt;
+      n[b] = f_p * n[b] + i_p;
+      h[b] = ot * (c[b] / fmaxf(n[b], 1.f));
+      m[b] = m_new;
+    }
+    if (t + 1 < S) {
+      // h_t of this channel into every CTA's next buffer (distributed
+      // shared memory; gate lane g feeds ranks g, g + 4), each 4-byte
+      // st.async completing 4 bytes on that CTA's full barrier, which
+      // its own thread 0 armed for all ROWS x hd values. No CTA writes
+      // a buffer before every CTA has sent h_{t-1} (the wait above),
+      // which each sends after its last read of that buffer.
+      const uint32_t nbar = smem_addr(&full[cur]);
+      if (tid == 0) mbar_expect_tx(nbar, ROWS * hd * 4);
+      const uint32_t dst = smem_addr(hn + jh);
+      for (int rk = g; rk < C; rk += 4) {
+        const uint32_t rdst = cluster_addr(dst, rk);
+        const uint32_t rbar = cluster_addr(nbar, rk);
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b)
+          asm volatile(
+              "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32"
+              " [%0], %1, [%2];\n"
+              ::"r"(rdst + 4 * b * hd), "r"(__float_as_uint(h[b])),
+              "r"(rbar) : "memory");
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < ROWS; ++b)
+      if (row0 + b < B && (b & 3) == g)
+        store(hs + (static_cast<int64_t>(row0 + b) * S + t) * d + ch, h[b]);
   }
-  h1[st] = h;
-  c1[st] = c;
-  n1[st] = n;
-  m1[st] = m;
+  if (g == 0) {
+#pragma unroll
+    for (int b = 0; b < ROWS; ++b) {
+      if (row0 + b >= B) continue;
+      const int64_t st = static_cast<int64_t>(row0 + b) * d + ch;
+      h1[st] = h[b];
+      c1[st] = c[b];
+      n1[st] = n[b];
+      m1[st] = m[b];
+    }
+  }
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16
@@ -331,21 +491,80 @@ struct MlstmLaunch {
   }
 };
 
+// The sLSTM kernel's shared memory: R's columns, the h buffers, the two
+// full barriers.
+int slstm_smem_bytes(int hd) {
+  return (4 * hd * kSlstmChannels + 2 * kSlstmMaxRows * hd) * 4 + 16;
+}
+
+// The sLSTM kernel's cluster for head dim hd (0: no kernel takes it), as
+// kernels/recurrent.py:slstm_plan: C = hd / 32 CTAs of 32 channels each.
+int slstm_cluster(int hd) {
+  if (hd <= 0 || hd % kSlstmChannels != 0
+      || hd / kSlstmChannels > kSlstmMaxCluster)
+    return 0;
+  if (slstm_smem_bytes(hd) > kSlstmSmemLimit)
+    return 0;
+  return hd / kSlstmChannels;
+}
+
+template <int ROWS, typename T, typename OutT>
+cudaError_t slstm_rows(const void* pre, const void* r, const void* h0,
+                       const void* c0, const void* n0, const void* m0,
+                       void* hs, void* h1, void* c1, void* n1, void* m1,
+                       int B, int S, int H, int hd, int C, cudaStream_t s) {
+  auto kernel = slstm_scan_kernel<ROWS, T, OutT>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSlstmSmemLimit);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * H, (B + ROWS - 1) / ROWS);
+  cfg.blockDim = dim3(kSlstmThreads);
+  cfg.dynamicSmemBytes = slstm_smem_bytes(hd);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(pre), static_cast<const float*>(r),
+      static_cast<const float*>(h0), static_cast<const float*>(c0),
+      static_cast<const float*>(n0), static_cast<const float*>(m0),
+      static_cast<OutT*>(hs), static_cast<float*>(h1),
+      static_cast<float*>(c1), static_cast<float*>(n1),
+      static_cast<float*>(m1), B, S, H, hd);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <typename T, typename OutT>
 struct SlstmLaunch {
   static cudaError_t run(const void* pre, const void* r, const void* h0,
                          const void* c0, const void* n0, const void* m0,
                          void* hs, void* h1, void* c1, void* n1, void* m1,
                          int B, int S, int H, int hd, cudaStream_t s) {
-    slstm_scan_kernel<T, OutT>
-        <<<dim3(H, B), hd, 2 * hd * sizeof(float), s>>>(
-            static_cast<const T*>(pre), static_cast<const float*>(r),
-            static_cast<const float*>(h0), static_cast<const float*>(c0),
-            static_cast<const float*>(n0), static_cast<const float*>(m0),
-            static_cast<OutT*>(hs), static_cast<float*>(h1),
-            static_cast<float*>(c1), static_cast<float*>(n1),
-            static_cast<float*>(m1), S, H);
-    return cudaGetLastError();
+    const int C = slstm_cluster(hd);
+    if (C == 0) return cudaErrorInvalidValue;
+    // rows a cluster walks together: B rounded up to a power of two, at
+    // most kSlstmMaxRows (a row's sums are the same at every ROWS)
+    if (B >= 8)
+      return slstm_rows<8, T, OutT>(pre, r, h0, c0, n0, m0, hs, h1, c1, n1,
+                                    m1, B, S, H, hd, C, s);
+    if (B > 2)
+      return slstm_rows<4, T, OutT>(pre, r, h0, c0, n0, m0, hs, h1, c1, n1,
+                                    m1, B, S, H, hd, C, s);
+    if (B == 2)
+      return slstm_rows<2, T, OutT>(pre, r, h0, c0, n0, m0, hs, h1, c1, n1,
+                                    m1, B, S, H, hd, C, s);
+    return slstm_rows<1, T, OutT>(pre, r, h0, c0, n0, m0, hs, h1, c1, n1,
+                                  m1, B, S, H, hd, C, s);
   }
 };
 
@@ -381,7 +600,7 @@ extern "C" int slstm_scan_launch(const void* pre, const void* r,
                                  void* h1, void* c1, void* n1, void* m1,
                                  int B, int S, int H, int hd, int dtype,
                                  int out_dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || hd > 1024 || hd % 32 != 0)
+  if (B <= 0 || S <= 0 || H <= 0 || slstm_cluster(hd) == 0)
     return cudaErrorInvalidValue;
   return by_dtype<SlstmLaunch>(dtype, out_dtype, pre, r, h0, c0, n0, m0, hs,
                                h1, c1, n1, m1, B, S, H, hd,

@@ -29,10 +29,31 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The constants of csrc/gemm.cu, by name (a CPU test holds them equal).
 # bf16: 128 x 256 tiles of two consumer warpgroups and a producer
 # warpgroup, a ring of 4 stages; TMA boxes of 64 k x 128 rows (x) and
-# 64 n x 64 k (W), 128-byte swizzle. float32: the FFMA tile loop.
+# 64 n x 64 k (W), 128-byte swizzle. float32 (3xTF32 on mma.sync): 64
+# rows x BN columns x 32 k, 4 warps, a cp.async ring of 4 stages, BN the
+# widest of 64 .. 8 (halving) that gives N at least 32 column tiles.
 _TILES = {"kBM": 128, "kBN": 256, "kBK": 64, "kStages": 4, "kThreads": 384,
-          "kFBM": 64, "kFBN": 64, "kFBK": 16, "kFThreads": 256}
+          "kFBM": 64, "kFBK": 32, "kFStages": 4, "kFThreads": 128,
+          "kFBNMax": 64, "kFBNMin": 8, "kFColTiles": 32}
 BOX = 64                 # bf16 in a box's 128-byte inner row (the swizzle)
+F32_A_STRIDE = _TILES["kFBK"] + 4    # floats a row of x's tile (kFAStride)
+
+
+def f32_block_n(N: int) -> int:
+    """The float32 kernel's column tile for N (``f32_block_n`` in the
+    source): the widest of kFBNMax, kFBNMax / 2, .., kFBNMin that gives N
+    at least kFColTiles column tiles, so a narrow product (a router)
+    spreads over more CTAs without splitting K."""
+    bn = _TILES["kFBNMax"]
+    while bn > _TILES["kFBNMin"] and -(-N // bn) < _TILES["kFColTiles"]:
+        bn //= 2
+    return bn
+
+
+def f32_b_stride(block_n: int) -> int:
+    """Floats a row of W's float32 tile: 8 mod 32, so the mma.sync B
+    fragment loads (k = lane % 4, n = lane / 4) hit 32 distinct banks."""
+    return -(-block_n // 32) * 32 + 8
 
 
 @dataclass(frozen=True)
@@ -41,7 +62,8 @@ class GemmPlan:
     one accumulator over ``k_tiles`` tiles of ``block_k`` in ascending
     order, one CTA per (row tile, column tile). bf16 (``tma``): a ring of
     ``stages`` TMA stages in dynamic shared memory, rows past M TMA's
-    zero fill; float32: static shared tiles, rows past M zeros."""
+    zero fill; float32: a cp.async ring of ``stages`` stages in dynamic
+    shared memory, rows past M zeros."""
     block_m: int
     block_n: int
     block_k: int
@@ -53,17 +75,30 @@ class GemmPlan:
 
     @property
     def stage_bytes(self) -> int:
-        """One stage of the bf16 ring: the x box (block_m rows), then
-        block_n / BOX W boxes of block_k rows."""
-        return (self.block_m + self.block_n) * self.block_k * 2 \
-            if self.tma else 0
+        """One stage of the ring. bf16: the x box (block_m rows), then
+        block_n / BOX W boxes of block_k rows. float32: x's tile in rows
+        of ``F32_A_STRIDE`` floats, then W's in rows of
+        ``f32_b_stride``."""
+        if self.tma:
+            return (self.block_m + self.block_n) * self.block_k * 2
+        return 4 * (self.block_m * F32_A_STRIDE
+                    + self.block_k * f32_b_stride(self.block_n))
 
     @property
     def smem_bytes(self) -> int:
-        """Dynamic shared memory: 1024 bytes to align the ring (128-byte
-        swizzle atoms are 1024 bytes), the stages, 2 mbarriers a stage."""
-        return 1024 + self.stages * (self.stage_bytes + 16) \
-            if self.tma else 0
+        """Dynamic shared memory. bf16: 1024 bytes to align the ring
+        (128-byte swizzle atoms are 1024 bytes), the stages, 2 mbarriers a
+        stage; float32: the stages."""
+        if self.tma:
+            return 1024 + self.stages * (self.stage_bytes + 16)
+        return self.stages * self.stage_bytes
+
+    @property
+    def warps(self) -> tuple:
+        """float32: (warps along M, warps along N); each warp owns
+        block_m / warps_m rows x block_n / warps_n columns of m16n8
+        fragments."""
+        return (2, 2) if self.block_n == 64 else (4, 1)
 
     def row_tiles(self, M: int) -> int:
         return -(-M // self.block_m)
@@ -82,16 +117,18 @@ class GemmPlan:
 def launch_plan(N: int, K: int, dtype: torch.dtype) -> GemmPlan:
     """The kernel's tile configuration for an (M, K) x (K, N) product in
     ``dtype``. It takes no M: a row's sum runs in the same order in a
-    batch of any size. Every bf16 product takes the one 128 x 256 tile."""
+    batch of any size. Every bf16 product takes the one 128 x 256 tile;
+    a float32 product a column tile chosen by N (``f32_block_n``)."""
     t = _TILES
     if dtype == torch.bfloat16:
         return GemmPlan(block_m=t["kBM"], block_n=t["kBN"], block_k=t["kBK"],
                         stages=t["kStages"], threads=t["kThreads"], tma=True,
                         n_tiles=-(-N // t["kBN"]), k_tiles=-(-K // t["kBK"]))
     if dtype == torch.float32:
-        return GemmPlan(block_m=t["kFBM"], block_n=t["kFBN"],
-                        block_k=t["kFBK"], stages=1, threads=t["kFThreads"],
-                        tma=False, n_tiles=-(-N // t["kFBN"]),
+        bn = f32_block_n(N)
+        return GemmPlan(block_m=t["kFBM"], block_n=bn, block_k=t["kFBK"],
+                        stages=t["kFStages"], threads=t["kFThreads"],
+                        tma=False, n_tiles=-(-N // bn),
                         k_tiles=-(-K // t["kFBK"]))
     raise ValueError(f"gemm: no kernel for {dtype}")
 

@@ -4,7 +4,9 @@ A CPU tensor goes to the plain PyTorch version (``kernels.ref``). A CUDA
 tensor goes to the kernel — after its device, dtype, shape and
 contiguity are checked — or the wrapper raises; nothing falls back.
 ``LAUNCHES`` counts each wrapper's kernel launches (and nothing else),
-so a run can show that its path went through the kernels. Several engine
+so a run can show that its path went through the kernels; ``gemm_f32``
+counts the GEMM wrapper's launches that ran its float32 kernel (each is
+also one of ``gemm``'s). Several engine
 threads count into it at once: ``count`` adds under a lock, and a thread
 inside ``capturing()`` (a CUDA graph capture, which launches nothing)
 counts into its own tally instead, so a capture never rewinds the
@@ -25,7 +27,8 @@ import torch
 from repro_torch.kernels import cost, ref
 
 LAUNCHES = {"block_attention": 0, "confidence_argmax": 0, "gemm": 0,
-            "rglru_scan": 0, "mlstm_scan": 0, "slstm_scan": 0}
+            "rglru_scan": 0, "mlstm_scan": 0, "slstm_scan": 0,
+            "gemm_f32": 0}
 _LOCK = threading.Lock()
 _TALLY = threading.local()
 
@@ -124,7 +127,7 @@ def _gemm(x, w, out_dtype, acc):
     y = acc if acc is not None else torch.empty(
         (M, N), dtype=out_dtype or x.dtype, device=x.device)
     kernel.launch(x, w, y, acc_in=acc is not None)
-    count({"gemm": 1})
+    count({"gemm": 1, "gemm_f32": int(x.dtype == torch.float32)})
     return y
 
 
@@ -416,7 +419,9 @@ def slstm_scan(pre, r, h, c, n, m, *, out_dtype=None, train: bool = False):
     """sLSTM scan. pre (B, S, 4 d) = x @ [w_z | w_i | w_f | w_o], r (4, H,
     hd, hd) float32, state h, c, n, m (B, d) float32 -> (hs (B, S,
     d) in ``out_dtype`` (pre's by default), h, c, n, m). The kernel takes
-    hd a multiple of 32, at most 1024."""
+    the head dims ``recurrent.slstm_plan`` plans (a cluster of CTAs that
+    holds the head's R in shared memory: hd a multiple of 32, at most
+    256)."""
     out_dtype = out_dtype or pre.dtype
     return cost.call("slstm_scan", lambda out: cost.scan_cost(
         "slstm", (*pre.shape[:2], *r.shape[1:3]), (pre, r, h, c, n, m), out),
@@ -441,9 +446,9 @@ def _slstm_scan(pre, r, h, c, n, m, out_dtype, train):
              f"slstm_scan: shapes pre {tuple(pre.shape)}, state "
              f"{[tuple(t.shape) for t in (h, c, n, m)]} for r "
              f"{tuple(r.shape)}")
-    _require(hd % 32 == 0 and hd <= 1024,
-             f"slstm_scan: no kernel takes head dim {hd} (a multiple of 32, "
-             "at most 1024)")
+    _require(kernel.slstm_plan(hd) is not None,
+             f"slstm_scan: no kernel takes head dim {hd} (a multiple of 32 "
+             "whose cluster holds the head's R in shared memory)")
     _scan_inputs("slstm_scan", (pre,), (r, h, c, n, m), out_dtype=out_dtype)
     hs = torch.empty((B, S, d), dtype=out_dtype, device=pre.device)
     out_state = tuple(torch.empty_like(t) for t in (h, c, n, m))

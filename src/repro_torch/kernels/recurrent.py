@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -22,6 +24,41 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MLSTM_COLS = 32           # value columns per mLSTM CTA (kMlstmCols)
 MLSTM_DK = (64, 128, 256)
+# The sLSTM kernel's constants (csrc/recurrent.cu, by name; a CPU test
+# holds them equal)
+SLSTM = {"kSlstmMaxCluster": 8, "kSlstmChannels": 32, "kSlstmMaxRows": 8,
+         "kSlstmSmemLimit": 232448}
+
+
+@dataclass(frozen=True)
+class SlstmPlan:
+    """One head of the sLSTM scan: a cluster of ``cluster`` CTAs of
+    ``threads`` threads, each holding the R columns of its ``channels``
+    channels (all four gates) and the h of up to ``rows`` batch rows,
+    double-buffered with an mbarrier a buffer, in ``smem_bytes`` of
+    shared memory."""
+    cluster: int
+    channels: int
+    threads: int
+    rows: int
+    smem_bytes: int
+
+
+def slstm_plan(hd: int) -> Optional[SlstmPlan]:
+    """The sLSTM kernel's plan for head dim ``hd`` (``slstm_cluster`` in
+    the source), or None where no kernel takes it: hd a multiple of 32
+    and at most 8 x 32 = 256, a cluster of hd / 32 CTAs (8 is the
+    portable cluster size) whose R columns and h buffers fit a CTA's
+    shared memory."""
+    c = SLSTM
+    P = c["kSlstmChannels"]
+    if hd <= 0 or hd % P or hd // P > c["kSlstmMaxCluster"]:
+        return None
+    smem = (4 * hd * P + 2 * c["kSlstmMaxRows"] * hd) * 4 + 16
+    if smem > c["kSlstmSmemLimit"]:
+        return None
+    return SlstmPlan(cluster=hd // P, channels=P, threads=4 * P,
+                     rows=c["kSlstmMaxRows"], smem_bytes=smem)
 
 
 @functools.lru_cache(maxsize=None)

@@ -853,6 +853,54 @@ def test_gemm_ring_finishes_at_every_tail(cuda):
     assert out.stdout.strip().splitlines()[-1] == "bad []", out.stdout
 
 
+# (M, K, N) of the float32 products on the card: the MoE routers (olmoe
+# E = 64, kimi E = 384) and RG-LRU's u @ [w_a | w_x] at a block-0 step of
+# two requests (128 rows)
+_F32_SHAPES = {"olmoe_router": (128, 2048, 64),
+               "kimi_router": (128, 7168, 384),
+               "recurrentgemma_u_wa_wx": (128, 4096, 8192)}
+
+
+@pytest.mark.parametrize("shape", list(_F32_SHAPES))
+def test_gemm_f32_kernel_matches_plain_at_the_f32_products(cuda, shape):
+    """The float32 kernel (3xTF32 on mma.sync) at the shapes the families
+    run it: within 2e-5 of max |ref|, one launch counted as ``gemm`` and
+    as ``gemm_f32``."""
+    M, K, N = _F32_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    w = torch.randn((K, N), generator=g, device=cuda) / K ** 0.5
+    before = dict(ops.LAUNCHES)
+    y = ops.gemm(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gemm"] == before["gemm"] + 1
+    assert ops.LAUNCHES["gemm_f32"] == before["gemm_f32"] + 1
+    assert y.dtype == torch.float32 and _gemm_ok(y, x, w)
+
+
+@pytest.mark.parametrize("shape", ["kimi_router", "recurrentgemma_u_wa_wx",
+                                   "ragged"])
+def test_gemm_f32_chain_cut_at_half_k_is_bit_equal(cuda, shape):
+    """A float32 ``acc`` chain cut at K / 2 (a multiple of 8): the second
+    half continues the first half's sums, bit-equal to the whole
+    product (each k8 step's three TF32 products land in the same
+    accumulator in the same order either way)."""
+    M, K, N = {**_F32_SHAPES, "ragged": (37, 80, 42)}[shape]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    w = torch.randn((K, N), generator=g, device=cuda) / K ** 0.5
+    h = K // 2
+    assert h % 8 == 0
+    whole = ops.gemm(x, w)
+    first = ops.gemm(x[:, :h].contiguous(), w[:h].contiguous(),
+                     torch.float32)
+    chain = ops.gemm(x[:, h:].contiguous(), w[h:].contiguous(),
+                     torch.float32, acc=first)
+    torch.cuda.synchronize()
+    assert chain.data_ptr() == first.data_ptr()
+    assert torch.equal(chain, whole)
+
+
 def test_gemm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     before = dict(ops.LAUNCHES)
     x = torch.randn((8, 64), device=cuda)
@@ -990,6 +1038,38 @@ def test_scan_kernel_matches_plain(cuda, kind, dtype):
     one = [a if a is r or a.dim() == 1 else a[1:] for a in args]
     alone = _SCAN_OPS[kind](*one, out_dtype=torch.float32, **kw)
     assert all(torch.equal(x[0], y[1]) for x, y in zip(alone, got))
+
+
+def test_slstm_kernel_replays_in_a_cuda_graph(cuda):
+    """The sLSTM kernel (a cluster launch, cudaLaunchKernelEx) captured in
+    a CUDA graph replays equal to its eager launch on new inputs in the
+    same buffers."""
+    args, _ = _scan_case("slstm", torch.bfloat16, B=2, S=9)
+    ops.slstm_scan(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.slstm_scan(*args)
+    fresh, _ = _scan_case("slstm", torch.bfloat16, B=2, S=9, seed=1)
+    for a, b in zip(args, fresh):
+        a.copy_(b)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = ops.slstm_scan(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_row_alone_equals_its_row_in_a_batch_of_4(cuda, dtype):
+    """Each row of a batch of 4 (one cluster walking 4 rows) scanned
+    alone (a cluster walking 1) gives the same bits, outputs and state."""
+    args, _ = _scan_case("slstm", dtype, B=4, S=13, seed=2)
+    r = args[1]
+    got = ops.slstm_scan(*args, out_dtype=torch.float32)
+    for b in range(4):
+        one = [a if a is r else a[b:b + 1] for a in args]
+        alone = ops.slstm_scan(*one, out_dtype=torch.float32)
+        assert all(torch.equal(x[0], y[b]) for x, y in zip(alone, got)), b
 
 
 def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):

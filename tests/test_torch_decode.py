@@ -211,7 +211,7 @@ def test_serve_cli_on_cpu():
     assert out["served"] == 3 and out["nfe"] > 0
     assert out["launches"] == {"block_attention": 0, "confidence_argmax": 0,
                                "gemm": 0, "rglru_scan": 0, "mlstm_scan": 0,
-                               "slstm_scan": 0}
+                               "slstm_scan": 0, "gemm_f32": 0}
     assert out["host_syncs"] == 2             # one batch of two blocks
 
 

@@ -8,6 +8,7 @@ runs only on the card: ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 import ast
 import inspect
+import math
 import pathlib
 import re
 
@@ -172,6 +173,122 @@ def test_gemm_cu_constants_match_the_plan():
         for name, value in re.findall(r"(k\w+) = (\d+)\b", decl):
             found[name] = int(value)
     assert {k: found.get(k) for k in gemm._TILES} == gemm._TILES
+    # the float32 tile's derived sizes, as the source computes them
+    assert re.search(r"constexpr int kFAStride = kFBK \+ (\d+);",
+                     src).group(1) == str(gemm.F32_A_STRIDE - gemm._TILES[
+                         "kFBK"])
+    assert "return (bn + 31) / 32 * 32 + 8;" in src
+    assert [gemm.f32_b_stride(bn) for bn in (8, 16, 32, 64)] == \
+        [40, 40, 40, 72]
+
+
+# (name, M, K, N) of the float32 products on the card: the MoE routers,
+# RG-LRU's u @ [w_a | w_x] (at a block-0 step of 2 requests), tiny's FFN
+_F32_PRODUCTS = {"olmoe_router": (128, 2048, 64),
+                 "kimi_router": (128, 7168, 384),
+                 "recurrentgemma_u_wa_wx": (128, 4096, 8192),
+                 "tiny_gate_up": (26, 256, 768), "ragged": (37, 72, 40)}
+
+
+@pytest.mark.parametrize("product", list(_F32_PRODUCTS))
+def test_float32_plan_spreads_narrow_products_without_split_k(product):
+    """The float32 (3xTF32) plan: 64 rows x BN columns x 32 k, BN the
+    widest of 64 .. 8 giving N 32 column tiles or more (a router gets
+    more CTAs from narrower tiles, never from splitting K: every CTA runs
+    all of K), whole m16n8k8 fragments for each of 4 warps, a ring that
+    fits the card, and fragment loads on 32 distinct banks."""
+    M, K, N = _F32_PRODUCTS[product]
+    plan = gemm.launch_plan(N, K, torch.float32)
+    assert not plan.tma and plan.threads == 128 and plan.stages == 4
+    assert (plan.block_m, plan.block_k) == (64, 32)
+    assert plan.k_tiles == -(-K // 32)
+    wider = [bn for bn in (8, 16, 32, 64) if bn > plan.block_n]
+    assert plan.n_tiles >= 32 or plan.block_n == 8
+    assert all(-(-N // bn) < 32 for bn in wider)
+    wm, wn = plan.warps
+    assert wm * wn == plan.threads // 32
+    assert plan.block_m % (16 * wm) == 0 and plan.block_n % (8 * wn) == 0
+    assert plan.smem_bytes <= 232448
+    assert plan.grid(M) == (-(-M // 64), -(-N // plan.block_n))
+    # A fragment (row lane / 4, k lane % 4) and B fragment (k lane % 4, n
+    # lane / 4) in rows of F32_A_STRIDE / f32_b_stride floats
+    lanes = range(32)
+    assert len({((l // 4) * gemm.F32_A_STRIDE + l % 4) % 32
+                for l in lanes}) == 32
+    assert len({((l % 4) * gemm.f32_b_stride(plan.block_n) + l // 4) % 32
+                for l in lanes}) == 32
+    want = {"olmoe_router": (8, 16), "kimi_router": (8, 96),
+            "recurrentgemma_u_wa_wx": (64, 256)}.get(product)
+    if want:
+        assert (plan.block_n, math.prod(plan.grid(M))) == want
+
+
+def _tf32(v):
+    """``cvt.rna.tf32.f32``: float32 rounded to a 10-bit mantissa, to
+    nearest with ties away from zero."""
+    u = v.astype(np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mma_3xtf32(x, w, terms=3):
+    """gemm.cu's float32 route in numpy: x and w split once into big =
+    tf32(v) and small = tf32(v - big); per k8 step, ascending, the terms
+    small.big, big.small, big.big (or big.big alone), each an exact sum
+    of 8 products, summed in float32 into the step's own value, which is
+    added to the output's float32 accumulator."""
+    xb = _tf32(x)
+    xs = _tf32(x - xb)
+    wb = _tf32(w)
+    ws = _tf32(w - wb)
+    pairs = [(xs, wb), (xb, ws), (xb, wb)][3 - terms:]
+    acc = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    for k in range(0, x.shape[1], 8):
+        step = np.zeros_like(acc)
+        for a, b in pairs:
+            part = a[:, k:k + 8].astype(np.float64) @ b[k:k + 8].astype(
+                np.float64)
+            step = (step.astype(np.float64) + part).astype(np.float32)
+        acc = acc + step
+    return acc
+
+
+@pytest.mark.parametrize("K", [2048, 4096, 7168])
+def test_three_tf32_products_keep_float32_accuracy(K):
+    """The split keeps the float32 product within chip_smoke.py's
+    ``gemm_close`` tolerance, 2e-5 of max |ref| against the float64
+    product, at the routers' and RG-LRU's depths; one TF32 product (big
+    . big alone) would not."""
+    rng = np.random.default_rng(K)
+    x = rng.standard_normal((8, K)).astype(np.float32)
+    w = (rng.standard_normal((K, 32)) / math.sqrt(K)).astype(np.float32)
+    full = x.astype(np.float64) @ w.astype(np.float64)
+    tol = 2e-5 * np.abs(full).max()
+    assert np.abs(_mma_3xtf32(x, w) - full).max() <= tol
+    assert np.abs(_mma_3xtf32(x, w, terms=1) - full).max() > tol
+
+
+def test_float32_gemm_bound_is_the_3xtf32_rate():
+    """A float32 product's bound counts 2 M K N operations at a third of
+    the 495 TFLOP/s TF32 rate (the kernel's three TF32 products), every
+    other float32 op keeps 67 TFLOP/s, and the counted FLOPs are
+    unchanged."""
+    from repro_torch.kernels import cost
+    got = {name: cost.gemm_bound(M, K, N, torch.float32)
+           for name, (M, K, N) in _F32_PRODUCTS.items()
+           if name in ("olmoe_router", "kimi_router",
+                       "recurrentgemma_u_wa_wx")}
+    assert got["recurrentgemma_u_wa_wx"][1] == "operations"
+    assert got["recurrentgemma_u_wa_wx"][0] == pytest.approx(0.0521,
+                                                             abs=5e-5)
+    assert got["olmoe_router"][1] == got["kimi_router"][1] == "bytes"
+    assert got["olmoe_router"][0] == pytest.approx(0.000479, abs=5e-7)
+    assert got["kimi_router"][0] == pytest.approx(0.00444, abs=5e-6)
+    ops_, _, rate = cost.gemm_cost(128, 4096, 8192, torch.float32)
+    assert ops_ == 2 * 128 * 4096 * 8192
+    assert cost.peak_ops_s(rate) == 495e12 / 3
+    assert cost.peak_ops_s(torch.float32) == 67e12
+    assert cost.gemm_cost(128, 4096, 8192, torch.bfloat16)[2] == \
+        torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

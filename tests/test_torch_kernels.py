@@ -168,7 +168,7 @@ def test_cpu_wrappers_do_not_count_launches():
                    torch.rand(4), torch.randn(1, 4))
     assert ops.LAUNCHES == {"block_attention": 0, "confidence_argmax": 0,
                             "gemm": 0, "rglru_scan": 0, "mlstm_scan": 0,
-                            "slstm_scan": 0}
+                            "slstm_scan": 0, "gemm_f32": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

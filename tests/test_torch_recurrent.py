@@ -414,3 +414,46 @@ def test_recurrent_configs_equal_the_jax_ones():
                  "xlstm-350m", "xlstm-350m-smoke"):
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jget_config(name))
+
+
+# ------------------------------------------------------------- sLSTM plan
+
+def test_slstm_plan_fits_every_config_with_an_slstm():
+    """Every config with an sLSTM layer has a kernel plan for its head
+    dim (the wrapper refuses none of them): a cluster of at most 8 CTAs
+    (the portable size) of 32 channels each, holding the R columns of
+    its channels (4 gates x hd x channels, float32) and the
+    double-buffered h of 8 rows in the 232,448 bytes a CTA may use."""
+    from repro_torch.kernels import recurrent as krec
+    from repro_torch.models.config import SLSTM, list_configs
+    seen = {}
+    for name in list_configs():
+        cfg = get_config(name)
+        if not any(s.mixer == SLSTM for s in cfg.layout):
+            continue
+        hd = cfg.d_model // cfg.n_heads
+        plan = krec.slstm_plan(hd)
+        assert plan is not None, (name, hd)
+        assert plan.cluster * plan.channels == hd and plan.cluster <= 8
+        assert plan.threads == 4 * plan.channels and plan.threads % 32 == 0
+        assert plan.smem_bytes == 4 * (4 * hd * plan.channels
+                                       + 2 * plan.rows * hd) + 16
+        assert plan.smem_bytes <= 232448
+        seen[name] = (hd, plan.cluster)
+    assert seen["xlstm-350m"] == (256, 8)
+    assert seen["xlstm-350m-smoke"] == (64, 2)
+    # the card test's refused head dim, and one past a cluster of 8
+    assert krec.slstm_plan(48) is None and krec.slstm_plan(288) is None
+
+
+def test_recurrent_cu_constants_match_the_slstm_plan():
+    """Every ``constexpr int kSlstm*`` of csrc/recurrent.cu has the value
+    ``recurrent.SLSTM`` gives it."""
+    import pathlib
+    import re
+    from repro_torch.kernels import recurrent as krec
+    src = (pathlib.Path(krec.__file__).parent / "csrc"
+           / "recurrent.cu").read_text()
+    found = {name: int(v) for name, v in
+             re.findall(r"constexpr int (kSlstm\w+) = (\d+);", src)}
+    assert found == krec.SLSTM

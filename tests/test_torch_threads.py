@@ -65,7 +65,7 @@ def test_launch_counts_survive_a_concurrent_capture():
         == 4 * n
     assert tallies == [{"block_attention": 0, "confidence_argmax": 0,
                         "gemm": n, "rglru_scan": 0, "mlstm_scan": 0,
-                        "slstm_scan": 0}]
+                        "slstm_scan": 0, "gemm_f32": 0}]
 
 
 def test_replay_counts_add_under_the_lock():
@@ -89,7 +89,8 @@ def test_replay_counts_add_under_the_lock():
     got = {k: ops.LAUNCHES[k] - before[k] for k in before}
     assert got == {"block_attention": 2 * n * 9,
                    "confidence_argmax": 2 * n * 5, "gemm": 2 * n * 23,
-                   "rglru_scan": 0, "mlstm_scan": 0, "slstm_scan": 0}
+                   "rglru_scan": 0, "mlstm_scan": 0, "slstm_scan": 0,
+                   "gemm_f32": 0}
 
 
 class _FakeGC:
