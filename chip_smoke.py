@@ -4085,7 +4085,15 @@ def profile_block(dec, prompts):
         torch.cuda.synchronize()
     groups, kernels, _ = kernel_groups(prof, "decode_block")
     busy = sum(groups.values())
+    scans = {}
+    for us, k, c in kernels:
+        m = re.search(r"(rglru|mlstm|slstm)_scan_kernel", k)
+        if m:
+            prev = scans.get(m.group(0), {"device_us": 0.0, "calls": 0})
+            scans[m.group(0)] = {"device_us": prev["device_us"] + us,
+                                 "calls": prev["calls"] + c}
     return {"steps": state.steps_per_block[-1], "wall_us": wall_us,
+            "scan_device_us": scans,
             "device_kernel_us": busy, "device_idle_share": 1 - busy / wall_us,
             "device_us_by_group": groups,
             "kernel_launches_traced": sum(c for _, _, c in kernels),
@@ -4334,6 +4342,23 @@ def scan_plain(kind, shape, acc=torch.float32):
     return lambda *a: ref.slstm_scan_ref(*a, acc=acc)
 
 
+# leading time-axis inputs and trailing state inputs of each scan
+SCAN_TIME = {"rglru": 2, "mlstm": 1, "slstm": 1}
+SCAN_STATE = {"rglru": 1, "mlstm": 3, "slstm": 4}
+
+
+def scan_split(kind, shape, args, S1):
+    """The kernel over the first S1 steps, then over the rest from the
+    state it returned (as a decode step resumes from a refresh's state),
+    with float32 outputs: (hs of both, final state)."""
+    kern = scan_kernel(kind, shape, torch.float32)
+    T, n = SCAN_TIME[kind], SCAN_STATE[kind]
+    first = kern(*[a[:, :S1].contiguous() for a in args[:T]], *args[T:])
+    rest = kern(*[a[:, S1:].contiguous() for a in args[:T]],
+                *args[T:len(args) - n], *first[1:])
+    return (torch.cat([first[0], rest[0]], dim=1), *rest[1:])
+
+
 def check_scan(kind, name, shape, dtype):
     """A scan kernel against its plain version on the same inputs:
     every output (the per-step values in float32 and the final state),
@@ -4342,7 +4367,9 @@ def check_scan(kind, name, shape, dtype):
     float64 is measured beside it (``SCAN_F64_FACTOR``). Also: the
     bfloat16 output is the float32 one rounded to nearest even, bit for
     bit; the first and last rows alone (B = 1) equal their rows in the
-    batch bit for bit; time, plain time and bound."""
+    batch bit for bit; the scan split at S / 2 and resumed from its
+    state equals one scan bit for bit (``scan_split``); time, plain time
+    and bound."""
     args = scan_inputs(kind, shape, dtype)
     got = scan_kernel(kind, shape, torch.float32)(*args)
     want = scan_plain(kind, shape)(*args)
@@ -4367,14 +4394,16 @@ def check_scan(kind, name, shape, dtype):
         alone = scan_kernel(kind, shape, torch.float32)(*one)
         rows_alone.append(all(torch.equal(x[0], y[b])
                               for x, y in zip(alone, got)))
-    ok = ok and bf16_exact and all(rows_alone)
+    split = scan_split(kind, shape, args, shape[1] // 2)
+    split_equal = all(torch.equal(x, y) for x, y in zip(split, got))
+    ok = ok and bf16_exact and all(rows_alone) and split_equal
     rec = {"phase": "recurrent", "kernel": f"{kind}_scan", "case": name,
            "shape": list(shape), "dtype": str(dtype).split(".")[-1],
            "max_rel_err": err, "tol": tol, "max_rel_err_vs_f64": err64,
            "plain_rel_err_vs_f64": own64,
            "max_abs_err": float((got[0] - want[0]).abs().max()),
            "bf16_out_exact": bf16_exact, "rows_alone_equal": rows_alone,
-           "ok": ok}
+           "split_equal": split_equal, "ok": ok}
     sets = [scan_inputs(kind, shape, dtype, seed=s)
             for s in range(n_copies(nbytes(*args, *got)))]
     kern = scan_kernel(kind, shape, dtype)
@@ -4559,14 +4588,22 @@ def phase_build():
     xl = get_config("xlstm-350m")
     hd = xl.d_model // xl.n_heads
     plan = krec.slstm_plan(hd)
+    di = 2 * xl.d_model
+    rg = get_config("recurrentgemma-9b")
     emit({"phase": "build", "gemm_f32_sass": [
               {"kernel": f["kernel"], "HMMA": f["HMMA"]} for f in f32],
-          "slstm_ptxas": [{"kernel": f["kernel"], "registers": f["registers"],
-                           "smem_static": f["smem_static"]}
-                          for f in ptxas if f["kernel"].startswith("slstm")],
+          "scan_ptxas": [{"kernel": f["kernel"], "registers": f["registers"],
+                          "smem_static": f["smem_static"]}
+                         for f in ptxas if "_scan_" in f["kernel"]],
           "slstm_plan": {"head_dim": hd, "cluster": plan.cluster,
                          "channels": plan.channels, "threads": plan.threads,
-                         "smem_dynamic_bytes": plan.smem_bytes}})
+                         "smem_dynamic_bytes": plan.smem_bytes},
+          # at the served batch (FAM_N rows), bf16 inputs
+          "mlstm_plan": dataclasses.asdict(krec.mlstm_plan(
+              FAM_N, xl.n_heads, di // xl.n_heads // 2, di // xl.n_heads,
+              2)),
+          "rglru_plan": dataclasses.asdict(krec.rglru_plan(
+              FAM_N, rg.lru_width, 2))})
     if tool:
         # the bf16 GEMM reaches wgmma and TMA, and no mma.sync is left
         bf16 = [f for f in sass if f["kernel"].startswith("gemm_bf16")]

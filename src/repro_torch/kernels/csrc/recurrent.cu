@@ -21,16 +21,52 @@
 // - the final state is written to separate buffers (the caller copies it
 //   into the cache where the reference keeps it).
 //
-// rglru_scan_kernel<T, OutT>: one thread per (row, channel). Per step it
-//   reads the two float32 gate pre-activations (u @ [w_a | w_x]) and u,
-//   computes r, i, a = exp(-8 softplus(lam) r), b = sqrt(max(1 - a^2,
-//   1e-12)) (i u) and h = a h + b. Memory-bound: each input is read once.
+// rglru_scan_kernel<T, OutT>: h_t = a_t h_{t-1} + b_t per (row, channel),
+//   with a = exp(-8 softplus(lam) r), b = sqrt(max(1 - a^2, 1e-12)) (i u),
+//   r and i sigmoids of the two float32 gate pre-activations (u @ [w_a |
+//   w_x]). Bound by bytes (each input read once: 6.3 MB at
+//   recurrentgemma-9b's step) and by the gate arithmetic, not by the walk
+//   (h = a h + b is one dependent fma a step). A first kernel of one
+//   thread a (row, channel) on 32 CTAs paid a memory round trip a step.
+//   Here a CTA of 512 threads owns a row's slice of kRglruChannels
+//   channels (B ceil(w / 32) CTAs: 256 at recurrentgemma-9b) and walks
+//   time in chunks of kRglruChunk steps through a ring of kRglruStages
+//   chunks in dynamic shared memory, which 16-byte cp.async copies fill
+//   two chunks ahead (a warp a step's rows: both gate halves and u,
+//   coalesced). Warps 1..15 compute a and b of a whole chunk at once over
+//   (t, c), the first kernel's expressions, while warp 0, a lane a
+//   channel, walks the chunk before from shared memory in t order and
+//   stores h; one barrier a chunk hands a chunk from the gate warps to the
+//   walker. The walk is the first kernel's fma, so the bits are its bits,
+//   and a scan resumed from its returned state equals one scan.
 // mlstm_scan_kernel<KPT, T, OutT>: one CTA of 256 threads per (row, head,
 //   32 value columns). The CTA keeps its dk x 32 slice of C in registers
-//   across time (KPT = dk / 8 rows a thread: 32 at xlstm-350m's dk = 256).
-//   Per step: the stabiliser m, i' = exp(i - m'), f' = exp(logsig(f) + m
-//   - m'); C = f' C + i' (k v^T); n = f' n + i' k; h = (C^T q) /
-//   max(|n . q|, 1). The step's q, k, v, i, f are loaded one step ahead.
+//   across time (KPT = dk / 8 rows a thread, k = warp + 8 i: 32 at
+//   xlstm-350m's dk = 256). A step: the stabiliser m, i' = exp(i - m'),
+//   f' = exp(logsig(f) + m - m'); C = f' C + i' (k v^T); n = f' n + i' k;
+//   h = (C^T q) / max(|n . q|, 1). Bound by the steps' latency and issue,
+//   not by bytes: 32 C updates and a chain of 32 dependent fma into num a
+//   thread, with two warps a scheduler (about 510 cycles a step on the
+//   H100, some 70 % of the kernel). A first kernel paid three block
+//   barriers a step, loaded each step's inputs one step ahead and left a
+//   step's final sums to warp 0 alone. Here time runs in chunks of
+//   kMlstmChunk steps, two block barriers a chunk and none inside it.
+//   Between them: warps 1..7 widen the chunk's q, k, v (copied by 16-byte
+//   cp.async, a warp a row, during the chunk before; i, f by lanes of
+//   warp 0) to float32, q and k permuted so that each warp's rows are
+//   contiguous (one 16-byte broadcast read serves four rows; k / sqrt(dk)
+//   a product where sqrt(dk) is a power of two), while warp 0 walks m
+//   through the chunk (i', f' of step t in lane t), and threads 0..127 sum
+//   the chunk before's n[k] q[k], each warp's 32 in the pairs of the first
+//   kernel's butterfly, as one thread's tree. After the second barrier
+//   each warp sums two steps' num partials in warp order, stores them
+//   coalesced and issues its rows of the next chunk's copies; then the
+//   steps, each writing its num partials (by chunk parity) and n[k] q[k]
+//   into slots of that step. The sums keep the first kernel's order (rows
+//   ascending in a thread, then warps ascending; n . q by the same
+//   butterfly pairs, then warps) and each step's arithmetic is its
+//   expression for expression, so the outputs are its bits. kMlstm* and
+//   kRglru* are mirrored by kernels/recurrent.py.
 // slstm_scan_kernel<ROWS, T, OutT>: per step the four gates' rows of the
 //   block-diagonal recurrent products h_{t-1} R_g (k ascending, one fma
 //   chain each), then the stabilised c, n, m, h. The recurrence is serial
@@ -76,141 +112,449 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes from device memory into shared memory, past L1; it completes
+// with the thread's next commit group
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Returns once at most N of this thread's newest commit groups are
+// pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The E = 16 / sizeof(T) values of T at 16-byte aligned src, widened to
+// float32 (a bfloat16 is the high half of its float32).
+template <typename T>
+__device__ __forceinline__ void widen16(const T* src, float* x) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (sizeof(T) == 4) {
+      x[j] = __uint_as_float(u[j]);
+    } else {
+      x[2 * j] = __uint_as_float(u[j] << 16);
+      x[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+    }
+  }
+}
+
 // ================================================================ RG-LRU
 
-constexpr int kRglruThreads = 256;
+// must match kernels/recurrent.py:rglru_plan
+constexpr int kRglruThreads = 512;     // warp 0 walks, warps 1..15 gate
+constexpr int kRglruChannels = 32;     // a CTA's channels, a walker lane each
+constexpr int kRglruChunk = 32;        // steps a chunk
+constexpr int kRglruStages = 3;        // chunks in the copy ring
 
+// One chunk's inputs as copied: the two gate pre-activations and u of the
+// CTA's channels, kRglruChunk rows each.
+template <typename T>
+struct RglruStage {
+  float g[2][kRglruChunk][kRglruChannels];   // r, i halves
+  T u[kRglruChunk][kRglruChannels];
+};
+
+// Chunk rows [t0, t0 + Lc) of row b into st: 16-byte cp.async pieces
+// where vec (every row's slice 16-byte aligned, the tile whole), else
+// plain loads of the n < kRglruChannels (or unaligned) channels.
+template <typename T>
+__device__ void rglru_copy(RglruStage<T>& st, const float* __restrict__ gx,
+                           const T* __restrict__ u, int b, int t0, int Lc,
+                           int S, int w, int c0, int n, bool vec) {
+  constexpr int P = kRglruChannels;
+  if (vec) {
+    // a warp a step's rows: lanes [0, 2 PG) the two gate rows, the next PU
+    // lanes the u row
+    constexpr int PG = P * 4 / 16;               // pieces of a gate row
+    constexpr int PU = P * sizeof(T) / 16;       // pieces of a u row
+    constexpr int EU = 16 / sizeof(T);
+    static_assert(2 * PG + PU <= 32, "a step's pieces fit a warp");
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int t = warp; t < Lc; t += kRglruThreads / 32) {
+      const int64_t row = int64_t(b) * S + t0 + t;
+      if (lane < 2 * PG) {
+        const int half = lane / PG, q = lane % PG;
+        cp_async16(&st.g[half][t][4 * q],
+                   gx + row * 2 * w + half * w + c0 + 4 * q);
+      } else if (lane < 2 * PG + PU) {
+        const int q = lane - 2 * PG;
+        cp_async16(&st.u[t][EU * q], u + row * w + c0 + EU * q);
+      }
+    }
+  } else {
+    for (int p = threadIdx.x; p < Lc * P; p += kRglruThreads) {
+      const int t = p / P, c = p % P;
+      if (c >= n) continue;
+      const int64_t row = int64_t(b) * S + t0 + t;
+      st.g[0][t][c] = gx[row * 2 * w + c0 + c];
+      st.g[1][t][c] = gx[row * 2 * w + w + c0 + c];
+      st.u[t][c] = u[row * w + c0 + c];
+    }
+  }
+}
+
+// gx: (B, S, 2w) float32 [r half | i half]; u, hs: (B, S, w); lam: (w,);
+// h0, hT: (B, w). Grid (ceil(w / 32), B): CTA (x, b) owns row b's
+// channels [32 x, 32 x + 32). vec_ok: every row of gx and u starts on 16
+// bytes (the launcher's check).
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(kRglruThreads)
 rglru_scan_kernel(const float* __restrict__ gx, const T* __restrict__ u,
                   const float* __restrict__ lam, const float* __restrict__ h0,
                   OutT* __restrict__ hs, float* __restrict__ hT, int S,
-                  int w) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (c >= w) return;
-  const float neg_c = -8.f * softplus(lam[c]);
-  const float* g = gx + int64_t(b) * S * 2 * w + c;
-  const T* ub = u + int64_t(b) * S * w + c;
-  OutT* ob = hs + int64_t(b) * S * w + c;
-  float h = h0[int64_t(b) * w + c];
-#pragma unroll 4
-  for (int t = 0; t < S; ++t) {
-    const float r = sigmoid(g[int64_t(t) * 2 * w]);
-    const float i = sigmoid(g[int64_t(t) * 2 * w + w]);
-    const float a = expf(neg_c * r);
-    const float bt = sqrtf(fmaxf(1.f - a * a, 1e-12f)) *
-                     (i * to_f32(ub[int64_t(t) * w]));
-    h = a * h + bt;
-    store(ob + int64_t(t) * w, h);
+                  int w, int vec_ok) {
+  constexpr int L = kRglruChunk, NS = kRglruStages, P = kRglruChannels;
+  // dynamic shared memory (rglru_smem_bytes): the ring; a and b of a
+  // chunk, double-buffered (the gate warps fill one while the walker reads
+  // the other); each channel's -8 softplus(lam)
+  extern __shared__ __align__(16) unsigned char rsm[];
+  RglruStage<T>* ring = reinterpret_cast<RglruStage<T>*>(rsm);
+  float(*as)[L][P] = reinterpret_cast<float(*)[L][P]>(ring + NS);
+  float(*bs)[L][P] = as + 2;
+  float* negc = reinterpret_cast<float*>(bs + 2);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c0 = blockIdx.x * P, b = blockIdx.y;
+  const int n = min(P, w - c0);
+  const bool vec = vec_ok && n == P;
+  const int nch = (S + L - 1) / L;
+
+  if (tid < n) negc[tid] = -8.f * softplus(lam[c0 + tid]);
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nch)
+      rglru_copy(ring[s], gx, u, b, s * L, min(L, S - s * L), S, w, c0, n,
+                 vec);
+    cp_async_commit();
   }
-  hT[int64_t(b) * w + c] = h;
+  float h = warp == 0 && lane < n ? h0[int64_t(b) * w + c0 + lane] : 0.f;
+
+  // iteration c: the gate warps compute chunk c, the walker walks c - 1
+  for (int c = 0; c <= nch; ++c) {
+    cp_async_wait<NS - 2>();             // this thread's copies of chunk c
+    // chunk c is in shared memory; chunk c - 1's a, b are written, and
+    // the walk of c - 2 and the gates of c - 1 are done
+    __syncthreads();
+    const int ahead = c + NS - 1;        // into the stage chunk c - 1 held
+    if (ahead < nch)
+      rglru_copy(ring[ahead % NS], gx, u, b, ahead * L,
+                 min(L, S - ahead * L), S, w, c0, n, vec);
+    cp_async_commit();
+    if (warp == 0) {
+      if (c > 0 && lane < n) {
+        const int t0 = (c - 1) * L, Lc = min(L, S - t0);
+        const float(*a)[P] = as[(c - 1) & 1];
+        const float(*bt)[P] = bs[(c - 1) & 1];
+        OutT* ob = hs + (int64_t(b) * S + t0) * w + c0 + lane;
+#pragma unroll 4
+        for (int t = 0; t < Lc; ++t) {
+          h = a[t][lane] * h + bt[t][lane];
+          store(ob + int64_t(t) * w, h);
+        }
+      }
+    } else if (c < nch) {
+      const RglruStage<T>& st = ring[c % NS];
+      const int Lc = min(L, S - c * L);
+      constexpr int GT = kRglruThreads - 32;     // gate threads
+#pragma unroll
+      for (int k = 0; k < (L * P + GT - 1) / GT; ++k) {
+        const int p = tid - 32 + GT * k, t = p / P, j = p % P;
+        if (p >= Lc * P || j >= n) continue;
+        const float r = sigmoid(st.g[0][t][j]);
+        const float i = sigmoid(st.g[1][t][j]);
+        const float a = expf(negc[j] * r);
+        as[c & 1][t][j] = a;
+        bs[c & 1][t][j] = sqrtf(fmaxf(1.f - a * a, 1e-12f)) *
+                          (i * to_f32(st.u[t][j]));
+      }
+    }
+  }
+  if (warp == 0 && lane < n) hT[int64_t(b) * w + c0 + lane] = h;
 }
 
 // ================================================================ mLSTM
 
+// must match kernels/recurrent.py:mlstm_plan
 constexpr int kMlstmThreads = 256;            // 8 warps
-constexpr int kMlstmWarps = kMlstmThreads / 32;
 constexpr int kMlstmCols = 32;                // value columns per CTA
+constexpr int kMlstmChunk = 16;               // steps a chunk
+constexpr int kMlstmSmemLimit = 232448;       // dynamic shared memory a CTA
+constexpr int kMlstmWarps = kMlstmThreads / 32;
+
+// The mLSTM kernel's dynamic shared memory at head dim dk and input
+// element bytes eb, in this order (every region a multiple of 16 bytes):
+//   raw   [L][2 dk + 32] T   a chunk's q | k | v (the CTA's columns) as
+//                            copied
+//   qf,kf [L][dk + 32] fp32  q, k / sqrt(dk) with row k at (k % 8) (dk / 8
+//                            + 4) + k / 8: a warp's rows contiguous, each
+//                            group padded by 4 so that thread tid's reads
+//                            of row tid hit 32 banks
+//   vf    [L][32] fp32
+//   gate  [L] float2         (i', f') of each step
+//   num   [2][L][8][32] fp32 each warp's partial of each step's outputs,
+//                            by chunk parity (a chunk's outputs are
+//                            stored while the next chunk's steps run)
+//   dq    [L][dk / 32][33]   n[k] q[k] of each step, by warp (padded: the
+//                            chunk's n . q sums read it down a row)
+//   den   [L] fp32           n . q of each step
+int mlstm_smem_bytes(int dk, int eb) {
+  const int L = kMlstmChunk, P = kMlstmCols, W = kMlstmWarps;
+  return L * (2 * dk + P) * eb
+         + 4 * L * (2 * (dk + 4 * W) + P + 2 + 2 * W * P + dk / 32 * 33 + 1);
+}
 
 // proj: (B, S, N) rows [q (H dk) | k (H dk) | v (H dv) | i (H) | f (H) |
 // pad]; grid (dv / 32, H, B); C0/C1 (B, H, dk, dv), n (B, H, dk), m (B, H).
+// vec_ok: every row of proj starts on 16 bytes (the launcher's check).
 template <int KPT, typename T, typename OutT>
 __global__ void __launch_bounds__(kMlstmThreads)
 mlstm_scan_kernel(const T* __restrict__ proj, const float* __restrict__ C0,
                   const float* __restrict__ n0, const float* __restrict__ m0,
                   OutT* __restrict__ hs, float* __restrict__ C1,
                   float* __restrict__ n1, float* __restrict__ m1, int S,
-                  int N, int H, int dv, float k_div) {
-  constexpr int dk = KPT * kMlstmWarps;
-  __shared__ float qs[dk], ks[dk], vs[kMlstmCols];
-  __shared__ float gates[2];
-  __shared__ float num_part[kMlstmWarps][kMlstmCols];
-  __shared__ float den_part[kMlstmWarps];
+                  int N, int H, int dv, float k_div, int vec_ok) {
+  constexpr int W = kMlstmWarps, L = kMlstmChunk, P = kMlstmCols;
+  constexpr int dk = KPT * W;
+  constexpr int NT = dk / 32;           // warps that hold rows of n
+  constexpr int RS = 2 * dk + P;        // a step's raw elements
+  constexpr int G = KPT + 4;            // a warp's permuted rows + pad
+  constexpr int KS = W * G;             // a step's permuted q or k
+  extern __shared__ __align__(16) unsigned char msm[];
+  T* raw = reinterpret_cast<T*>(msm);
+  float* qf = reinterpret_cast<float*>(msm + L * RS * sizeof(T));
+  float* kf = qf + L * KS;
+  float* vf = kf + L * KS;
+  float2* gate = reinterpret_cast<float2*>(vf + L * P);
+  float* num_part = reinterpret_cast<float*>(gate + L);
+  float* dqs = num_part + 2 * L * W * P;
+  float* dens = dqs + L * NT * 33;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int col0 = blockIdx.x * kMlstmCols;
+  const int col0 = blockIdx.x * P;
   const int hh = blockIdx.y;
   const int b = blockIdx.z;
   const int64_t bh = int64_t(b) * H + hh;
+  const T* pb = proj + int64_t(b) * S * N;
+  const int q_off = hh * dk;
+  const int k_off = H * dk + hh * dk;
+  const int v_off = 2 * H * dk + hh * dv + col0;
+  const int g_off = 2 * H * dk + H * dv + hh;   // i; f at g_off + H
+  const int my = (tid % W) * G + tid / W;       // row tid, permuted
+  const int nch = (S + L - 1) / L;
+  // k / sqrt(dk) as a product where sqrt(dk) is a power of two (dk 64,
+  // 256): the same rounding, without a division's slow-path check
+  int k_exp;
+  const bool k_pow2 = frexpf(k_div, &k_exp) == 0.5f;
+  const float k_inv = 1.f / k_div;
+
+  // Chunk ch's inputs into raw: where vec_ok, row item it of a chunk (the
+  // q (it even) or k row of step it / 2) as one warp's 16-byte cp.async
+  // pieces (its branches uniform), the v pieces by the first Lc PV
+  // threads; else plain loads. Lane t of warp 0 loads step t's i, f into
+  // gi, gf, as they are (widened where used, a chunk later, so that no
+  // instruction waits on the load).
+  constexpr int E = 16 / sizeof(T);             // elements a 16-byte piece
+  constexpr int PQ = dk / E, PV = P / E;        // pieces of a q or k row, of v
+  T gi = T(), gf = T();
+  auto copy_row = [&](int ch, int it) {
+    const int t = it >> 1, seg = it & 1;
+    const T* src = pb + int64_t(ch * L + t) * N + (seg ? k_off : q_off);
+    T* dst = raw + t * RS + seg * dk;
+#pragma unroll
+    for (int q = lane; q < PQ; q += 32) cp_async16(dst + q * E, src + q * E);
+  };
+  auto copy_v = [&](int ch, int Lc) {
+    if (tid < Lc * PV) {
+      const int t = tid / PV, q = tid % PV;
+      cp_async16(raw + t * RS + 2 * dk + q * E,
+                 pb + int64_t(ch * L + t) * N + v_off + q * E);
+    }
+  };
+  auto copy_plain = [&](int ch, int Lc) {
+    for (int p = tid; p < Lc * RS; p += kMlstmThreads) {
+      const int t = p / RS, e = p % RS;
+      const T* row = pb + int64_t(ch * L + t) * N;
+      raw[p] = e < dk ? row[q_off + e]
+          : e < 2 * dk ? row[k_off + e - dk] : row[v_off + e - 2 * dk];
+    }
+  };
+  auto load_gates = [&](int ch, int Lc) {
+    if (warp == 0) {
+      const T* row = pb + int64_t(ch * L + min(lane, Lc - 1)) * N + g_off;
+      gi = row[0];
+      gf = row[H];
+    }
+  };
+  auto copy = [&](int ch) {
+    const int Lc = min(L, S - ch * L);
+    if (vec_ok) {
+#pragma unroll
+      for (int r = 0; r < 2 * L / W; ++r)
+        if (warp + W * r < 2 * Lc) copy_row(ch, warp + W * r);
+      copy_v(ch, Lc);
+    } else {
+      copy_plain(ch, Lc);
+    }
+    load_gates(ch, Lc);
+    cp_async_commit();
+  };
+  copy(0);
 
   // this thread's C rows k = warp + 8 i, column col0 + lane
   float C[KPT];
   const float* Cb = C0 + bh * dk * dv + col0 + lane;
 #pragma unroll
-  for (int i = 0; i < KPT; ++i) C[i] = Cb[int64_t(warp + kMlstmWarps * i) * dv];
+  for (int i = 0; i < KPT; ++i) C[i] = Cb[int64_t(warp + W * i) * dv];
   float nk = tid < dk ? n0[bh * dk + tid] : 0.f;   // n[tid]
-  float m = m0[bh];
+  float m = m0[bh];                    // walked by warp 0
 
-  // the loaders of step t + 1, one step ahead: q[tid], k[tid] (tid < dk),
-  // v[col0 + tid] (tid < 32), i and f (tid 32, 33)
-  const int q_off = hh * dk + tid;
-  const int k_off = H * dk + hh * dk + tid;
-  const int v_off = 2 * H * dk + hh * dv + col0 + tid;
-  const int g_off = 2 * H * dk + H * dv + (tid - 32) * H + hh;
-  const T* pb = proj + int64_t(b) * S * N;
-  float nq = 0.f, nk_in = 0.f, nv = 0.f, ng = 0.f;
-  auto load = [&](int t) {
-    const T* row = pb + int64_t(t) * N;
-    if (tid < dk) {
-      nq = to_f32(row[q_off]);
-      nk_in = to_f32(row[k_off]) / k_div;
-    }
-    if (tid < kMlstmCols) nv = to_f32(row[v_off]);
-    if (tid >= 32 && tid < 34) ng = to_f32(row[g_off]);
-  };
-  if (S > 0) load(0);
-
-  for (int t = 0; t < S; ++t) {
-    __syncthreads();                    // step t-1 done with the buffers
-    if (tid < dk) { qs[tid] = nq; ks[tid] = nk_in; }
-    if (tid < kMlstmCols) vs[tid] = nv;
-    if (tid >= 32 && tid < 34) gates[tid - 32] = ng;
-    __syncthreads();
-    if (t + 1 < S) load(t + 1);
-
-    const float it = gates[0];
-    const float f_log = log_sigmoid(gates[1]);
-    const float m_new = fmaxf(f_log + m, it);
-    const float i_p = expf(it - m_new);
-    const float f_p = expf(f_log + m - m_new);
-    m = m_new;
-
-    const float vj = vs[lane];
-    float num = 0.f;
+  // a chunk: [B1] n . q of the chunk before; widen this chunk's inputs
+  // (warps 1..7) while warp 0 walks its gates; [B2] the chunk before's
+  // outputs; copy the next chunk; this chunk's steps
+  for (int ch = 0; ch <= nch; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();                   // chunk ch landed, ch - 1's steps done
+    const int t_prev = (ch - 1) * L, L_prev = min(L, S - t_prev);
+    if (ch > 0) {
+      // n . q of each step before: each warp's 32 products summed in the
+      // pairs of a butterfly over lanes (offsets 16, 8, 4, 2, 1), as one
+      // thread's tree, then the warps in order (warps past dk / 32 held no
+      // row of n and added zeros)
+      float e = 0.f;
+      if (tid < L_prev * NT) {
+        const float* v = dqs + tid * 33;
+        float a[16];
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int k = warp + kMlstmWarps * i;
-      C[i] = f_p * C[i] + i_p * (ks[k] * vj);
-      num += C[i] * qs[k];
-    }
-    num_part[warp][lane] = num;
-    // n . q over dk: each warp sums its 32 entries in a fixed butterfly
-    float dq = 0.f;
-    if (tid < dk) {
-      nk = f_p * nk + i_p * ks[tid];
-      dq = nk * qs[tid];
-    }
+        for (int l = 0; l < 16; ++l) a[l] = v[l] + v[l + 16];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) dq += __shfl_xor_sync(0xffffffffu, dq, o);
-    if (lane == 0) den_part[warp] = dq;
-    __syncthreads();
-    if (warp == 0) {
-      float s = 0.f, den = 0.f;
+        for (int o = 8; o > 0; o >>= 1) {
 #pragma unroll
-      for (int w = 0; w < kMlstmWarps; ++w) {
-        s += num_part[w][lane];
-        den += den_part[w];
+          for (int l = 0; l < o; ++l) a[l] = a[l] + a[l + o];
+        }
+        e = a[0];
       }
-      store(hs + (int64_t(b) * S + t) * H * dv + hh * dv + col0 + lane,
-            s / fmaxf(fabsf(den), 1.f));
+      float den = 0.f;
+#pragma unroll
+      for (int w = 0; w < NT; ++w)
+        den += __shfl_sync(0xffffffffu, e, (lane & ~(NT - 1)) + w);
+      if (tid < L_prev * NT && tid % NT == 0) dens[tid / NT] = den;
+    }
+    const int Lc = min(L, S - ch * L);
+    if (ch < nch && warp > 0) {
+      // widen to float32, a warp a q or k row (rows permuted; k /
+      // sqrt(dk)), v by the first Lc PV threads past warp 0
+#pragma unroll
+      for (int r = 0; r < (2 * L + W - 2) / (W - 1); ++r) {
+        const int it = warp - 1 + (W - 1) * r, t = it >> 1, seg = it & 1;
+        if (it >= 2 * Lc) break;
+        const T* src = raw + t * RS + seg * dk;
+        float* dst = (seg ? kf : qf) + t * KS;
+#pragma unroll
+        for (int q = lane; q < PQ; q += 32) {
+          float x[E];
+          widen16(src + q * E, x);
+#pragma unroll
+          for (int j = 0; j < E; ++j) {
+            const int e = q * E + j;
+            dst[(e % W) * G + e / W] =
+                !seg ? x[j] : k_pow2 ? x[j] * k_inv : x[j] / k_div;
+          }
+        }
+      }
+      if (tid - 32 < Lc * PV) {
+        const int t = (tid - 32) / PV, q = (tid - 32) % PV;
+        float x[E];
+        widen16(raw + t * RS + 2 * dk + q * E, x);
+#pragma unroll
+        for (int j = 0; j < E; ++j) vf[t * P + q * E + j] = x[j];
+      }
+    } else if (ch < nch) {
+      // the stabiliser through the chunk, in step order; lane t keeps
+      // step t's m before and after
+      const float it_l = to_f32(gi);
+      const float f_log = log_sigmoid(to_f32(gf));
+      float m_prev = m, m_new = m;
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        const float ft = __shfl_sync(0xffffffffu, f_log, t);
+        const float it = __shfl_sync(0xffffffffu, it_l, t);
+        if (t < Lc) {
+          const float mt = fmaxf(ft + m, it);
+          if (lane == t) {
+            m_prev = m;
+            m_new = mt;
+          }
+          m = mt;
+        }
+      }
+      if (lane < Lc)
+        gate[lane] = make_float2(expf(it_l - m_new),
+                                 expf(f_log + m_prev - m_new));
+    }
+    __syncthreads();                   // raw free, the chunk's inputs ready
+    if (ch > 0) {
+      // the chunk before's outputs: each warp's partials summed in warp
+      // order
+      const float* np = num_part + ((ch - 1) & 1) * L * W * P;
+#pragma unroll
+      for (int r = 0; r < L / W; ++r) {
+        const int t = warp + W * r;
+        if (t >= L_prev) break;
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < W; ++w) s += np[(t * W + w) * P + lane];
+        store(hs + (int64_t(b) * S + t_prev + t) * H * dv + hh * dv + col0
+              + lane, s / fmaxf(fabsf(dens[t]), 1.f));
+      }
+    }
+    if (ch == nch) break;
+    if (ch + 1 < nch) copy(ch + 1);
+
+    // the chunk's steps, with no block barrier between them
+    float* np = num_part + (ch & 1) * L * W * P;
+#pragma unroll 2
+    for (int t = 0; t < Lc; ++t) {
+      const float2 g = gate[t];
+      const float i_p = g.x, f_p = g.y;
+      const float vj = vf[t * P + lane];
+      const float4* kr = reinterpret_cast<const float4*>(kf + t * KS
+                                                         + warp * G);
+      const float4* qr = reinterpret_cast<const float4*>(qf + t * KS
+                                                         + warp * G);
+      float num = 0.f;
+#pragma unroll
+      for (int i4 = 0; i4 < KPT / 4; ++i4) {
+        const float4 kk = kr[i4], qq = qr[i4];
+        const float k4[4] = {kk.x, kk.y, kk.z, kk.w};
+        const float q4[4] = {qq.x, qq.y, qq.z, qq.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 4 * i4 + j;
+          C[i] = f_p * C[i] + i_p * (k4[j] * vj);
+          num += C[i] * q4[j];
+        }
+      }
+      np[(t * W + warp) * P + lane] = num;
+      if (tid < dk) {
+        nk = f_p * nk + i_p * kf[t * KS + my];
+        dqs[(t * NT + warp) * 33 + lane] = nk * qf[t * KS + my];
+      }
     }
   }
 
   float* Co = C1 + bh * dk * dv + col0 + lane;
 #pragma unroll
-  for (int i = 0; i < KPT; ++i) Co[int64_t(warp + kMlstmWarps * i) * dv] = C[i];
+  for (int i = 0; i < KPT; ++i) Co[int64_t(warp + W * i) * dv] = C[i];
   if (blockIdx.x == 0) {
     if (tid < dk) n1[bh * dk + tid] = nk;
     if (tid == 0) m1[bh] = m;
@@ -219,9 +563,6 @@ mlstm_scan_kernel(const T* __restrict__ proj, const float* __restrict__ C0,
 
 // ================================================================ sLSTM
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 // The address of shared-memory address a in cluster rank's CTA.
 __device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
   uint32_t out;
@@ -445,16 +786,42 @@ cudaError_t by_dtype(int dtype, int out_dtype, Args... args) {
   return cudaErrorInvalidValue;
 }
 
+// Whether p is 16-byte aligned and rows of `row` elements of T keep it so.
+template <typename T>
+bool rows_aligned(const void* p, int64_t row) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0
+         && row * int64_t(sizeof(T)) % 16 == 0;
+}
+
+// The RG-LRU kernel's shared memory: the ring, a and b, -8 softplus(lam).
+int rglru_smem_bytes(int eb) {
+  const int L = kRglruChunk, P = kRglruChannels;
+  return kRglruStages * L * P * (8 + eb) + 2 * 2 * L * P * 4 + 4 * P;
+}
+
 template <typename T, typename OutT>
 struct RglruLaunch {
   static cudaError_t run(const void* gx, const void* u, const void* lam,
                          const void* h0, void* hs, void* hT, int B, int S,
                          int w, cudaStream_t s) {
-    const dim3 grid((w + kRglruThreads - 1) / kRglruThreads, B);
-    rglru_scan_kernel<T, OutT><<<grid, kRglruThreads, 0, s>>>(
+    auto kernel = rglru_scan_kernel<T, OutT>;
+    const int smem = rglru_smem_bytes(sizeof(T));
+    // set before the first launch, so that one inside a graph capture
+    // works
+    static bool smem_set = false;
+    if (!smem_set) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      smem_set = true;
+    }
+    const dim3 grid((w + kRglruChannels - 1) / kRglruChannels, B);
+    // the i half starts w floats into a row of gx
+    const int vec_ok = rows_aligned<float>(gx, w) && rows_aligned<T>(u, w);
+    kernel<<<grid, kRglruThreads, smem, s>>>(
         static_cast<const float*>(gx), static_cast<const T*>(u),
         static_cast<const float*>(lam), static_cast<const float*>(h0),
-        static_cast<OutT*>(hs), static_cast<float*>(hT), S, w);
+        static_cast<OutT*>(hs), static_cast<float*>(hT), S, w, vec_ok);
     return cudaGetLastError();
   }
 };
@@ -464,12 +831,28 @@ cudaError_t mlstm_kpt(const void* proj, const void* C0, const void* n0,
                       const void* m0, void* hs, void* C1, void* n1, void* m1,
                       int B, int S, int N, int H, int dv, float k_div,
                       cudaStream_t s) {
+  auto kernel = mlstm_scan_kernel<KPT, T, OutT>;
+  const int smem = mlstm_smem_bytes(KPT * kMlstmWarps, sizeof(T));
+  if (smem > kMlstmSmemLimit) return cudaErrorInvalidValue;
+  // the launch's own bytes (static and dynamic shared memory together
+  // may not pass the limit), set before the first launch so that one
+  // inside a graph capture works
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  // q, k and v slices start at multiples of 32 elements of a row
+  const int vec_ok = rows_aligned<T>(proj, N);
   const dim3 grid(dv / kMlstmCols, H, B);
-  mlstm_scan_kernel<KPT, T, OutT><<<grid, kMlstmThreads, 0, s>>>(
+  kernel<<<grid, kMlstmThreads, smem, s>>>(
       static_cast<const T*>(proj), static_cast<const float*>(C0),
       static_cast<const float*>(n0), static_cast<const float*>(m0),
       static_cast<OutT*>(hs), static_cast<float*>(C1),
-      static_cast<float*>(n1), static_cast<float*>(m1), S, N, H, dv, k_div);
+      static_cast<float*>(n1), static_cast<float*>(m1), S, N, H, dv, k_div,
+      vec_ok);
   return cudaGetLastError();
 }
 

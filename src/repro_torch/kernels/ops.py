@@ -403,7 +403,8 @@ def _mlstm_scan(proj, C, n, m, H, dk, dv, out_dtype, train):
              and m.shape == (B, H) and N >= 2 * H * dk + H * dv + 2 * H,
              f"mlstm_scan: shapes proj {tuple(proj.shape)}, C "
              f"{tuple(C.shape)}, n {tuple(n.shape)}, m {tuple(m.shape)}")
-    _require(dk in kernel.MLSTM_DK and dv % kernel.MLSTM_COLS == 0,
+    _require(kernel.mlstm_plan(B, H, dk, dv, proj.element_size())
+             is not None,
              f"mlstm_scan: no kernel takes dk={dk}, dv={dv} (dk in "
              f"{kernel.MLSTM_DK}, dv a multiple of {kernel.MLSTM_COLS})")
     _scan_inputs("mlstm_scan", (proj,), (C, n, m), out_dtype=out_dtype)

@@ -22,12 +22,77 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MLSTM_COLS = 32           # value columns per mLSTM CTA (kMlstmCols)
-MLSTM_DK = (64, 128, 256)
-# The sLSTM kernel's constants (csrc/recurrent.cu, by name; a CPU test
-# holds them equal)
+# The kernels' constants (csrc/recurrent.cu, by name; a CPU test holds
+# them equal)
+RGLRU = {"kRglruThreads": 512, "kRglruChannels": 32, "kRglruChunk": 32,
+         "kRglruStages": 3}
+MLSTM = {"kMlstmThreads": 256, "kMlstmCols": 32, "kMlstmChunk": 16,
+         "kMlstmSmemLimit": 232448}
 SLSTM = {"kSlstmMaxCluster": 8, "kSlstmChannels": 32, "kSlstmMaxRows": 8,
          "kSlstmSmemLimit": 232448}
+MLSTM_COLS = MLSTM["kMlstmCols"]       # value columns per mLSTM CTA
+MLSTM_DK = (64, 128, 256)
+
+
+@dataclass(frozen=True)
+class RglruPlan:
+    """The RG-LRU scan: ``ctas`` CTAs of ``threads`` threads, each a
+    row's slice of ``channels`` channels, walking time in chunks of
+    ``chunk`` steps through a ring of ``stages`` chunks, in
+    ``smem_bytes`` of dynamic shared memory."""
+    chunk: int
+    stages: int
+    channels: int
+    threads: int
+    ctas: int
+    smem_bytes: int
+
+
+def rglru_plan(B: int, w: int, elem_bytes: int) -> RglruPlan:
+    """The RG-LRU kernel's plan for B rows of w channels with u in
+    ``elem_bytes`` (4 or 2) bytes (``rglru_smem_bytes`` in the source):
+    ceil(w / 32) CTAs a row; shared memory the ring (two float32 gate
+    halves and u a step and channel), a and b double-buffered, and each
+    channel's -8 softplus(lam)."""
+    c = RGLRU
+    P, L, NS = c["kRglruChannels"], c["kRglruChunk"], c["kRglruStages"]
+    smem = NS * L * P * (8 + elem_bytes) + 2 * 2 * L * P * 4 + 4 * P
+    return RglruPlan(chunk=L, stages=NS, channels=P,
+                     threads=c["kRglruThreads"],
+                     ctas=-(-w // P) * B, smem_bytes=smem)
+
+
+@dataclass(frozen=True)
+class MlstmPlan:
+    """The mLSTM scan: ``ctas`` CTAs of ``threads`` threads, each one
+    (row, head, ``cols`` value columns), walking time in chunks of
+    ``chunk`` steps, in ``smem_bytes`` of dynamic shared memory."""
+    chunk: int
+    threads: int
+    cols: int
+    ctas: int
+    smem_bytes: int
+
+
+def mlstm_plan(B: int, H: int, dk: int, dv: int,
+               elem_bytes: int) -> Optional[MlstmPlan]:
+    """The mLSTM kernel's plan (``mlstm_smem_bytes`` in the source), or
+    None where no kernel takes the shape: dk in ``MLSTM_DK``, dv a
+    multiple of 32. Shared memory: a chunk's raw q | k | v rows, q and k
+    widened and permuted (dk + 32 floats a step each), v, the gates,
+    each warp's num partials of each step (two chunks' worth), each
+    row's n[k] q[k] (padded to 33 a warp) and n . q of each step."""
+    c = MLSTM
+    P, L = c["kMlstmCols"], c["kMlstmChunk"]
+    W = c["kMlstmThreads"] // 32
+    if dk not in MLSTM_DK or dv <= 0 or dv % P:
+        return None
+    smem = L * (2 * dk + P) * elem_bytes \
+        + 4 * L * (2 * (dk + 4 * W) + P + 2 + 2 * W * P + dk // 32 * 33 + 1)
+    if smem > c["kMlstmSmemLimit"]:
+        return None
+    return MlstmPlan(chunk=L, threads=c["kMlstmThreads"], cols=P,
+                     ctas=dv // P * H * B, smem_bytes=smem)
 
 
 @dataclass(frozen=True)

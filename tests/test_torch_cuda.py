@@ -14,7 +14,8 @@ auditor's lanes), two engines on one card, each on its own stream
 giving each prompt's bits served alone), training: a train step on
 the card against the CPU, with the decoder still refusing the plain
 route, and the recurrent families: each scan kernel against its plain
-version and across batch positions, what the scan wrappers refuse, the
+version at ragged shapes, across batch positions, split at S / 2 and
+resumed, in a CUDA graph, what the scan wrappers refuse, the
 smoke configs on the card against the CPU, and an xlstm decode on the
 graph loop against the host loop. Each kernel against its plain version
 at the main path's shapes, and llada-8b through the graphs, are checked
@@ -986,21 +987,22 @@ def test_card_decoder_still_refuses_the_plain_route(cuda):
 
 # ------------------------------------------------------------ recurrent
 
-def _scan_case(kind, dtype, B=2, S=17, seed=0):
-    """Small inputs of one scan on the card, and its wrapper's kwargs."""
+def _scan_case(kind, dtype, B=2, S=17, seed=0, w=96, pad=4):
+    """Small inputs of one scan on the card, and its wrapper's kwargs: the
+    RG-LRU at width ``w``, the mLSTM's projection rows padded by
+    ``pad``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape):
         return torch.randn(shape, generator=g, device="cuda")
 
     if kind == "rglru":
-        w = 96
         return (rn(B, S, 2 * w), rn(B, S, w).to(dtype),
                 torch.rand((w,), generator=g, device="cuda") * 0.5 + 0.4,
                 rn(B, w)), {}
     if kind == "mlstm":
         H, dk, dv = 2, 64, 64
-        proj = rn(B, S, 2 * H * dk + H * dv + 2 * H + 4).to(dtype)
+        proj = rn(B, S, 2 * H * dk + H * dv + 2 * H + pad).to(dtype)
         return (proj, rn(B, H, dk, dv), rn(B, H, dk), rn(B, H)), \
             dict(H=H, dk=dk, dv=dv)
     H, hd = 2, 64
@@ -1011,19 +1013,47 @@ def _scan_case(kind, dtype, B=2, S=17, seed=0):
 
 _SCAN_OPS = {"rglru": ops.rglru_scan, "mlstm": ops.mlstm_scan,
              "slstm": ops.slstm_scan}
+# leading time-axis inputs and trailing state inputs of each scan
+_SCAN_TIME = {"rglru": 2, "mlstm": 1, "slstm": 1}
+_SCAN_STATE = {"rglru": 1, "mlstm": 3, "slstm": 4}
+# the shapes each kernel is held at: the base case, one step, several
+# chunks (the RG-LRU's copy ring wraps), an RG-LRU width that is not a
+# multiple of its 32-channel tile (104: whole tiles copied by cp.async, the
+# last by plain loads; 100: bf16 rows off 16 bytes, every tile by plain
+# loads), mLSTM projection rows off 16 bytes (plain loads)
+_SCAN_SHAPES = [("rglru", {}), ("rglru", dict(S=1)), ("rglru", dict(S=300)),
+                ("rglru", dict(w=104)), ("rglru", dict(w=100)),
+                ("mlstm", {}), ("mlstm", dict(S=1)), ("mlstm", dict(S=300)),
+                ("mlstm", dict(pad=1)), ("slstm", {})]
+
+
+def _split_scan(kind, args, kw, S1):
+    """The scan over the first S1 steps, then over the rest from the
+    state it returned, with float32 outputs: (hs of both, final state)."""
+    op, T, n = _SCAN_OPS[kind], _SCAN_TIME[kind], _SCAN_STATE[kind]
+    first = op(*[a[:, :S1].contiguous() for a in args[:T]], *args[T:],
+               out_dtype=torch.float32, **kw)
+    rest = op(*[a[:, S1:].contiguous() for a in args[:T]],
+              *args[T:len(args) - n], *first[1:], out_dtype=torch.float32,
+              **kw)
+    return (torch.cat([first[0], rest[0]], dim=1), *rest[1:])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["rglru", "mlstm", "slstm"])
-def test_scan_kernel_matches_plain(cuda, kind, dtype):
+@pytest.mark.parametrize("kind,shape", _SCAN_SHAPES, ids=[
+    "-".join([k, *(f"{a}{v}" for a, v in s.items())]) for k, s in
+    _SCAN_SHAPES])
+def test_scan_kernel_matches_plain(cuda, kind, shape, dtype):
     """Each scan kernel against its plain version on the same inputs:
     every output within 2e-5 (float32 inputs) / 1e-4 (bf16) of that
     output's max, one launch counted; its bf16 output is the float32 one
-    rounded to nearest even; a row alone gives its bits in the batch."""
+    rounded to nearest even; a row alone gives its bits in the batch; a
+    scan split at S / 2 and resumed from its state gives the bits of one
+    scan."""
     from repro_torch.kernels import ref
     plain = {"rglru": lambda *a: ref.rglru_scan_ref(*a, assoc=False),
              "mlstm": ref.mlstm_scan_ref, "slstm": ref.slstm_scan_ref}[kind]
-    args, kw = _scan_case(kind, dtype)
+    args, kw = _scan_case(kind, dtype, **shape)
     before = ops.LAUNCHES[f"{kind}_scan"]
     got = _SCAN_OPS[kind](*args, out_dtype=torch.float32, **kw)
     assert ops.LAUNCHES[f"{kind}_scan"] == before + 1
@@ -1038,6 +1068,43 @@ def test_scan_kernel_matches_plain(cuda, kind, dtype):
     one = [a if a is r or a.dim() == 1 else a[1:] for a in args]
     alone = _SCAN_OPS[kind](*one, out_dtype=torch.float32, **kw)
     assert all(torch.equal(x[0], y[1]) for x, y in zip(alone, got))
+    S = args[0].shape[1]
+    if S > 1:
+        split = _split_scan(kind, args, kw, S // 2)
+        assert all(torch.equal(x, y) for x, y in zip(split, got))
+
+
+@pytest.mark.parametrize("kind", ["rglru", "mlstm"])
+def test_scan_kernel_replays_in_a_cuda_graph(cuda, kind):
+    """The RG-LRU and mLSTM kernels (the mLSTM's dynamic shared memory
+    set at its first launch) captured in a CUDA graph replay equal to
+    their eager launch on new inputs in the same buffers."""
+    args, kw = _scan_case(kind, torch.bfloat16, B=2, S=40)
+    _SCAN_OPS[kind](*args, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _SCAN_OPS[kind](*args, **kw)
+    fresh, _ = _scan_case(kind, torch.bfloat16, B=2, S=40, seed=1)
+    for a, b in zip(args, fresh):
+        a.copy_(b)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = _SCAN_OPS[kind](*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["rglru", "mlstm"])
+def test_scan_row_alone_equals_its_row_in_a_batch_of_4(cuda, kind, dtype):
+    """Each row of a batch of 4 scanned alone gives the same bits,
+    outputs and state, across several chunks."""
+    args, kw = _scan_case(kind, dtype, B=4, S=37, seed=2)
+    got = _SCAN_OPS[kind](*args, out_dtype=torch.float32, **kw)
+    for b in range(4):
+        one = [a if a.dim() == 1 else a[b:b + 1] for a in args]
+        alone = _SCAN_OPS[kind](*one, out_dtype=torch.float32, **kw)
+        assert all(torch.equal(x[0], y[b]) for x, y in zip(alone, got)), b
 
 
 def test_slstm_kernel_replays_in_a_cuda_graph(cuda):

@@ -457,3 +457,74 @@ def test_recurrent_cu_constants_match_the_slstm_plan():
     found = {name: int(v) for name, v in
              re.findall(r"constexpr int (kSlstm\w+) = (\d+);", src)}
     assert found == krec.SLSTM
+
+
+# ------------------------------------------------- mLSTM and RG-LRU plans
+
+def _scan_widths(cfg):
+    """(mLSTM (H, dk, dv) or None, RG-LRU width or None) of ``cfg``'s
+    layout, as ``models.recurrent`` sizes them."""
+    from repro_torch.models.config import MLSTM, RGLRU
+    mixers = {s.mixer for s in cfg.layout}
+    di, H = 2 * cfg.d_model, cfg.n_heads
+    return ((H, di // H // 2, di // H) if MLSTM in mixers else None,
+            (cfg.lru_width or cfg.d_model) if RGLRU in mixers else None)
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_scan_plans_fit_every_config_with_an_mlstm_or_rglru(B, elem_bytes):
+    """Every config with an mLSTM or RG-LRU layer has a kernel plan at
+    its widths (the mLSTM wrapper refuses none of them): chunks of 16
+    steps (the RG-LRU's 32), the mLSTM's dynamic shared memory (a chunk's raw and widened
+    inputs and each warp's partials) within the 232,448 bytes a CTA may
+    use, the RG-LRU's ring (and a, b) as well, and more CTAs than the
+    first kernels launched (B w / 256 for the RG-LRU)."""
+    from repro_torch.kernels import recurrent as krec
+    from repro_torch.models.config import list_configs
+    seen = {}
+    for name in list_configs():
+        ml, w = _scan_widths(get_config(name))
+        if ml is not None:
+            H, dk, dv = ml
+            plan = krec.mlstm_plan(B, H, dk, dv, elem_bytes)
+            assert plan is not None, (name, ml)
+            L, P = plan.chunk, plan.cols
+            assert (L, P, plan.threads) == (16, 32, 256)
+            assert plan.smem_bytes == L * (2 * dk + P) * elem_bytes \
+                + 4 * L * (2 * (dk + 32) + P + 2 + 2 * 8 * P
+                           + dk // 32 * 33 + 1)
+            assert plan.smem_bytes <= 232448 and plan.smem_bytes % 16 == 0
+            assert plan.ctas == dv // 32 * H * B
+            seen[name, "mlstm"] = (dk, dv, plan.ctas)
+        if w is not None:
+            plan = krec.rglru_plan(B, w, elem_bytes)
+            assert (plan.chunk, plan.stages, plan.channels,
+                    plan.threads) == (32, 3, 32, 512)
+            assert plan.smem_bytes == 3 * 32 * 32 * (8 + elem_bytes) \
+                + 2 * 2 * 32 * 32 * 4 + 4 * 32
+            assert plan.smem_bytes <= 232448
+            assert plan.ctas == -(-w // 32) * B > B * w / 256
+            seen[name, "rglru"] = (w, plan.ctas)
+    assert seen["xlstm-350m", "mlstm"] == (256, 512, 64 * B)
+    assert seen["xlstm-350m-smoke", "mlstm"][:2] == (64, 128)
+    assert seen["recurrentgemma-9b", "rglru"] == (4096, 128 * B)
+    assert ("recurrentgemma-9b-smoke", "rglru") in seen
+    # the dk and dv the card test's refusal uses, and a ragged dv
+    assert krec.mlstm_plan(B, 2, 32, 128, elem_bytes) is None
+    assert krec.mlstm_plan(B, 2, 64, 48, elem_bytes) is None
+
+
+@pytest.mark.parametrize("prefix", ["kRglru", "kMlstm"])
+def test_recurrent_cu_constants_match_the_scan_plans(prefix):
+    """Every ``constexpr int kRglru*`` / ``kMlstm*`` of csrc/recurrent.cu
+    given as a number has the value ``recurrent.RGLRU`` / ``MLSTM`` gives
+    it."""
+    import pathlib
+    import re
+    from repro_torch.kernels import recurrent as krec
+    src = (pathlib.Path(krec.__file__).parent / "csrc"
+           / "recurrent.cu").read_text()
+    found = {name: int(v) for name, v in
+             re.findall(rf"constexpr int ({prefix}\w+) = (\d+);", src)}
+    assert found == {"kRglru": krec.RGLRU, "kMlstm": krec.MLSTM}[prefix]
