@@ -163,7 +163,20 @@ package. Phases, each printing JSON lines:
               (2, 1) exact, (1, 2) at agreement >= 0.95 with the same
               NFE, the graph loop refused on gloo, and the GEMM's
               float32 output and its two-rank chain at the (1, 2)
-              shards' row-parallel products (``phase_placement``).
+              shards' row-parallel products; then the serve CLI's own
+              functions serving a placed model over loopback HTTP
+              (``repro_torch.server.client``; 6 requests of 32 tokens,
+              JSON and SSE, 4 at once): (c) ``--mesh 1,1 --http`` in a
+              one-rank NCCL world on the graph loop, prewarmed, each
+              completion bit-equal to its decode alone without an
+              executor, one sync a block, no capture after prewarm; (d)
+              two gloo ranks on the card, host loop, ``--mesh 2,1
+              --http`` (one data-sharded engine) and ``--mesh 1,1
+              --engines 2 --http`` (two engines behind the router, rank
+              0 the controller, rank 1 replaying engine 1's ops): every
+              completion bit-equal to rank 0's decode alone, both
+              engines serving, a cancel mid-stream and the next request
+              exact, both ranks at exit 0 (``phase_placement``).
 
 The build phase also builds ``csrc/recurrent.cu`` and fails if any
 instantiation spills (the D = 256 attention kernel's included). The
@@ -5057,16 +5070,251 @@ def placement_gloo(device):
     return rec
 
 
+# (c), (d): the serve CLI's functions over HTTP; prompts of one length
+# (one prewarmed bucket), 32 tokens each (one block), 4 in flight
+PLACE_HTTP_PROMPT, PLACE_HTTP_N, PLACE_HTTP_AT_ONCE = 64, 6, 4
+PLACE_HTTP_CANCEL = 4 * BLOCK            # the cancelled stream's tokens
+
+
+def mesh_http_argv(device, mesh, engines=1, gloo=False):
+    """The serve CLI's flags for (c) and (d): ``PLACE_ARCH`` (the model
+    itself is ``place_model``'s, cut to ``PLACE_DEPTH``); the graph loop
+    prewarmed, or (``gloo``) the host loop over gloo."""
+    from repro_torch.launch.serve import parse_args
+    argv = ["--arch", PLACE_ARCH, "--dtype", PLACE_DTYPE, "--device",
+            str(device), "--train-steps", "0", "--seed", str(SEED),
+            "--mesh", mesh, "--engines", str(engines), "--http",
+            str(free_port()), "--gen-len", str(PLACE_GLOO_GEN), "--window",
+            str(WINDOW), "--max-slots", str(PLACE_HTTP_AT_ONCE),
+            "--metrics-interval-s", "0"]
+    if gloo:
+        argv += ["--backend", "gloo", "--host-loop"]
+    else:
+        argv += ["--prewarm", f"{PLACE_HTTP_PROMPT}:{PLACE_GLOO_GEN}"]
+    return parse_args(argv)
+
+
+def mesh_http_prompts(cfg):
+    tok = ByteTokenizer(cfg.vocab_size)
+    rng = np.random.default_rng(SEED + 29)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz .,0123456789"))
+    texts = ["".join(rng.choice(alphabet, PLACE_HTTP_PROMPT))
+             for _ in range(PLACE_HTTP_N + 1)]
+    assert all(len(tok.encode(t)) == PLACE_HTTP_PROMPT for t in texts)
+    return texts
+
+
+async def mesh_http_traffic(frontend, prompts, cancel: bool):
+    """``prompts[:-1]`` over loopback, JSON and SSE in turns, at most
+    ``PLACE_HTTP_AT_ONCE`` at once; with ``cancel``, then a stream of
+    ``PLACE_HTTP_CANCEL`` tokens dropped after its first block and the
+    last prompt as JSON. Returns each request's document and wall."""
+    import asyncio
+    from repro_torch.server import client
+    host, port = frontend.host, frontend.port
+    gate = asyncio.Semaphore(PLACE_HTTP_AT_ONCE)
+
+    async def one(i, p):
+        async with gate:
+            t0 = time.perf_counter()
+            body = {"prompt": p, "max_tokens": PLACE_GLOO_GEN}
+            if i % 2:
+                stream = await client.SSEStream.open(host, port, body)
+                events = [e async for e in stream.events()]
+                await stream.close()
+                doc = events[-1]
+            else:
+                st, _, doc = await client.complete(host, port, body)
+                assert st == 200, doc
+            return {"prompt": p, "doc": doc,
+                    "wall_s": time.perf_counter() - t0}
+    ops.reset_launches()
+    out = {"served": list(await asyncio.gather(
+        *(one(i, p) for i, p in enumerate(prompts[:-1]))))}
+    if cancel:
+        stream = await client.SSEStream.open(host, port, {
+            "prompt": prompts[0], "max_tokens": PLACE_HTTP_CANCEL})
+        async for first in stream.events():
+            break
+        stream.abort()
+        out["cancel_first_block"] = first["block"]
+        out["served"].append(await one(0, prompts[-1]))
+    out["launches"] = dict(ops.LAUNCHES)
+    return out
+
+
+def mesh_http_rank(device, configs):
+    """One rank of (c) or (d): for each ``(argv, rendezvous)`` in
+    ``configs``, the world of ``RANK``/``WORLD_SIZE`` at ``rendezvous``
+    (None: a world of one), then the serve CLI's ``check_args``,
+    ``init_ranks``, ``broadcast_params``, ``make_fleet`` and
+    ``serve_fleet`` on ``place_model``'s weights; rank 0 drives
+    ``mesh_http_traffic`` and checks every completion against the same
+    prompt decoded alone on one rank. Returns rank 0's records."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    device = torch.device(device)
+    out = []
+    for args, rdv in configs:
+        t0 = time.perf_counter()
+        if rdv is not None:
+            os.environ["REPRO_TORCH_INIT"] = rdv
+        serve.check_args(args)
+        serve.init_ranks(args, device)
+        try:
+            cfg, params = place_model(device)
+            params = serve.broadcast_params(params)
+            prompts = mesh_http_prompts(cfg)
+            box = {}
+
+            async def traffic(frontend):
+                box.update(await mesh_http_traffic(
+                    frontend, prompts, cancel=args.host_loop))
+            summary = serve.serve_fleet(
+                args, serve.make_fleet(args, cfg, params, device),
+                until=traffic)
+            if summary is not None:
+                out.append(mesh_http_check(args, cfg, params, device,
+                                           summary, box,
+                                           time.perf_counter() - t0))
+            del params
+        finally:
+            dist.destroy_process_group()
+            free_device()
+    return out
+
+
+def mesh_http_check(args, cfg, params, device, summary, traffic, wall):
+    """Rank 0's record of one served mesh: each completion against its
+    prompt decoded alone on this rank without an executor (the CLI's
+    decode settings, B = 1), bit for bit."""
+    from repro_torch.launch.serve import decode_config
+    dec = DiffusionDecoder(cfg, params, decode_config(args, cfg),
+                           device=device)
+    tok = ByteTokenizer(cfg.vocab_size)
+    exact = []
+    for r in traffic["served"]:
+        got = dec.generate(np.asarray(tok.encode(r["prompt"]),
+                                      np.int32)[None])
+        gen, _ = eos_truncate(got.tokens[0], cfg.eos_token_id)
+        exact.append(r["doc"]["tokens"] == [int(t) for t in
+                                            gen[:PLACE_GLOO_GEN]]
+                     and not r["doc"]["cancelled"])
+    sync(device)
+    walls = sorted(r["wall_s"] for r in traffic["served"])
+    keys = ("served", "cancelled", "served_per_engine", "graphs",
+            "post_warm_captures", "host_syncs_per_block", "mesh", "ranks",
+            "engines", "ops")
+    rec = {"mesh": args.mesh, "engines": args.engines,
+           "loop": "host" if args.host_loop else "graph",
+           **{k: summary[k] for k in keys},
+           "requests": len(traffic["served"]), "exact": exact,
+           "request_wall_s": {"p50": walls[len(walls) // 2],
+                              "max": walls[-1]},
+           "launches": traffic["launches"], "seconds": wall}
+    if "cancel_first_block" in traffic:
+        rec["cancel_first_block"] = traffic["cancel_first_block"]
+    return rec
+
+
+def placement_mesh_http_nccl(device):
+    """(c) ``--mesh 1,1 --http`` in a world of one NCCL rank (gloo on the
+    CPU dry run), graph loop, prewarmed."""
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    args = mesh_http_argv(device, "1,1")
+    rec = {"phase": "placement", "case": "mesh_http_nccl",
+           **mesh_http_rank(device, [(args, None)])[0]}
+    rec["checks"] = {
+        "exact": len(rec["exact"]) == PLACE_HTTP_N and all(rec["exact"]),
+        "one_sync_a_block": rec["host_syncs_per_block"] == 1.0,
+        "graphs": rec["graphs"] > 0 and rec["post_warm_captures"] == 0,
+        "kernels_launched": launched(rec["launches"]) or not cuda}
+    rec["ok"] = all(rec["checks"].values())
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"placement mesh_http_nccl: {rec['checks']}")
+    return rec
+
+
+def placement_mesh_http_gloo(device):
+    """(d) Two gloo ranks sharing the card, host loop: ``--mesh 2,1
+    --http`` and ``--mesh 1,1 --engines 2 --http``, one world each; rank
+    1 is a process this phase starts (and stops on any failure), running
+    both worlds in turn."""
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp()
+    shapes = (("2,1", 1), ("1,1", 2))
+    rdvs = ["file://" + os.path.join(tmp, f"rdv{i}") for i in range(2)]
+    log_path = os.path.join(tmp, "rank1.log")
+    # the flags both ranks parse: the same port (rank 0 alone binds it)
+    argvs = [mesh_http_argv(device, m, e, gloo=True) for m, e in shapes]
+    os.environ.update(RANK="0", WORLD_SIZE="2")
+    env = dict(os.environ, RANK="1")
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import sys, argparse; sys.path.insert("
+             f"0, {ROOT!r}); import chip_smoke as c; c.PLACE_ARCH = "
+             f"{PLACE_ARCH!r}; c.PLACE_DEPTH = {PLACE_DEPTH}; "
+             f"c.PLACE_DTYPE = {PLACE_DTYPE!r}; c.mesh_http_rank("
+             f"{str(device)!r}, [(argparse.Namespace(**a), r) for a, r in "
+             f"{[(vars(a), r) for a, r in zip(argvs, rdvs)]!r}])"],
+            env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        runs = mesh_http_rank(device, list(zip(argvs, rdvs)))
+        code = child.wait(timeout=PLACE_TIMEOUT_S)
+    finally:
+        for k in ("RANK", "WORLD_SIZE", "REPRO_TORCH_INIT"):
+            os.environ.pop(k, None)
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        free_device()
+    with open(log_path) as f:
+        child_log = f.read()
+    shutil.rmtree(tmp, ignore_errors=True)
+    one, fleet = runs
+    rec = {"phase": "placement", "case": "mesh_http_gloo", "backend": "gloo",
+           "runs": runs, "rank1_exit": code}
+    rec["checks"] = {
+        "rank1_ok": code == 0,
+        # the 6 requests, and the one after the cancel
+        "exact": all(len(r["exact"]) == PLACE_HTTP_N + 1
+                     and all(r["exact"]) for r in runs),
+        "both_engines_served": len(fleet["served_per_engine"]) == 2
+        and min(fleet["served_per_engine"]) >= 1,
+        "one_cancel": all(r["cancelled"] == 1 and r["cancel_first_block"]
+                          == 0 for r in runs),
+        "cancel_replayed": all(sum(o.get("cancel", 0) for o in r["ops"])
+                               >= 1 for r in runs),
+        "kernels_launched": not cuda or all(launched(r["launches"])
+                                            for r in runs)}
+    rec["ok"] = all(rec["checks"].values())
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"placement mesh_http_gloo: {rec['checks']}\n"
+                             f"{child_log[-3000:]}")
+    return rec
+
+
 def phase_placement(device="cuda"):
     """Placement across ranks at llada-8b full width, 2 layers, bf16:
     (a) a one-rank NCCL world on the graph loop (``placement_nccl``) and
     (b) two ranks on the one card over gloo on the host loop
-    (``placement_gloo``). NCCL with more than one rank needs more than
-    one card and does not run here."""
+    (``placement_gloo``); then the same model served over HTTP by the
+    serve CLI's functions, (c) in a one-rank NCCL world
+    (``placement_mesh_http_nccl``) and (d) on two gloo ranks
+    (``placement_mesh_http_gloo``). NCCL with more than one rank needs
+    more than one card and does not run here."""
     t_phase = time.perf_counter()
-    out = {"one_rank_nccl": placement_nccl(
-        device, "nccl" if torch.device(device).type == "cuda" else "gloo"),
-           "two_rank_gloo": placement_gloo(device)}
+    nccl = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    out = {"one_rank_nccl": placement_nccl(device, nccl),
+           "two_rank_gloo": placement_gloo(device),
+           "mesh_http_nccl": placement_mesh_http_nccl(device),
+           "mesh_http_gloo": placement_mesh_http_gloo(device)}
     emit({"phase": "placement", "seconds": time.perf_counter() - t_phase})
     return out
 

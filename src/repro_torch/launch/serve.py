@@ -62,18 +62,33 @@ process's intra-op pool (``repro_torch.launch.host``; default cores //
 engines). ``--prewarm`` captures every engine's graphs, one engine after
 another, before admission opens.
 
-``--mesh DATA,MODEL`` places the continuous engine on a mesh of ranks
-(``serving.DecodeExecutor``; SPMD, one process a rank): every rank builds
-the same weights (rank 0's, broadcast), the same engine and the same
-requests, and rank 0 alone prints. The ranks come from the environment
+``--mesh DATA,MODEL`` places each continuous engine on a mesh of ranks
+(``serving.DecodeExecutor``; SPMD, one process a rank): every rank takes
+rank 0's weights (broadcast). The ranks come from the environment
 (``RANK``, ``WORLD_SIZE`` and ``MASTER_ADDR``/``MASTER_PORT``, as
 ``torchrun`` sets them) or, with ``--force-host-devices N`` (the JAX
 CLI's fake host devices), this launcher starts N CPU ranks itself over a
-file rendezvous. ``--backend`` is the process groups' backend: gloo on
-the CPU, NCCL on the card unless named (the graph loop captures NCCL
-collectives only; gloo on the card needs ``--host-loop``). The front end
-(``--http``) and fleets (``--engines``) stay on one rank: with a mesh
-the ranks would need the front end's requests broadcast to them.
+file rendezvous and polls them. ``--backend`` is the process groups'
+backend: gloo on the CPU, NCCL on the card unless named (the graph loop
+captures NCCL collectives only; gloo on the card needs ``--host-loop``).
+Without ``--http`` every rank runs the same engine on the same synthetic
+requests and rank 0 prints. With ``--http``, ``E x DATA x MODEL`` ranks
+serve ``--engines E`` engines, engine ``i`` on ranks ``[i*D*M,
+(i+1)*D*M)``: rank 0 alone binds the port and runs the front end and the
+router, and drives every engine through an op log that the engine's
+ranks replay (``serving.replica``; ``make_fleet``, ``serve_fleet``).
+SIGINT to rank 0 (the launcher forwards it there) drains what is in
+flight, then stops every rank:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny \\
+        --device cpu --dtype float32 --train-steps 0 --http 8000 \\
+        --mesh 2,1 --engines 2 --force-host-devices 4
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch llada-8b --train-steps 0 --http 8000 --mesh 2,1 \\
+        --engines 2 --prewarm 256:128
+
+``--pool``, ``--audit-rate``, ``--flight-dir`` and ``--profile-blocks``
+do not run on a mesh yet (ROADMAP A11.2).
 """
 from __future__ import annotations
 
@@ -147,7 +162,7 @@ def parse_pool(s: str):
     return sizes
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
         epilog="There is no --compile-cache-dir: the JAX package's "
@@ -212,6 +227,11 @@ def main(argv=None):
                     help="record request span trees + decode timelines and "
                     "write Chrome-trace JSON (Perfetto-loadable) into DIR "
                     "at the end (continuous or HTTP mode)")
+    ap.add_argument("--trace-flush-s", type=float, default=0.0,
+                    metavar="S",
+                    help="with --trace-dir and --http: also rewrite "
+                    "trace.json atomically every S seconds, so a crashed "
+                    "run keeps its trace up to the last flush")
     ap.add_argument("--audit-rate", type=float, default=0.0,
                     metavar="FRAC",
                     help="shadow-audit this fraction of completed requests: "
@@ -250,12 +270,15 @@ def main(argv=None):
                     help="capture a torch.profiler trace (CPU + CUDA) over "
                     "the first N decoded blocks, written under "
                     "--trace-dir/torch_profile (or results/torch/profile)")
+    ap.add_argument("--log-level", default="info",
+                    choices=["debug", "info", "warning", "error"])
     ap.add_argument("--log-json", action="store_true",
                     help="JSON-lines log records instead of text")
     ap.add_argument("--engines", type=int, default=1, metavar="N",
-                    help="engine loops on the card, each on its own CUDA "
-                    "stream, behind one HTTP front end (cache affinity, "
-                    "then least-loaded routing; HTTP mode only for N > 1)")
+                    help="engine loops behind one HTTP front end (cache "
+                    "affinity, then least-loaded routing; HTTP mode only "
+                    "for N > 1): on one card each on its own CUDA stream, "
+                    "with --mesh each on a submesh of ranks")
     ap.add_argument("--pool", default="", metavar="prefill:N,decode:M",
                     help="disaggregated engine pools: N prefill-only "
                     "engines prime prompt KV into ONE shared prefix "
@@ -268,10 +291,12 @@ def main(argv=None):
     ap.add_argument("--host-threads-per-engine", type=int, default=0,
                     metavar="T",
                     help="PyTorch intra-op threads (process-wide); 0 = "
-                    "cores // engines (repro_torch.launch.host)")
+                    "cores // engines, or cores // ranks on the host with "
+                    "--mesh (repro_torch.launch.host)")
     ap.add_argument("--mesh", default="", metavar="DATA,MODEL",
-                    help="place the engine on a (data, model) mesh of "
-                    "ranks (continuous mode)")
+                    help="place each engine on a (data, model) mesh of "
+                    "ranks (continuous mode; with --http, rank 0 serves "
+                    "and the other ranks replay its ops)")
     ap.add_argument("--force-host-devices", type=int, default=0,
                     metavar="N",
                     help="start N CPU ranks over gloo for --mesh "
@@ -279,40 +304,63 @@ def main(argv=None):
     ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                     help="process group backend for --mesh (default: "
                     "gloo on the CPU, nccl on CUDA)")
-    args = ap.parse_args(argv)
+    return ap
 
-    from repro_torch.obs.log import setup_logging
-    setup_logging(json_mode=args.log_json)
-    # flag validation up front, before any weights are made
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return build_parser().parse_args(argv)
+
+
+# flags whose layer does not run on a mesh yet (ROADMAP A11.2)
+MESH_REFUSED = (("--pool", lambda a: bool(a.pool)),
+                ("--audit-rate", lambda a: a.audit_rate > 0),
+                ("--flight-dir", lambda a: bool(a.flight_dir)),
+                ("--profile-blocks", lambda a: a.profile_blocks > 0))
+
+
+def check_args(args) -> None:
+    """Every flag check, before any weights are made (``SystemExit``
+    names what is wrong). ``--pool`` sets ``args.engines``."""
     mesh_dims = parse_mesh(args.mesh) if args.mesh else None
     if args.force_host_devices and mesh_dims is None:
         raise SystemExit("--force-host-devices starts the ranks of --mesh: "
                          "pass --mesh DATA,MODEL")
     if mesh_dims is not None:
-        if args.http or args.engines > 1 or args.mode != "continuous":
-            raise SystemExit(
-                "--mesh serves one continuous engine without --http: the "
-                "front end and a fleet run on one rank, and the ranks "
-                "would need their requests broadcast")
-        need = mesh_dims[0] * mesh_dims[1]
+        for flag, on in MESH_REFUSED:
+            if on(args):
+                raise SystemExit(
+                    f"{flag} does not run on a --mesh yet (ROADMAP A11.2: "
+                    "pools, the auditor, the flight recorder and the "
+                    "block profiler on placed engines)")
+        if args.mode != "continuous":
+            raise SystemExit("--mesh places the continuous engine: drop "
+                             "--mode batch")
+        need = args.engines * mesh_dims[0] * mesh_dims[1]
         if args.force_host_devices:
             if args.device != "cpu":
                 raise SystemExit("--force-host-devices starts CPU ranks: "
                                  "pass --device cpu")
-            if args.force_host_devices < need:
-                raise SystemExit(f"--mesh {args.mesh} needs {need} ranks, "
-                                 f"--force-host-devices "
-                                 f"{args.force_host_devices}")
-            if "RANK" not in os.environ:
-                return launch_ranks(argv, args.force_host_devices)
+            n, have = args.force_host_devices, \
+                f"--force-host-devices {args.force_host_devices}"
+        else:
+            n = int(os.environ.get("WORLD_SIZE", 1))
+            have = f"a world of {n}"
+        if n < need:
+            raise SystemExit(f"--mesh {args.mesh} x --engines {args.engines} "
+                             f"needs {need} ranks, {have}")
+        on_cuda = args.device is None or str(args.device).startswith("cuda")
+        if on_cuda and args.backend == "gloo" and not args.host_loop:
+            raise SystemExit("--backend gloo stages CUDA tensors through "
+                             "host memory, which the graph loop cannot "
+                             "capture: pass --host-loop")
     if args.engines > 1 and not args.http:
         raise SystemExit("--engines N > 1 needs --http (the router lives "
                          "in the HTTP front end)")
     if args.prefix_cache and args.method == "vanilla":
         raise SystemExit("--prefix-cache has no effect with --method "
                          "vanilla (no KV cache to reuse)")
-    pool_sizes = parse_pool(args.pool) if args.pool else None
-    if pool_sizes is not None:
+    if args.pool:
+        pool_sizes = parse_pool(args.pool)
         if not args.http:
             raise SystemExit("--pool needs --http (the prefill->decode "
                              "handoff rides the EngineRouter in the "
@@ -326,18 +374,19 @@ def main(argv=None):
             raise SystemExit(f"--pool {args.pool} implies --engines "
                              f"{n_pool}, got --engines {args.engines}")
         args.engines = n_pool
-    slo_targets = {"ttfb_p50_s": args.slo_ttfb_p50_ms / 1e3,
-                   "token_latency_s": args.slo_token_latency_ms / 1e3,
-                   "goodput_tok_s": args.slo_goodput_tok_s}
     if not args.http:
         for flag, on in (("--audit-rate", args.audit_rate > 0),
                          ("--flight-dir", bool(args.flight_dir)),
-                         ("--slo-*", any(slo_targets.values())),
+                         ("--slo-*", any(slo_targets(args).values())),
+                         ("--trace-flush-s", args.trace_flush_s > 0),
                          ("--metrics-log", bool(args.metrics_log))):
             if on:
                 raise SystemExit(f"{flag} needs --http (the audit/SLO/"
                                  "flight layer rides the HTTP serving "
                                  "loop)")
+    if args.trace_flush_s > 0 and not args.trace_dir:
+        raise SystemExit("--trace-flush-s needs --trace-dir (it "
+                         "rewrites DIR/trace.json periodically)")
     if not 0.0 <= args.audit_rate <= 1.0:
         raise SystemExit(f"--audit-rate wants [0, 1], got "
                          f"{args.audit_rate}")
@@ -347,18 +396,79 @@ def main(argv=None):
     if (args.trace_dir or args.profile_blocks) and args.mode != "continuous":
         raise SystemExit("--trace-dir and --profile-blocks need continuous "
                          "mode")
-    prewarm_buckets = parse_prewarm(args.prewarm) if args.prewarm else []
-    if prewarm_buckets and args.mode != "continuous":
-        raise SystemExit("--prewarm needs --mode continuous")
+    if args.prewarm:
+        parse_prewarm(args.prewarm)
+        if args.mode != "continuous":
+            raise SystemExit("--prewarm needs --mode continuous")
 
-    # a fleet (or an explicit --host-threads-per-engine) sizes the
-    # process's intra-op pool; one engine keeps PyTorch's own default
-    budget = pool_budgets = None
-    if args.engines > 1 or args.host_threads_per_engine > 0:
+
+def slo_targets(args) -> dict:
+    return {"ttfb_p50_s": args.slo_ttfb_p50_ms / 1e3,
+            "token_latency_s": args.slo_token_latency_ms / 1e3,
+            "goodput_tok_s": args.slo_goodput_tok_s}
+
+
+def host_budget(args):
+    """The intra-op pool's budget, or None for PyTorch's own default (one
+    engine alone on the host). With a mesh, the processes that share the
+    host are its ranks (``--force-host-devices N``, or torchrun's
+    ``LOCAL_WORLD_SIZE``)."""
+    from repro_torch.launch import host as host_budgeting
+    sharers = args.engines
+    if args.mesh:
+        sharers = args.force_host_devices or int(
+            os.environ.get("LOCAL_WORLD_SIZE", 1))
+    if sharers > 1 or args.host_threads_per_engine > 0:
+        return host_budgeting.compute_host_budget(
+            sharers, args.host_threads_per_engine)
+    return None
+
+
+def decode_config(args, cfg) -> DecodeConfig:
+    return DecodeConfig(method=args.method, gen_len=args.gen_len,
+                        block_size=cfg.block_size, window=args.window,
+                        tau0=args.tau0, alpha=args.alpha,
+                        use_kernels=args.use_kernels,
+                        fused=not args.host_loop,
+                        prefix_cache=args.prefix_cache,
+                        cache_chunk=args.cache_chunk)
+
+
+def make_engine(args, cfg, params, device, *, executor=None, store=None,
+                role: str = "both", budget=None) -> ContinuousEngine:
+    """One continuous engine of the CLI's flags. Without ``store``, with
+    ``--prefix-cache``, the engine gets a store of its own: the router's
+    cache affinity relies on that split."""
+    if args.prefix_cache and store is None:
+        store = PrefixKVCache(chunk_tokens=args.cache_chunk,
+                              max_bytes=args.cache_bytes,
+                              placement=(executor.placement
+                                         if executor is not None
+                                         else device_placement(device)))
+    return ContinuousEngine(
+        cfg, params, decode_config(args, cfg), max_slots=args.max_slots,
+        pad_pow2=args.pad_pow2, prefix_cache=store,
+        prefill_only=(role == "prefill"), host_budget=budget,
+        device=device, executor=executor)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from repro_torch.obs.log import setup_logging
+    setup_logging(level=args.log_level, json_mode=args.log_json)
+    check_args(args)
+    mesh_dims = parse_mesh(args.mesh) if args.mesh else None
+    if args.force_host_devices and "RANK" not in os.environ:
+        return launch_ranks(argv, args.force_host_devices,
+                            serving=bool(args.http))
+    pool_sizes = parse_pool(args.pool) if args.pool else None
+    prewarm_buckets = parse_prewarm(args.prewarm) if args.prewarm else []
+
+    budget = host_budget(args)
+    pool_budgets = None
+    if budget is not None:
         from repro_torch.launch import host as host_budgeting
-        budget = host_budgeting.apply_host_budget(
-            host_budgeting.compute_host_budget(
-                args.engines, args.host_threads_per_engine))
+        host_budgeting.apply_host_budget(budget)
         if pool_sizes is not None:
             pool_budgets = host_budgeting.compute_pool_budgets(
                 pool_sizes, args.host_threads_per_engine)
@@ -372,22 +482,30 @@ def main(argv=None):
         init_ranks(args, device)
     t0 = time.perf_counter()
     params = load_weights(args, cfg, device)
+    summary = {"arch": args.arch, "method": args.method, "mode": args.mode,
+               "device": (torch.cuda.get_device_name(device)
+                          if device.type == "cuda" else "cpu")}
     if mesh_dims is not None:
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.serving import DecodeExecutor
         params = broadcast_params(params)
+        if args.http:
+            import signal
+            if torch.distributed.get_rank() != 0:
+                # rank 0 drains on SIGINT and then stops every other rank
+                signal.signal(signal.SIGINT, signal.SIG_IGN)
+            out = serve_fleet(args, make_fleet(args, cfg, params, device))
+            torch.distributed.destroy_process_group()
+            if out is None:
+                return None
+            summary.update(out)
+            print(json.dumps(summary))
+            return summary
         mesh = make_host_mesh(*mesh_dims)
         if not mesh.member:                 # a rank the mesh leaves out
             torch.distributed.destroy_process_group()
             return None
         executor = DecodeExecutor(cfg, params, mesh, device=device)
-    d = DecodeConfig(method=args.method, gen_len=args.gen_len,
-                     block_size=cfg.block_size, window=args.window,
-                     tau0=args.tau0, alpha=args.alpha,
-                     use_kernels=args.use_kernels,
-                     fused=not args.host_loop,
-                     prefix_cache=args.prefix_cache,
-                     cache_chunk=args.cache_chunk)
     roles = None
     if pool_sizes is not None:
         roles = (["prefill"] * pool_sizes["prefill"]
@@ -401,34 +519,17 @@ def main(argv=None):
                                      placement=device_placement(device),
                                      shared=True)
 
-    def make_engine(role: str = "both"):
-        store = shared_store
-        if args.prefix_cache and store is None:
-            # one store per engine otherwise: the router's cache
-            # affinity relies on that split
-            store = PrefixKVCache(chunk_tokens=args.cache_chunk,
-                                  max_bytes=args.cache_bytes,
-                                  placement=(executor.placement
-                                             if executor is not None
-                                             else device_placement(device)))
-        return ContinuousEngine(
-            cfg, params, d, max_slots=args.max_slots,
-            pad_pow2=args.pad_pow2, prefix_cache=store,
-            prefill_only=(role == "prefill"),
-            host_budget=(pool_budgets[role] if pool_budgets is not None
-                         else budget),
-            device=device, executor=executor)
-
     if args.mode == "batch":
-        eng = ServingEngine(cfg, params, d, mode="batch", device=device)
+        eng = ServingEngine(cfg, params, decode_config(args, cfg),
+                            mode="batch", device=device)
         engines = [eng]
     else:
-        engines = [make_engine(roles[i] if roles else "both")
-                   for i in range(args.engines)]
+        engines = [make_engine(
+            args, cfg, params, device, executor=executor, store=shared_store,
+            role=roles[i] if roles else "both",
+            budget=(pool_budgets[roles[i]] if pool_budgets is not None
+                    else budget)) for i in range(args.engines)]
         eng = engines[0]
-    summary = {"arch": args.arch, "method": args.method, "mode": args.mode,
-               "device": (torch.cuda.get_device_name(device)
-                          if device.type == "cuda" else "cpu")}
     tracer = None
     if args.trace_dir:
         from repro_torch.obs.trace import Tracer
@@ -443,8 +544,7 @@ def main(argv=None):
         reports = prewarm_all(engines, prewarm_buckets)
         summary["prewarm"] = reports if len(reports) > 1 else reports[0]
     if args.http:
-        summary.update(serve_http(args, engines, tracer, slo_targets,
-                                  roles))
+        summary.update(serve_http(args, engines, tracer, roles))
         print(json.dumps(summary))
         return summary
     if tracer is not None:
@@ -530,7 +630,10 @@ def init_ranks(args, device) -> None:
     import torch.distributed as dist
     backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
     if device.type == "cuda":
-        torch.cuda.set_device(device)
+        # a device named without an index is the rank's own card
+        # (torchrun's LOCAL_RANK; ranks sharing one card name it)
+        torch.cuda.set_device(device.index if device.index is not None
+                              else int(os.environ.get("LOCAL_RANK", 0)))
     rank = int(os.environ.get("RANK", 0))
     world = int(os.environ.get("WORLD_SIZE", 1))
     init = os.environ.get("REPRO_TORCH_INIT", "env://")
@@ -547,54 +650,94 @@ def init_ranks(args, device) -> None:
 
 def broadcast_params(params):
     """Every rank takes rank 0's weights (a trained or restored model is
-    then the same on every rank whatever its own run gave)."""
+    then the same on every rank whatever its own run gave). A gloo world
+    gets CUDA tensors staged through host memory."""
     import torch.distributed as dist
     if isinstance(params, dict):
         return {k: broadcast_params(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(broadcast_params(v) for v in params)
     t = params.contiguous()
+    if t.is_cuda and dist.get_backend() == "gloo":
+        host = t.cpu()
+        dist.broadcast(host, src=0)
+        return host.to(t.device)
     dist.broadcast(t, src=0)
     return t
 
 
-def launch_ranks(argv, n: int, timeout: float = 600.0):
+def launch_ranks(argv, n: int, serving: bool = False,
+                 timeout: float = 600.0) -> None:
     """Start ``n`` CPU ranks of this CLI (``RANK``/``WORLD_SIZE`` and a
-    file rendezvous in a new temporary directory), wait for them and
-    relay rank 0's output; returns rank 0's summary. Raises if a rank
-    fails or outlives ``timeout`` seconds (every rank is then killed)."""
+    file rendezvous in a new temporary directory) and poll them: rank 0
+    writes to this process's stdout and stderr, the others to logs.
+    Raises as soon as a rank exits non-zero, or (unless ``serving``,
+    where a server may run for hours) when a rank outlives ``timeout``
+    seconds; every other rank is then killed, as on SIGTERM. ``serving``:
+    SIGINT to this process goes to rank 0 alone, which drains and then
+    stops the others (the ranks run in sessions of their own, so a
+    terminal's Ctrl-C reaches only this process)."""
+    import signal
     import subprocess
     import sys
     import tempfile
+    import threading
     argv = list(argv if argv is not None else sys.argv[1:])
     with tempfile.TemporaryDirectory() as tmp:
         base = dict(os.environ, WORLD_SIZE=str(n),
                     REPRO_TORCH_INIT="file://" + os.path.join(tmp, "rdv"))
+        logs = [None] + [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                         for r in range(1, n)]
         procs = []
         for r in range(n):
-            out = open(os.path.join(tmp, f"rank{r}.log"), "w")
-            procs.append((subprocess.Popen(
+            procs.append(subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.serve", *argv],
-                env=dict(base, RANK=str(r)), stdout=out,
-                stderr=subprocess.STDOUT), out))
-        deadline = time.monotonic() + timeout
+                env=dict(base, RANK=str(r)), stdout=logs[r],
+                stderr=subprocess.STDOUT if logs[r] else None,
+                start_new_session=True))
+            print(f"rank {r} of {n}: pid {procs[r].pid}", file=sys.stderr,
+                  flush=True)
+        main = threading.current_thread() is threading.main_thread()
+        if main:
+            # SIGTERM ends the launcher through the cleanup below, so its
+            # ranks never outlive it
+            old_term = signal.signal(signal.SIGTERM,
+                                     lambda *_: sys.exit(128 + 15))
+        forward = serving and main
+        if forward:
+            old = signal.signal(signal.SIGINT, lambda *_: procs[0].send_signal(
+                signal.SIGINT))
+        deadline = None if serving else time.monotonic() + timeout
+        bad = None
         try:
-            codes = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
-                     for p, _ in procs]
+            while True:
+                codes = [p.poll() for p in procs]
+                bad = next((r for r, c in enumerate(codes) if c), None)
+                if bad is not None or all(c == 0 for c in codes):
+                    break
+                if deadline is not None and time.monotonic() > deadline:
+                    bad = next(r for r, c in enumerate(codes) if c is None)
+                    break
+                time.sleep(0.1)
         finally:
-            for p, out in procs:
+            if forward:
+                signal.signal(signal.SIGINT, old)
+            if main:
+                signal.signal(signal.SIGTERM, old_term)
+            for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-                out.close()
-        logs = [open(os.path.join(tmp, f"rank{r}.log")).read()
-                for r in range(n)]
-    if any(codes):
-        bad = next(r for r, c in enumerate(codes) if c)
-        raise SystemExit(f"rank {bad} of {n} exited with {codes[bad]}:\n"
-                         f"{logs[bad][-4000:]}")
-    print(logs[0], end="")
-    return json.loads(logs[0].strip().splitlines()[-1])
+        tail = ""
+        if bad is not None and logs[bad] is not None:
+            logs[bad].seek(0)
+            tail = logs[bad].read()[-4000:]
+        for f in logs[1:]:
+            f.close()
+    if bad is not None:
+        raise SystemExit(f"rank {bad} of {n} exited with "
+                         f"{codes[bad] if codes[bad] is not None else 'a timeout'}"
+                         f"; every rank was stopped\n{tail}")
 
 
 def load_weights(args, cfg, device) -> dict:
@@ -637,10 +780,12 @@ def export_trace(tracer, trace_dir: str) -> None:
         print(f"chrome trace written to {path} (open in ui.perfetto.dev)")
 
 
-def serve_http(args, engines, tracer, slo_targets, roles=None) -> dict:
+def serve_http(args, engines, tracer, roles=None, until=None) -> dict:
     """Serve ``engines`` (one, or a fleet behind ``EngineRouter`` with
-    ``roles`` for pools) over HTTP until SIGINT, then drain (blocking).
-    Returns the fleet's serving counters for the summary line."""
+    ``roles`` for pools) over HTTP until SIGINT, then drain (blocking);
+    ``until`` (an async callable given the front end) drains it when it
+    returns instead. Returns the fleet's serving counters for the
+    summary line."""
     from repro_torch.server import run as run_http
     audit = None
     if args.audit_rate > 0:
@@ -648,14 +793,20 @@ def serve_http(args, engines, tracer, slo_targets, roles=None) -> dict:
         audit = AuditConfig(sample_rate=args.audit_rate,
                             oracle=args.audit_oracle)
     watchdog = None
-    if any(slo_targets.values()):
+    targets = slo_targets(args)
+    if any(targets.values()):
         from repro_torch.obs import SLOWatchdog
-        watchdog = SLOWatchdog(
-            **{k: (v or None) for k, v in slo_targets.items()})
+        watchdog = SLOWatchdog(**{k: (v or None) for k, v in targets.items()})
     flight = None
     if args.flight_dir:
         from repro_torch.obs import FlightRecorder
         flight = FlightRecorder(args.flight_dir, tracer=tracer)
+    flusher = None
+    if tracer is not None and args.trace_flush_s > 0:
+        from repro_torch.obs.trace import TraceFlusher
+        flusher = TraceFlusher(tracer, os.path.join(args.trace_dir,
+                                                    "trace.json"),
+                               interval_s=args.trace_flush_s).start()
     try:
         run_http(engines if len(engines) > 1 else engines[0],
                  host=args.http_host, port=args.http,
@@ -663,21 +814,129 @@ def serve_http(args, engines, tracer, slo_targets, roles=None) -> dict:
                  steal=not args.no_steal, audit=audit,
                  watchdog=watchdog, flight=flight, roles=roles,
                  metrics_interval_s=args.metrics_interval_s,
-                 metrics_log=args.metrics_log or None)
+                 metrics_log=args.metrics_log or None, until=until)
     finally:
+        if flusher is not None:
+            flusher.stop(final_flush=False)
         export_trace(tracer, args.trace_dir)
     snaps = [e.metrics.snapshot() for e in engines]
     out = {"http": args.http, "engines": len(engines)}
     for key, snap_key in (("served", "requests"), ("tokens", "tokens"),
                           ("cancelled", "cancelled"),
+                          ("deadline_misses", "deadline_misses"),
                           ("admission_rejects", "admission_rejects"),
                           ("post_warm_captures", "post_warm_compiles"),
                           ("steals", "steals_in"),
-                          ("handoffs", "handoffs_in")):
+                          ("handoffs", "handoffs_in"),
+                          ("prefix_cache_hit_tokens",
+                           "prefix_cache_hit_tokens")):
         out[key] = sum(s[snap_key] for s in snaps)
+    out["served_per_engine"] = [s["requests"] for s in snaps]
+    blocks = sum(e.metrics.total_blocks for e in engines)
+    out["host_syncs_per_block"] = (sum(s["total_host_syncs"] for s in snaps)
+                                   / blocks if blocks else 0.0)
+    out["graphs"] = sum(e.graph_cache_size() for e in engines)
+    if flusher is not None:
+        out["trace_flushes"] = flusher.flushes
     if engines[0].auditor is not None:
         out["audit"] = [e.auditor.stats() for e in engines] \
             if len(engines) > 1 else engines[0].auditor.stats()
+    return out
+
+
+@dataclasses.dataclass
+class Fleet:
+    """This rank's part of a fleet of engines placed on submeshes and
+    served over HTTP (``make_fleet``): on rank 0, ``engines`` holds one
+    ``serving.replica.EngineProxy`` an engine; on every rank of a
+    submesh, ``replica`` executes its engine's ops, told by ``control``;
+    a rank outside every submesh has neither."""
+    meshes: list
+    engines: list
+    replica: object = None
+    control: object = None
+
+
+def make_fleet(args, cfg, params, device) -> Fleet:
+    """Place ``args.engines`` engines on consecutive submeshes of
+    ``--mesh``'s shape (engine ``i`` on ranks ``[i*D*M, (i+1)*D*M)``) in
+    an initialised world, with one control group each; every rank calls
+    it, after ``broadcast_params``. Rank 0 returns with its proxies once
+    every engine has answered a first query."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_submeshes
+    from repro_torch.serving import DecodeExecutor
+    from repro_torch.serving.replica import (EngineProxy, Replica,
+                                             make_control_groups)
+    meshes = make_submeshes(args.engines, *parse_mesh(args.mesh))
+    controls = make_control_groups(meshes)
+    mine = next((i for i, m in enumerate(meshes) if m.member), None)
+    budget = host_budget(args)
+    replica = None
+    if mine is not None:
+        executor = DecodeExecutor(cfg, params, meshes[mine], device=device)
+        replica = Replica(make_engine(args, cfg, params, device,
+                                      executor=executor, budget=budget))
+    engines = []
+    if dist.get_rank() == 0:
+        engines = [EngineProxy(
+            ctl, cfg=cfg, dcfg=decode_config(args, cfg),
+            tokenizer=replica.engine.tok,
+            replica=replica if i == mine else None,
+            prefix_cache=args.cache_chunk if args.prefix_cache else None,
+            host_budget=budget) for i, ctl in enumerate(controls)]
+    return Fleet(meshes, engines, replica,
+                 controls[mine] if mine is not None else None)
+
+
+def serve_fleet(args, fleet: Fleet, until=None):
+    """Serve ``fleet`` (``make_fleet``). Rank 0: ``--prewarm`` on every
+    engine, the HTTP front end (``serve_http``, with the router for
+    ``--engines`` > 1) until SIGINT or ``until``, then ``stop`` to every
+    engine; returns the summary's counters and the mesh. Every other
+    rank replays its engine's ops until rank 0's ``stop`` and returns
+    None. A proxy whose engine lost a rank drains the front end (CLI)
+    and makes rank 0 raise once it has."""
+    import torch.distributed as dist
+    from repro_torch.obs.log import get_logger
+    from repro_torch.serving.replica import follow
+    log = get_logger(__name__)
+    if not fleet.engines:
+        if fleet.replica is not None:
+            n = follow(fleet.replica, fleet.control)
+            log.info("rank %d replayed %d op(s) of %s", dist.get_rank(), n,
+                     fleet.control)
+        return None
+    broke = []
+
+    def on_break(proxy):
+        broke.append(proxy)
+        if until is None:
+            import signal
+            os.kill(os.getpid(), signal.SIGINT)
+    for p in fleet.engines:
+        p.on_break = on_break
+    out = {}
+    buckets = parse_prewarm(args.prewarm) if args.prewarm else []
+    tracer = None
+    if args.trace_dir:
+        from repro_torch.obs.trace import Tracer
+        tracer = Tracer()
+    try:
+        if buckets:
+            reports = prewarm_all(fleet.engines, buckets)
+            out["prewarm"] = reports if len(reports) > 1 else reports[0]
+        out.update(serve_http(args, fleet.engines, tracer, until=until))
+    finally:
+        for p in fleet.engines:
+            p.stop()
+    out.update({"mesh": dict(fleet.meshes[0].shape),
+                "ranks": dist.get_world_size(),
+                "ops": [dict(p.ops) for p in fleet.engines]})
+    if broke:
+        raise SystemExit("engine(s) " + ", ".join(
+            str(fleet.engines.index(p)) for p in broke) + " lost a rank: "
+            + "; ".join(str(p.broken) for p in broke))
     return out
 
 

@@ -4,7 +4,8 @@ runs CUDA work: every route here reads host-side counters).
 
 Routes:
     POST /v1/completions   JSON body (see ``ServerRequest.from_json``);
-                           ``stream:false`` → one JSON object,
+                           ``stream:false`` → one JSON object (its
+                           ``tokens`` the ids behind ``text``),
                            ``stream:true``  → SSE ``data:`` events at
                            block boundaries, then a final summary event
                            and a ``[DONE]`` sentinel.
@@ -406,6 +407,9 @@ class HttpFrontend:
     def _completion_json(self, comp, ticket: Ticket) -> dict:
         doc = {
             "uid": comp.uid, "text": comp.text,
+            # the token ids behind ``text`` (the JAX package's document
+            # has text only): a client can hold them bit for bit
+            "tokens": [int(t) for t in comp.tokens],
             "n_tokens": comp.n_tokens, "n_blocks": comp.n_blocks,
             "max_tokens": comp.max_tokens,
             "finish_reason": finish_reason(comp, ticket.cancel_reason),
@@ -893,7 +897,7 @@ async def serve(engine, host: str = "127.0.0.1", port: int = 8000,
                 max_pending: int = 64, tracer=None, steal: bool = True,
                 audit=None, watchdog=None, flight=None, roles=None,
                 metrics_interval_s: float = 0.5,
-                metrics_log=None) -> None:
+                metrics_log=None, until=None) -> None:
     """Run the HTTP front end until cancelled, then drain gracefully.
     ``engine`` may be one ``ContinuousEngine`` or a list (one per
     device/mesh; requests are routed least-loaded and rebalanced by
@@ -901,7 +905,9 @@ async def serve(engine, host: str = "127.0.0.1", port: int = 8000,
     ``flight`` enable the repro_torch.obs.audit layer; ``roles`` builds
     disaggregated prefill/decode pools (see ``_front``);
     ``metrics_interval_s``/``metrics_log`` configure the per-engine
-    time-series recorders behind /debug/timeline and /console."""
+    time-series recorders behind /debug/timeline and /console.
+    ``until``: an async callable given the started ``HttpFrontend``;
+    the front end drains when it returns (in-process clients)."""
     if watchdog is not None and flight is not None \
             and watchdog.flight is None:
         watchdog.flight = flight
@@ -919,7 +925,10 @@ async def serve(engine, host: str = "127.0.0.1", port: int = 8000,
              "GET /console; engines=%d)",
              frontend.host, frontend.port, len(frontend.engines))
     try:
-        await frontend.serve_forever()
+        if until is None:
+            await frontend.serve_forever()
+        else:
+            await until(frontend)
     except asyncio.CancelledError:
         pass
     finally:
@@ -929,13 +938,14 @@ async def serve(engine, host: str = "127.0.0.1", port: int = 8000,
 def run(engine, host: str = "127.0.0.1", port: int = 8000,
         max_pending: int = 64, tracer=None, steal: bool = True,
         audit=None, watchdog=None, flight=None, roles=None,
-        metrics_interval_s: float = 0.5, metrics_log=None) -> None:
+        metrics_interval_s: float = 0.5, metrics_log=None,
+        until=None) -> None:
     """Blocking entry point used by ``repro.launch.serve --http``."""
     try:
         asyncio.run(serve(engine, host, port, max_pending, tracer=tracer,
                           steal=steal, audit=audit, watchdog=watchdog,
                           flight=flight, roles=roles,
                           metrics_interval_s=metrics_interval_s,
-                          metrics_log=metrics_log))
+                          metrics_log=metrics_log, until=until))
     except KeyboardInterrupt:
         pass

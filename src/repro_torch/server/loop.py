@@ -319,6 +319,11 @@ class EngineLoop:
                         log.info("re-routed %d request(s) off engine %d "
                                  "after step failure", moved, self.index)
                     self._cancel_all("error")
+                    if getattr(eng, "broken", None) is not None:
+                        # a placed engine lost a rank (serving.replica):
+                        # it takes no more work, and the router spills
+                        # past this stopped loop
+                        self.request_stop(drain=False)
             # prefill pool: migrate rows the step just primed (also
             # drains anything a mid-tick failure left extracted)
             self._dispatch_handoffs()
@@ -421,7 +426,7 @@ class EngineLoop:
         if req is not None:
             ticket = self._live.pop(req.uid, None)
             if ticket is None:       # direct engine submission: not ours
-                eng.scheduler.waiting.append(req)
+                eng.return_waiting(req)
                 return False
             ticket.uid = None        # thief re-submits through its feed
             self._transfer(ticket, thief)
@@ -440,8 +445,7 @@ class EngineLoop:
             req, state = out
             ticket = self._live.pop(req.uid, None)
             if ticket is None:
-                eng.scheduler.paused.append(
-                    (req, state, eng.scheduler.decoder_for(req.gen_len)))
+                eng.return_paused(req, state)
                 return False
             ticket.uid = None
             self._transfer(ticket, thief)

@@ -13,6 +13,9 @@ Layering:
     ServeMetrics      — TTFB, latency percentiles, occupancy, NFE
     DecodeExecutor    — placement on a mesh of ranks: sharded params and
                         caches, this rank's rows of each gang
+    EngineProxy       — rank 0's stand-in for a placed engine served over
+                        HTTP: each call one op that every rank of the
+                        engine's mesh replays (``follow``; ``replica``)
 
 Built on the resumable ``DiffusionDecoder.prefill`` / ``decode_block`` /
 ``take_rows`` / ``merge_rows`` API in ``repro_torch.core.decoder``. The
@@ -24,6 +27,9 @@ from repro_torch.serving.engine import ContinuousEngine
 from repro_torch.serving.executor import DecodeExecutor
 from repro_torch.serving.metrics import RequestMetrics, ServeMetrics, percentile
 from repro_torch.serving.pool import PrefixKVPool
+from repro_torch.serving.replica import (ControlGroup, EngineProxy, Replica,
+                                         ReplicaDivergence, follow,
+                                         make_control_groups)
 from repro_torch.serving.scheduler import BlockScheduler, Gang
 from repro_torch.serving.stream import RequestStream, StreamRouter
 from repro_torch.serving.types import (BlockChunk, Completion, ServeRequest,
@@ -33,5 +39,6 @@ __all__ = [
     "ContinuousEngine", "DecodeExecutor", "BlockScheduler", "Gang", "PrefixKVPool",
     "StreamRouter", "RequestStream", "ServeMetrics", "RequestMetrics",
     "percentile", "BlockChunk", "Completion", "ServeRequest",
-    "round_up_blocks",
+    "round_up_blocks", "EngineProxy", "Replica", "ControlGroup",
+    "ReplicaDivergence", "follow", "make_control_groups",
 ]

@@ -50,7 +50,9 @@ a request plus the store's host-staged chunk KV). On the CPU
 Placement across ranks: with an ``executor`` (``serving.DecodeExecutor``)
 the engine decodes on the executor's device and mesh, and holds one pool
 bound to it; every rank of the mesh runs the same engine on the same
-requests (SPMD), and rank 0 alone does the I/O.
+requests (SPMD), and rank 0 alone does the I/O. Served over HTTP, rank 0
+drives it through a ``serving.replica.EngineProxy`` and every rank of
+the mesh replays the calls that change it (``serving.replica.follow``).
 """
 from __future__ import annotations
 
@@ -283,6 +285,17 @@ class ContinuousEngine:
             self._close_stolen_span(out[0])
             self.metrics.steals_out += 1
         return out
+
+    def return_waiting(self, req: ServeRequest) -> None:
+        """Take back a request ``steal_waiting`` gave up that no sibling
+        could adopt (the owning loop had no ticket for it)."""
+        self.scheduler.waiting.append(req)
+
+    def return_paused(self, req: ServeRequest, state: DecodeState) -> None:
+        """Take back a parked row ``steal_paused`` gave up, as
+        ``return_waiting``."""
+        self.scheduler.paused.append(
+            (req, state, self.scheduler.decoder_for(req.gen_len)))
 
     def _close_stolen_span(self, req: ServeRequest) -> None:
         if self.tracer is not None and req.trace_id:

@@ -516,11 +516,14 @@ def _cli_http_roundtrip(tmp_path, extra):
 def test_cli_http_answers_then_drains_on_sigint(tmp_path):
     """``python -m repro_torch.launch.serve --http PORT`` on the CPU:
     answers ``/healthz`` and a completion over loopback, then drains on
-    SIGINT and prints its summary line (exit code 0)."""
+    SIGINT and prints its summary line (exit code 0); ``--trace-flush-s``
+    rewrote the trace while it served."""
     summary, _, port = _cli_http_roundtrip(
-        tmp_path, ["--trace-dir", str(tmp_path)])
+        tmp_path, ["--trace-dir", str(tmp_path), "--trace-flush-s", "0.1",
+                   "--log-level", "warning"])
     assert summary["http"] == port and summary["served"] == 1
     assert (tmp_path / "trace.json").exists()
+    assert summary["trace_flushes"] >= 1
 
 
 @pytest.mark.parametrize("flags,engines,handoffs", [
@@ -549,7 +552,9 @@ def test_cli_fleet_answers_then_drains_on_sigint(tmp_path, flags, engines,
     (["--pool", "decode:2", "--http", "1", "--prefix-cache"],
      "without a prefill"),
     (["--pool", "prefill:1,decode:1", "--engines", "3", "--http", "1",
-      "--prefix-cache"], "implies --engines 2")])
+      "--prefix-cache"], "implies --engines 2"),
+    (["--trace-flush-s", "1", "--http", "1"], "needs --trace-dir"),
+    (["--trace-flush-s", "1", "--trace-dir", "t"], "needs --http")])
 def test_cli_fleet_flags_are_validated(argv, err):
     from repro_torch.launch import serve
     with pytest.raises(SystemExit, match=err):
@@ -558,12 +563,19 @@ def test_cli_fleet_flags_are_validated(argv, err):
 
 def test_cli_mesh_flags_name_a11():
     """The mesh flags (ROADMAP A11, ported) are validated before any
-    weights are made; ``tests/test_torch_sharded_decode.py`` serves
-    through them on two CPU ranks."""
+    weights are made: the rank count is engines x data x model, and the
+    layers that do not run on a mesh yet name ROADMAP A11.2;
+    ``tests/test_torch_sharded_decode.py`` and
+    ``tests/test_torch_mesh_http.py`` serve through them on CPU ranks."""
     from repro_torch.launch import serve
     for argv, err in ((["--force-host-devices", "4"], "pass --mesh"),
                       (["--mesh", "2"], "data,model"),
-                      (["--mesh", "2,1", "--http", "1"], "without --http"),
+                      (["--mesh", "2,1", "--engines", "2",
+                        "--force-host-devices", "2"], "needs 4 ranks"),
+                      (["--mesh", "1,1", "--pool", "prefill:1,decode:1",
+                        "--http", "1", "--prefix-cache"], "A11.2"),
+                      (["--mesh", "1,1", "--audit-rate", "0.5", "--http",
+                        "1"], "A11.2"),
                       (["--mesh", "2,1", "--force-host-devices", "1"],
                        "needs 2 ranks"),
                       (["--mesh", "2,1", "--mode", "batch"],
