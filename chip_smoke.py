@@ -176,7 +176,20 @@ package. Phases, each printing JSON lines:
               0 the controller, rank 1 replaying engine 1's ops): every
               completion bit-equal to rank 0's decode alone, both
               engines serving, a cancel mid-stream and the next request
-              exact, both ranks at exit 0 (``phase_placement``).
+              exact, both ranks at exit 0; with every serving layer on:
+              (e) ``--mesh 1,1 --http`` in the one-rank NCCL world with
+              the shadow auditor's host lane, the flight recorder, the
+              block profiler and the trace: every completion exact, every
+              one audited clean, a manual flight dump of the engine's
+              state, a profile naming the attention kernel, no capture
+              after prewarm; (f) ``--mesh 1,1 --pool prefill:1,decode:1``
+              on the two gloo ranks (the prefill engine on rank 0, the
+              decode engine on rank 1) with the prefix cache, the
+              auditor's cold lane, the trace and the flight recorder:
+              every completion exact, every handoff a full prefix hit on
+              rank 1, its bytes and ops' wall reported, audits clean, and
+              rank 1's block spans inside their requests' http spans in
+              rank 0's trace (``phase_placement``).
 
 The build phase also builds ``csrc/recurrent.cu`` and fails if any
 instantiation spills (the D = 256 attention kernel's included). The
@@ -5076,10 +5089,10 @@ PLACE_HTTP_PROMPT, PLACE_HTTP_N, PLACE_HTTP_AT_ONCE = 64, 6, 4
 PLACE_HTTP_CANCEL = 4 * BLOCK            # the cancelled stream's tokens
 
 
-def mesh_http_argv(device, mesh, engines=1, gloo=False):
-    """The serve CLI's flags for (c) and (d): ``PLACE_ARCH`` (the model
+def mesh_http_argv(device, mesh, engines=1, gloo=False, extra=()):
+    """The serve CLI's flags for (c) to (f): ``PLACE_ARCH`` (the model
     itself is ``place_model``'s, cut to ``PLACE_DEPTH``); the graph loop
-    prewarmed, or (``gloo``) the host loop over gloo."""
+    prewarmed, or (``gloo``) the host loop over gloo; then ``extra``."""
     from repro_torch.launch.serve import parse_args
     argv = ["--arch", PLACE_ARCH, "--dtype", PLACE_DTYPE, "--device",
             str(device), "--train-steps", "0", "--seed", str(SEED),
@@ -5091,7 +5104,7 @@ def mesh_http_argv(device, mesh, engines=1, gloo=False):
         argv += ["--backend", "gloo", "--host-loop"]
     else:
         argv += ["--prewarm", f"{PLACE_HTTP_PROMPT}:{PLACE_GLOO_GEN}"]
-    return parse_args(argv)
+    return parse_args(argv + list(extra))
 
 
 def mesh_http_prompts(cfg):
@@ -5104,11 +5117,14 @@ def mesh_http_prompts(cfg):
     return texts
 
 
-async def mesh_http_traffic(frontend, prompts, cancel: bool):
+async def mesh_http_traffic(frontend, prompts, cancel: bool,
+                            audits: bool = False):
     """``prompts[:-1]`` over loopback, JSON and SSE in turns, at most
     ``PLACE_HTTP_AT_ONCE`` at once; with ``cancel``, then a stream of
     ``PLACE_HTTP_CANCEL`` tokens dropped after its first block and the
-    last prompt as JSON. Returns each request's document and wall."""
+    last prompt as JSON; with ``audits``, then a wait until every served
+    request is audited (its wall) and a ``GET /debug/flight``. Returns
+    each request's document and wall."""
     import asyncio
     from repro_torch.server import client
     host, port = frontend.host, frontend.port
@@ -5140,6 +5156,20 @@ async def mesh_http_traffic(frontend, prompts, cancel: bool):
         out["cancel_first_block"] = first["block"]
         out["served"].append(await one(0, prompts[-1]))
     out["launches"] = dict(ops.LAUNCHES)
+    if audits:
+        import asyncio
+        t0 = time.perf_counter()
+        while sum(e.auditor.stats()["completed"] for e in frontend.engines
+                  ) < len(out["served"]):
+            if time.perf_counter() - t0 > PLACE_TIMEOUT_S:
+                raise AssertionError("audits not done after "
+                                     f"{PLACE_TIMEOUT_S} s")
+            await asyncio.sleep(0.05)
+        out["audits_wall_s"] = time.perf_counter() - t0
+        st, _, body = await client.request(host, port, "GET",
+                                           "/debug/flight")
+        assert st == 200, body
+        out["flight"] = json.loads(body)
     return out
 
 
@@ -5168,15 +5198,23 @@ def mesh_http_rank(device, configs):
             box = {}
 
             async def traffic(frontend):
+                # (d) cancels; (e) and (f) audit instead
                 box.update(await mesh_http_traffic(
-                    frontend, prompts, cancel=args.host_loop))
-            summary = serve.serve_fleet(
-                args, serve.make_fleet(args, cfg, params, device),
-                until=traffic)
+                    frontend, prompts,
+                    cancel=args.host_loop and not args.audit_rate,
+                    audits=args.audit_rate > 0))
+            fleet = serve.make_fleet(args, cfg, params, device)
+            ops.reset_launches()      # (rank 0 again before its traffic)
+            summary = serve.serve_fleet(args, fleet, until=traffic)
             if summary is not None:
                 out.append(mesh_http_check(args, cfg, params, device,
                                            summary, box,
                                            time.perf_counter() - t0))
+            else:
+                # another rank's launches, which rank 0 reads in its log
+                print(json.dumps({"rank": dist.get_rank(),
+                                  "launches": dict(ops.LAUNCHES)}),
+                      flush=True)
             del params
         finally:
             dist.destroy_process_group()
@@ -5214,6 +5252,11 @@ def mesh_http_check(args, cfg, params, device, summary, traffic, wall):
            "launches": traffic["launches"], "seconds": wall}
     if "cancel_first_block" in traffic:
         rec["cancel_first_block"] = traffic["cancel_first_block"]
+    if args.audit_rate:
+        rec.update({k: summary[k] for k in (
+            "audit", "handoffs", "handoff_bytes", "handoff_hit_tokens",
+            "ops_s")}, audits_wall_s=traffic["audits_wall_s"],
+            flight=traffic["flight"], cache_chunk=args.cache_chunk)
     return rec
 
 
@@ -5238,19 +5281,84 @@ def placement_mesh_http_nccl(device):
     return rec
 
 
-def placement_mesh_http_gloo(device):
-    """(d) Two gloo ranks sharing the card, host loop: ``--mesh 2,1
-    --http`` and ``--mesh 1,1 --engines 2 --http``, one world each; rank
-    1 is a process this phase starts (and stops on any failure), running
-    both worlds in turn."""
+def audits_clean(audit, served) -> bool:
+    """Every served request audited, no divergence and no error (one
+    engine's stats, or a fleet's list)."""
+    rows = audit if isinstance(audit, list) else [audit]
+    return (sum(a["completed"] for a in rows) == served
+            and all(a["errors"] == 0 and not sum(a["divergences"].values())
+                    for a in rows))
+
+
+def flight_docs(flight) -> dict:
+    """A flight dump's metrics.json and state.json."""
+    out = {}
+    for name in ("metrics", "state"):
+        with open(os.path.join(flight["path"], f"{name}.json")) as f:
+            out[name] = json.load(f)
+    return out
+
+
+def placement_mesh_http_obs_nccl(device):
+    """(e) ``--mesh 1,1 --http`` in a world of one NCCL rank (gloo on the
+    CPU dry run), graph loop, prewarmed, with the auditor's host lane on
+    every request, the flight recorder, the block profiler and the
+    trace."""
     t0 = time.perf_counter()
     cuda = torch.device(device).type == "cuda"
     tmp = tempfile.mkdtemp()
-    shapes = (("2,1", 1), ("1,1", 2))
-    rdvs = ["file://" + os.path.join(tmp, f"rdv{i}") for i in range(2)]
+    args = mesh_http_argv(device, "1,1", extra=[
+        "--audit-rate", "1.0", "--audit-oracle", "host", "--flight-dir",
+        os.path.join(tmp, "flight"), "--profile-blocks", "2",
+        "--trace-dir", os.path.join(tmp, "trace")])
+    try:
+        rec = {"phase": "placement", "case": "mesh_http_obs_nccl",
+               **mesh_http_rank(device, [(args, None)])[0]}
+        docs = flight_docs(rec["flight"])
+        prof = os.path.join(tmp, "trace", "torch_profile", "rank0",
+                            "trace.json")
+        attn = 0
+        if os.path.exists(prof):
+            with open(prof) as f:
+                attn = sum("attn_" in e.get("name", "") for e in json.load(
+                    f)["traceEvents"] if e.get("cat") == "kernel")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    served = len(rec["exact"])
+    (engine,) = docs["metrics"]["engines"]
+    (sched,) = docs["state"]["schedulers"]
+    audited = rec["audit"]["completed"]
+    rec.update(profile_attn_kernels=attn, flight_files=sorted(docs),
+               audit_lane_s_per_request=rec["ops_s"][0].get(
+                   "audit_tick", 0.0) / max(audited, 1))
+    rec["checks"] = {
+        "exact": served == PLACE_HTTP_N and all(rec["exact"]),
+        "audits_clean": audits_clean(rec["audit"], served),
+        "flight_dump": engine["metrics"]["requests"] == served
+        and engine["audit"]["completed"] == audited
+        and engine["telemetry"]["blocks"] > 0 and sched["max_slots"] > 0,
+        "profile_names_attention": os.path.basename(prof) == "trace.json"
+        and (attn > 0 or not cuda),
+        "graphs": rec["graphs"] > 0 and rec["post_warm_captures"] == 0,
+        "kernels_launched": launched(rec["launches"]) or not cuda}
+    rec["ok"] = all(rec["checks"].values())
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"placement mesh_http_obs_nccl: {rec['checks']}")
+    return rec
+
+
+def placement_gloo_worlds(device, argvs):
+    """Rank 0 of one gloo world of two ranks sharing the card per entry of
+    ``argvs`` (the serve CLI's flags), in turn; rank 1 is one process this
+    phase starts (and stops on any failure), running every world in the
+    same order. Returns rank 0's records, rank 1's exit code and log, and
+    rank 1's kernel launches in each world."""
+    tmp = tempfile.mkdtemp()
+    rdvs = ["file://" + os.path.join(tmp, f"rdv{i}")
+            for i in range(len(argvs))]
     log_path = os.path.join(tmp, "rank1.log")
-    # the flags both ranks parse: the same port (rank 0 alone binds it)
-    argvs = [mesh_http_argv(device, m, e, gloo=True) for m, e in shapes]
     os.environ.update(RANK="0", WORLD_SIZE="2")
     env = dict(os.environ, RANK="1")
     with open(log_path, "w") as log:
@@ -5275,6 +5383,16 @@ def placement_mesh_http_gloo(device):
     with open(log_path) as f:
         child_log = f.read()
     shutil.rmtree(tmp, ignore_errors=True)
+    launches = [json.loads(line)["launches"] for line in
+                child_log.splitlines() if line.startswith('{"rank": 1,')]
+    return runs, code, child_log, launches
+
+
+def placement_mesh_http_gloo(device, runs, code, child_log, seconds):
+    """(d) Two gloo ranks sharing the card, host loop: ``--mesh 2,1
+    --http`` and ``--mesh 1,1 --engines 2 --http``, one world each
+    (``placement_gloo_worlds``)."""
+    cuda = torch.device(device).type == "cuda"
     one, fleet = runs
     rec = {"phase": "placement", "case": "mesh_http_gloo", "backend": "gloo",
            "runs": runs, "rank1_exit": code}
@@ -5292,11 +5410,90 @@ def placement_mesh_http_gloo(device):
         "kernels_launched": not cuda or all(launched(r["launches"])
                                             for r in runs)}
     rec["ok"] = all(rec["checks"].values())
-    rec["seconds"] = time.perf_counter() - t0
+    rec["seconds"] = seconds
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"placement mesh_http_gloo: {rec['checks']}\n"
                              f"{child_log[-3000:]}")
+    return rec
+
+
+def pool_argv(device, tmp):
+    """(f)'s flags: the pool on two ranks, every serving layer on."""
+    return mesh_http_argv(device, "1,1", gloo=True, extra=[
+        "--pool", "prefill:1,decode:1", "--prefix-cache", "--audit-rate",
+        "1.0", "--audit-oracle", "cold", "--trace-dir",
+        os.path.join(tmp, "trace"), "--flight-dir",
+        os.path.join(tmp, "flight")])
+
+
+def spans_inside_http(trace_path, label):
+    """From a Chrome trace: how many ``block N`` async spans the track
+    group ``label`` holds, and how many of them lie inside their
+    request's ``http`` span."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    pid = next(e["pid"] for e in events if e.get("ph") == "M"
+               and e["name"] == "process_name" and e["args"]["name"] == label)
+    http = {}
+    for e in events:
+        if e.get("name") == "http" and e.get("ph") in ("b", "e"):
+            http.setdefault(e["id"], {})[e["ph"]] = e["ts"]
+    blocks = [e for e in events if e.get("pid") == pid
+              and e.get("ph") in ("b", "e")
+              and str(e.get("name", "")).startswith("block ")]
+    inside = sum(e["id"] in http and http[e["id"]].get("b", math.inf)
+                 <= e["ts"] <= http[e["id"]].get("e", -math.inf)
+                 for e in blocks)
+    return {"block_events": len(blocks), "inside_http": inside,
+            "requests": len({e["id"] for e in blocks})}
+
+
+def placement_mesh_http_pool_gloo(device, tmp, run, code, child_log,
+                                  seconds, rank1_launches):
+    """(f) ``--mesh 1,1 --pool prefill:1,decode:1`` on the two gloo ranks
+    (``placement_gloo_worlds``): the prefill engine on rank 0, the decode
+    engine on rank 1, so every handoff crosses processes; the path's
+    launches are both ranks' (the decode's kernels run on rank 1)."""
+    cuda = torch.device(device).type == "cuda"
+    try:
+        spans = spans_inside_http(os.path.join(tmp, "trace", "trace.json"),
+                                  "engine-1")
+        docs = flight_docs(run["flight"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    served = len(run["exact"])
+    ops_s, n = run["ops_s"], max(run["handoffs"], 1)
+    both = {k: v + rank1_launches.get(k, 0)
+            for k, v in run["launches"].items()}
+    rec = {"phase": "placement", "case": "mesh_http_pool_gloo",
+           "backend": "gloo", **run, "rank1_exit": code, "spans": spans,
+           "rank1_launches": rank1_launches,
+           "flight_engines": len(docs["metrics"]["engines"]),
+           "handoff_bytes_each": run["handoff_bytes"] / n,
+           "handoff_ops_s_each": (ops_s[0].get("take_handoffs", 0.0)
+                                  + ops_s[1].get("adopt_handoff", 0.0)) / n}
+    rec["checks"] = {
+        "rank1_ok": code == 0,
+        "exact": served == PLACE_HTTP_N and all(run["exact"]),
+        # every prompt is new to the decode store: each is handed off,
+        # with its whole aligned prompt found on rank 1 (a hit is at most
+        # the aligned length)
+        "handoffs": run["handoffs"] >= 1
+        and run["handoff_hit_tokens"] == run["handoffs"] * (
+            PLACE_HTTP_PROMPT // run["cache_chunk"] * run["cache_chunk"])
+        and run["handoff_bytes"] > 0,
+        "audits_clean": audits_clean(run["audit"], served),
+        "spans_inside_http": spans["block_events"] > 0
+        and spans["inside_http"] == spans["block_events"],
+        "flight_dump": rec["flight_engines"] == 2,
+        "kernels_launched": not cuda or launched(both)}
+    rec["ok"] = all(rec["checks"].values())
+    rec["seconds"] = seconds
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"placement mesh_http_pool_gloo: "
+                             f"{rec['checks']}\n{child_log[-3000:]}")
     return rec
 
 
@@ -5306,15 +5503,31 @@ def phase_placement(device="cuda"):
     (b) two ranks on the one card over gloo on the host loop
     (``placement_gloo``); then the same model served over HTTP by the
     serve CLI's functions, (c) in a one-rank NCCL world
-    (``placement_mesh_http_nccl``) and (d) on two gloo ranks
-    (``placement_mesh_http_gloo``). NCCL with more than one rank needs
-    more than one card and does not run here."""
+    (``placement_mesh_http_nccl``), (e) there again with the auditor,
+    the flight recorder, the profiler and the trace
+    (``placement_mesh_http_obs_nccl``), and on two gloo ranks (d)
+    (``placement_mesh_http_gloo``) and (f), a prefill/decode pool with
+    every layer on (``placement_mesh_http_pool_gloo``). NCCL with more
+    than one rank needs more than one card and does not run here."""
     t_phase = time.perf_counter()
     nccl = "nccl" if torch.device(device).type == "cuda" else "gloo"
     out = {"one_rank_nccl": placement_nccl(device, nccl),
            "two_rank_gloo": placement_gloo(device),
            "mesh_http_nccl": placement_mesh_http_nccl(device),
-           "mesh_http_gloo": placement_mesh_http_gloo(device)}
+           "mesh_http_obs_nccl": placement_mesh_http_obs_nccl(device)}
+    # (d) and (f): one rank-1 process runs their three worlds in turn
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    runs, code, log, rank1 = placement_gloo_worlds(device, [
+        mesh_http_argv(device, "2,1", 1, gloo=True),
+        mesh_http_argv(device, "1,1", 2, gloo=True),
+        pool_argv(device, tmp)])
+    seconds = time.perf_counter() - t0
+    out["mesh_http_gloo"] = placement_mesh_http_gloo(
+        device, runs[:2], code, log, seconds)
+    out["mesh_http_pool_gloo"] = placement_mesh_http_pool_gloo(
+        device, tmp, runs[2], code, log, seconds,
+        rank1[2] if len(rank1) > 2 else {})
     emit({"phase": "placement", "seconds": time.perf_counter() - t_phase})
     return out
 

@@ -95,6 +95,15 @@ class PrefixKVCache:
         with self._lock:
             return self.tree.match_tokens(prompt_tokens)
 
+    def chain_kv(self, prompt_tokens: np.ndarray) -> List[list]:
+        """The chunk KV of the longest cached prefix, in chunk order: a
+        pure read, like ``match_len`` (what a prefill-pool handoff
+        carries to a decode engine's store in another process,
+        ``serving.replica``; ``insert(tokens, 0, chain_kv(tokens))``
+        there rebuilds the chain)."""
+        with self._lock:
+            return [n.payload for n in self.tree.walk(prompt_tokens)]
+
     def match(self, prompt_tokens: np.ndarray) -> List[ChunkNode]:
         """Longest cached prefix as a *pinned* node chain. The caller
         owns one reference per returned node and must ``unpin`` the

@@ -68,16 +68,19 @@ def compute_host_budget(engines: int, threads_per_engine: int = 0,
 
 def compute_pool_budgets(pool_sizes: Dict[str, int],
                          threads_per_engine: int = 0,
-                         cores: Optional[int] = None) \
+                         cores: Optional[int] = None,
+                         sharers: Optional[int] = None) \
         -> Dict[str, HostBudget]:
     """Per-pool budget records for a disaggregated fleet
     (``--pool prefill:N,decode:M``). The intra-op pool is process-wide,
     so the thread count comes from the *total* engine count and is the
     same for every pool; what differs per pool is the record (engine
     count, ``source="pool/..."``). Apply the total budget with
-    ``apply_host_budget``."""
+    ``apply_host_budget``. ``sharers``: the processes that share the
+    host, where the engines are placed on ranks (one engine a rank, the
+    budget per rank)."""
     total = sum(max(0, n) for n in pool_sizes.values())
-    base = compute_host_budget(total, threads_per_engine, cores)
+    base = compute_host_budget(sharers or total, threads_per_engine, cores)
     return {role: HostBudget(n, base.cores, base.intra_op,
                              f"pool/{base.source}")
             for role, n in pool_sizes.items()}

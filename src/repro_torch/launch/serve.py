@@ -87,8 +87,32 @@ flight, then stops every rank:
         --arch llada-8b --train-steps 0 --http 8000 --mesh 2,1 \\
         --engines 2 --prewarm 256:128
 
-``--pool``, ``--audit-rate``, ``--flight-dir`` and ``--profile-blocks``
-do not run on a mesh yet (ROADMAP A11.2).
+Every serving layer runs on a mesh too, the port's SPMD way (rank 0
+decides, each engine's ranks replay):
+
+* ``--pool prefill:N,decode:K`` places the N prefill engines first, then
+  the K decode engines, on ``(N+K) x DATA x MODEL`` ranks; each rank's
+  store is keyed by the mesh shape, and a handoff carries the primed
+  chunk KV from the prefill engine's ranks to the decode engine's as two
+  ops (counted in the summary's ``handoff_bytes``);
+* ``--audit-rate``: every rank of an engine runs its own auditor (the
+  audit lanes decode on the engine's mesh); rank 0 reads the leader's
+  stats and, with ``--flight-dir``, dumps on a divergence the leader
+  found; ``GET /debug/flight`` dumps every engine's last state;
+* ``--profile-blocks N``: every rank of engine 0 writes its own window
+  to ``torch_profile/rank<r>/trace.json`` (also without ``--http``);
+* ``--trace-dir``: an engine led from another rank records its spans on
+  its leader, and rank 0's ``trace.json`` holds them, on rank 0's clock.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny \\
+        --device cpu --dtype float32 --train-steps 0 --http 8000 \\
+        --mesh 2,1 --pool prefill:1,decode:1 --prefix-cache \\
+        --audit-rate 1.0 --flight-dir /tmp/flight --trace-dir /tmp/trace \\
+        --profile-blocks 2 --force-host-devices 4
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch llada-8b --train-steps 0 --http 8000 --mesh 1,1 \\
+        --pool prefill:1,decode:1 --prefix-cache --audit-rate 0.05 \\
+        --prewarm 256:128
 """
 from __future__ import annotations
 
@@ -311,13 +335,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return build_parser().parse_args(argv)
 
 
-# flags whose layer does not run on a mesh yet (ROADMAP A11.2)
-MESH_REFUSED = (("--pool", lambda a: bool(a.pool)),
-                ("--audit-rate", lambda a: a.audit_rate > 0),
-                ("--flight-dir", lambda a: bool(a.flight_dir)),
-                ("--profile-blocks", lambda a: a.profile_blocks > 0))
-
-
 def check_args(args) -> None:
     """Every flag check, before any weights are made (``SystemExit``
     names what is wrong). ``--pool`` sets ``args.engines``."""
@@ -325,13 +342,22 @@ def check_args(args) -> None:
     if args.force_host_devices and mesh_dims is None:
         raise SystemExit("--force-host-devices starts the ranks of --mesh: "
                          "pass --mesh DATA,MODEL")
+    if args.pool:
+        pool_sizes = parse_pool(args.pool)
+        if not args.http:
+            raise SystemExit("--pool needs --http (the prefill->decode "
+                             "handoff rides the EngineRouter in the "
+                             "HTTP front end)")
+        if not args.prefix_cache:
+            raise SystemExit("--pool needs --prefix-cache (primed "
+                             "prompt KV travels through the shared "
+                             "prefix store)")
+        n_pool = pool_sizes["prefill"] + pool_sizes["decode"]
+        if args.engines not in (1, n_pool):
+            raise SystemExit(f"--pool {args.pool} implies --engines "
+                             f"{n_pool}, got --engines {args.engines}")
+        args.engines = n_pool
     if mesh_dims is not None:
-        for flag, on in MESH_REFUSED:
-            if on(args):
-                raise SystemExit(
-                    f"{flag} does not run on a --mesh yet (ROADMAP A11.2: "
-                    "pools, the auditor, the flight recorder and the "
-                    "block profiler on placed engines)")
         if args.mode != "continuous":
             raise SystemExit("--mesh places the continuous engine: drop "
                              "--mode batch")
@@ -359,21 +385,6 @@ def check_args(args) -> None:
     if args.prefix_cache and args.method == "vanilla":
         raise SystemExit("--prefix-cache has no effect with --method "
                          "vanilla (no KV cache to reuse)")
-    if args.pool:
-        pool_sizes = parse_pool(args.pool)
-        if not args.http:
-            raise SystemExit("--pool needs --http (the prefill->decode "
-                             "handoff rides the EngineRouter in the "
-                             "HTTP front end)")
-        if not args.prefix_cache:
-            raise SystemExit("--pool needs --prefix-cache (primed "
-                             "prompt KV travels through the shared "
-                             "prefix store)")
-        n_pool = pool_sizes["prefill"] + pool_sizes["decode"]
-        if args.engines not in (1, n_pool):
-            raise SystemExit(f"--pool {args.pool} implies --engines "
-                             f"{n_pool}, got --engines {args.engines}")
-        args.engines = n_pool
     if not args.http:
         for flag, on in (("--audit-rate", args.audit_rate > 0),
                          ("--flight-dir", bool(args.flight_dir)),
@@ -408,20 +419,54 @@ def slo_targets(args) -> dict:
             "goodput_tok_s": args.slo_goodput_tok_s}
 
 
+def host_sharers(args) -> int:
+    """The engines, or with a mesh the ranks (``--force-host-devices N``,
+    or torchrun's ``LOCAL_WORLD_SIZE``), that share this host's cores."""
+    if args.mesh:
+        return args.force_host_devices or int(
+            os.environ.get("LOCAL_WORLD_SIZE", 1))
+    return args.engines
+
+
 def host_budget(args):
     """The intra-op pool's budget, or None for PyTorch's own default (one
-    engine alone on the host). With a mesh, the processes that share the
-    host are its ranks (``--force-host-devices N``, or torchrun's
-    ``LOCAL_WORLD_SIZE``)."""
+    engine alone on the host)."""
     from repro_torch.launch import host as host_budgeting
-    sharers = args.engines
-    if args.mesh:
-        sharers = args.force_host_devices or int(
-            os.environ.get("LOCAL_WORLD_SIZE", 1))
+    sharers = host_sharers(args)
     if sharers > 1 or args.host_threads_per_engine > 0:
         return host_budgeting.compute_host_budget(
             sharers, args.host_threads_per_engine)
     return None
+
+
+def pool_budgets(args, pool_sizes):
+    """``--pool``'s budget record for each role (None where
+    ``host_budget`` is): the host budget's threads, per process, whether
+    the process runs every engine or, with a mesh, one."""
+    if pool_sizes is None or host_budget(args) is None:
+        return None
+    from repro_torch.launch import host as host_budgeting
+    return host_budgeting.compute_pool_budgets(
+        pool_sizes, args.host_threads_per_engine,
+        sharers=host_sharers(args) if args.mesh else None)
+
+
+def pool_roles(pool_sizes):
+    """One role an engine, the prefill pool first (as the JAX CLI orders
+    them); None without ``--pool``."""
+    if pool_sizes is None:
+        return None
+    return (["prefill"] * pool_sizes["prefill"]
+            + ["decode"] * pool_sizes["decode"])
+
+
+def make_profiler(args, rank=None):
+    """``--profile-blocks``' window, under ``--trace-dir`` (or
+    ``results/torch/profile``); ``rank``: this process's on a mesh."""
+    from repro_torch.obs.profiler import BlockProfiler
+    return BlockProfiler(
+        args.trace_dir or os.path.join("results", "torch", "profile"),
+        args.profile_blocks, rank=rank)
 
 
 def decode_config(args, cfg) -> DecodeConfig:
@@ -465,13 +510,10 @@ def main(argv=None):
     prewarm_buckets = parse_prewarm(args.prewarm) if args.prewarm else []
 
     budget = host_budget(args)
-    pool_budgets = None
+    role_budgets = pool_budgets(args, pool_sizes)
     if budget is not None:
         from repro_torch.launch import host as host_budgeting
         host_budgeting.apply_host_budget(budget)
-        if pool_sizes is not None:
-            pool_budgets = host_budgeting.compute_pool_budgets(
-                pool_sizes, args.host_threads_per_engine)
         print(f"host budget: {budget.describe()}")
     device = resolve_device(args.device)
     over = {"tp": mesh_dims[1]} if mesh_dims is not None else {}
@@ -506,10 +548,7 @@ def main(argv=None):
             torch.distributed.destroy_process_group()
             return None
         executor = DecodeExecutor(cfg, params, mesh, device=device)
-    roles = None
-    if pool_sizes is not None:
-        roles = (["prefill"] * pool_sizes["prefill"]
-                 + ["decode"] * pool_sizes["decode"])
+    roles = pool_roles(pool_sizes)
     # pool fleets share ONE store: the prefill pool publishes chunk KV
     # into it and the decode pool's admission prefill finds the full hit
     shared_store = None
@@ -527,7 +566,7 @@ def main(argv=None):
         engines = [make_engine(
             args, cfg, params, device, executor=executor, store=shared_store,
             role=roles[i] if roles else "both",
-            budget=(pool_budgets[roles[i]] if pool_budgets is not None
+            budget=(role_budgets[roles[i]] if role_budgets is not None
                     else budget)) for i in range(args.engines)]
         eng = engines[0]
     tracer = None
@@ -535,11 +574,11 @@ def main(argv=None):
         from repro_torch.obs.trace import Tracer
         tracer = Tracer()
     if args.profile_blocks > 0:
-        # torch.profiler is process-wide: one engine owns the window
-        from repro_torch.obs.profiler import BlockProfiler
-        eng.profiler = BlockProfiler(
-            args.trace_dir or os.path.join("results", "torch", "profile"),
-            args.profile_blocks)
+        # torch.profiler is process-wide: one engine owns the window (on
+        # a mesh, one a rank: every rank runs this engine)
+        eng.profiler = make_profiler(
+            args, rank=torch.distributed.get_rank()
+            if executor is not None else None)
     if prewarm_buckets:
         reports = prewarm_all(engines, prewarm_buckets)
         summary["prewarm"] = reports if len(reports) > 1 else reports[0]
@@ -596,8 +635,9 @@ def main(argv=None):
         summary.update({"mesh": dict(executor.mesh.shape),
                         "ranks": int(torch.distributed.get_world_size()),
                         "tokens_digest": tokens_digest(done)})
-    export_trace(tracer, args.trace_dir)
     if executor is None or torch.distributed.get_rank() == 0:
+        # (every rank traced the same engine: rank 0 writes the file)
+        export_trace(tracer, args.trace_dir)
         print(json.dumps(summary))
     if executor is not None:
         torch.distributed.destroy_process_group()
@@ -828,6 +868,8 @@ def serve_http(args, engines, tracer, roles=None, until=None) -> dict:
                           ("post_warm_captures", "post_warm_compiles"),
                           ("steals", "steals_in"),
                           ("handoffs", "handoffs_in"),
+                          ("handoff_bytes", "handoff_bytes"),
+                          ("handoff_hit_tokens", "handoff_hit_tokens"),
                           ("prefix_cache_hit_tokens",
                            "prefix_cache_hit_tokens")):
         out[key] = sum(s[snap_key] for s in snaps)
@@ -850,19 +892,26 @@ class Fleet:
     served over HTTP (``make_fleet``): on rank 0, ``engines`` holds one
     ``serving.replica.EngineProxy`` an engine; on every rank of a
     submesh, ``replica`` executes its engine's ops, told by ``control``;
-    a rank outside every submesh has neither."""
+    a rank outside every submesh has neither. ``roles``: each engine's
+    pool role (``--pool``), else None."""
     meshes: list
     engines: list
     replica: object = None
     control: object = None
+    roles: object = None
 
 
 def make_fleet(args, cfg, params, device) -> Fleet:
     """Place ``args.engines`` engines on consecutive submeshes of
-    ``--mesh``'s shape (engine ``i`` on ranks ``[i*D*M, (i+1)*D*M)``) in
-    an initialised world, with one control group each; every rank calls
-    it, after ``broadcast_params``. Rank 0 returns with its proxies once
-    every engine has answered a first query."""
+    ``--mesh``'s shape (engine ``i`` on ranks ``[i*D*M, (i+1)*D*M)``; with
+    ``--pool`` the prefill engines first) in an initialised world, with
+    one control group each; every rank calls it, after
+    ``broadcast_params``. With ``--pool`` each rank's engine gets a
+    store keyed by the mesh shape, as the JAX CLI keys its one shared
+    store (a handoff carries chunk KV between engines of that shape);
+    with ``--profile-blocks`` every rank of engine 0 opens its own
+    window. Rank 0 returns with its proxies once every engine has
+    answered a first query."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_submeshes
     from repro_torch.serving import DecodeExecutor
@@ -871,12 +920,25 @@ def make_fleet(args, cfg, params, device) -> Fleet:
     meshes = make_submeshes(args.engines, *parse_mesh(args.mesh))
     controls = make_control_groups(meshes)
     mine = next((i for i, m in enumerate(meshes) if m.member), None)
+    pool_sizes = parse_pool(args.pool) if args.pool else None
+    roles = pool_roles(pool_sizes)
     budget = host_budget(args)
+    budgets = pool_budgets(args, pool_sizes)
     replica = None
     if mine is not None:
         executor = DecodeExecutor(cfg, params, meshes[mine], device=device)
-        replica = Replica(make_engine(args, cfg, params, device,
-                                      executor=executor, budget=budget))
+        role = roles[mine] if roles else "both"
+        store = None
+        if roles:
+            store = PrefixKVCache(chunk_tokens=args.cache_chunk,
+                                  max_bytes=args.cache_bytes,
+                                  placement=executor.shape_key, shared=True)
+        engine = make_engine(args, cfg, params, device, executor=executor,
+                             store=store, role=role,
+                             budget=budgets[role] if budgets else budget)
+        if args.profile_blocks > 0 and mine == 0:
+            engine.profiler = make_profiler(args, rank=dist.get_rank())
+        replica = Replica(engine)
     engines = []
     if dist.get_rank() == 0:
         engines = [EngineProxy(
@@ -884,9 +946,11 @@ def make_fleet(args, cfg, params, device) -> Fleet:
             tokenizer=replica.engine.tok,
             replica=replica if i == mine else None,
             prefix_cache=args.cache_chunk if args.prefix_cache else None,
-            host_budget=budget) for i, ctl in enumerate(controls)]
+            host_budget=budgets[roles[i]] if budgets else budget,
+            prefill_only=roles is not None and roles[i] == "prefill")
+            for i, ctl in enumerate(controls)]
     return Fleet(meshes, engines, replica,
-                 controls[mine] if mine is not None else None)
+                 controls[mine] if mine is not None else None, roles)
 
 
 def serve_fleet(args, fleet: Fleet, until=None):
@@ -926,13 +990,15 @@ def serve_fleet(args, fleet: Fleet, until=None):
         if buckets:
             reports = prewarm_all(fleet.engines, buckets)
             out["prewarm"] = reports if len(reports) > 1 else reports[0]
-        out.update(serve_http(args, fleet.engines, tracer, until=until))
+        out.update(serve_http(args, fleet.engines, tracer, fleet.roles,
+                              until=until))
     finally:
         for p in fleet.engines:
             p.stop()
     out.update({"mesh": dict(fleet.meshes[0].shape),
                 "ranks": dist.get_world_size(),
-                "ops": [dict(p.ops) for p in fleet.engines]})
+                "ops": [dict(p.ops) for p in fleet.engines],
+                "ops_s": [dict(p.op_s) for p in fleet.engines]})
     if broke:
         raise SystemExit("engine(s) " + ", ".join(
             str(fleet.engines.index(p)) for p in broke) + " lost a rank: "

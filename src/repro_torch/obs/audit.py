@@ -300,9 +300,14 @@ class ShadowAuditor:
                 d = dataclasses.replace(d, fused=not d.fused)
             else:
                 cache = None
+            # the engine's executor: on a mesh a lane decodes on the
+            # engine's ranks and shards, running its collectives
             dec = self._decoder_cls(
                 sched.cfg, sched.params, d, device=sched.device,
-                prompt_cache=cache)
+                executor=sched.executor, prompt_cache=cache)
+            if sched.executor is not None:
+                # lane graphs are counted apart (``lane_graphs``)
+                sched.executor.detach(dec)
             self._lane_decoders[key] = dec
         return dec
 

@@ -8,7 +8,10 @@ activity and, when a CUDA device is present, the card's kernels (CUPTI;
 kernels replayed inside a block's CUDA graph appear under their own
 names), and is written as a Chrome trace (Perfetto-loadable) under
 ``<trace_dir>/torch_profile/``; it complements the host-side span trace
-the :class:`~repro_torch.obs.trace.Tracer` exports.
+the :class:`~repro_torch.obs.trace.Tracer` exports. ``torch.profiler`` is
+per process: on a mesh of ranks each rank of the profiled engine opens
+its own window over the blocks it replays and writes
+``torch_profile/rank<r>/trace.json``.
 
 Failure to start the profiler (no CUPTI, a second profiler already
 live) degrades to a no-op with a warning — observability must never
@@ -17,6 +20,7 @@ take down serving.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 from repro_torch.obs.log import get_logger
 
@@ -31,11 +35,15 @@ class BlockProfiler:
     capture; the tick that crosses ``n_blocks`` stops it and writes
     ``trace_path``. ``close()`` stops a capture left running at
     shutdown. Start, stop and export all run on the thread that ticks
-    (the engine's decode thread).
+    (the engine's decode thread). ``rank``: this process's rank on a
+    mesh; its window writes under ``rank<r>/``.
     """
 
-    def __init__(self, trace_dir: str, n_blocks: int):
+    def __init__(self, trace_dir: str, n_blocks: int,
+                 rank: Optional[int] = None):
         self.trace_dir = os.path.join(trace_dir, "torch_profile")
+        if rank is not None:
+            self.trace_dir = os.path.join(self.trace_dir, f"rank{rank}")
         self.trace_path = os.path.join(self.trace_dir, "trace.json")
         self.n_blocks = n_blocks
         self.seen = 0

@@ -28,6 +28,12 @@ Design:
 ``span(tracer, name, ...)`` is the call-site helper: with
 ``tracer=None`` (observability off) it returns a shared no-op context
 manager, so instrumented code pays one ``is None`` test.
+
+Across processes (an engine placed on other ranks, ``serving.replica``):
+the engine's leader records into a tracer of its own, a ``TraceCursor``
+takes what it recorded since the last take, and rank 0's tracer
+``ingest``s those events on the engine's track group, moved onto its
+own clock.
 """
 from __future__ import annotations
 
@@ -69,6 +75,15 @@ class _Span:
         return False
 
 
+class _Ring(deque):
+    """One thread's ring; ``total`` counts every event ever appended
+    (a ``TraceCursor`` takes what came after its mark)."""
+
+    def __init__(self, maxlen: int):
+        super().__init__(maxlen=maxlen)
+        self.total = 0
+
+
 class Tracer:
     """Process-wide event sink. All emit methods are callable from any
     thread; ``export``/``events`` snapshot every ring (reads race
@@ -92,13 +107,18 @@ class Tracer:
 
     # ------------------------------------------------------ plumbing
 
+    @property
+    def t0_ns(self) -> int:
+        """The ``perf_counter_ns`` reading every ``ts`` counts from."""
+        return self._t0
+
     def _us(self, t_ns: int) -> float:
         return (t_ns - self._t0) / 1e3
 
     def _ring(self) -> deque:
         ring = getattr(self._local, "ring", None)
         if ring is None:
-            ring = deque(maxlen=self.capacity)
+            ring = _Ring(self.capacity)
             self._local.ring = ring
             with self._lock:
                 self._rings[threading.get_ident()] = ring
@@ -109,6 +129,7 @@ class Tracer:
         if len(ring) == ring.maxlen:
             self.dropped += 1
         ring.append(ev)
+        ring.total += 1
 
     # ------------------------------------------------------ identity
 
@@ -126,10 +147,14 @@ class Tracer:
                                "args": {"name": label}})
         return pid
 
-    def name_thread(self, label: str, pid: int = 0) -> None:
+    def name_thread(self, label: str, pid: int = 0,
+                    tid: Optional[int] = None) -> None:
+        """Name the calling thread's track (or ``tid``'s) under ``pid``."""
         with self._lock:
             self._meta.append({"ph": "M", "name": "thread_name",
-                               "pid": pid, "tid": threading.get_ident(),
+                               "pid": pid,
+                               "tid": threading.get_ident() if tid is None
+                               else tid,
                                "args": {"name": label}})
 
     # ------------------------------------------------------ emission
@@ -180,6 +205,14 @@ class Tracer:
         self.async_begin(trace_id, name, pid=pid, t_ns=t0_ns, **args)
         self.async_end(trace_id, name, pid=pid, t_ns=t1_ns)
 
+    def ingest(self, events: List[dict], pid: int,
+               shift_us: float = 0.0) -> None:
+        """Record events another tracer took (``TraceCursor.take``) on
+        track group ``pid``, ``shift_us`` later than they read (the
+        other tracer's start and clock against this one's)."""
+        for ev in events:
+            self._emit(dict(ev, pid=pid, ts=ev["ts"] + shift_us))
+
     # ------------------------------------------------------ export
 
     def events(self) -> List[dict]:
@@ -212,6 +245,30 @@ class Tracer:
             json.dump(self.to_chrome(), f)
         os.replace(tmp, path)
         return path
+
+
+class TraceCursor:
+    """What ``tracer`` recorded since the last ``take``, over every
+    ring. Take from the thread that records, or while no thread
+    records: a take and an append racing on one ring may misplace the
+    mark. A ring that wrapped past the mark has lost what it dropped."""
+
+    def __init__(self, tracer: Tracer):
+        self.tracer = tracer
+        self._marks: Dict[int, int] = {}
+
+    def take(self) -> List[dict]:
+        with self.tracer._lock:
+            rings = list(self.tracer._rings.items())
+        out: List[dict] = []
+        for key, ring in rings:
+            new = ring.total - self._marks.get(key, 0)
+            self._marks[key] = ring.total
+            if new > 0:
+                evs = list(ring)
+                out.extend(evs[max(0, len(evs) - new):])
+        out.sort(key=lambda e: e.get("ts", 0.0))
+        return out
 
 
 class TraceFlusher:

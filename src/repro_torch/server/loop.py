@@ -297,7 +297,12 @@ class EngineLoop:
             self._check_deadlines()
             self._feed()
             self._maybe_steal()
-            if not eng.scheduler.idle:
+            # a placed engine that broke outside a step (an audit tick,
+            # a submit) holds tickets no step will finish: its step
+            # raises, and the failure path below concludes them
+            broken = getattr(eng, "broken", None) is not None \
+                and bool(self._live or self._pending)
+            if not eng.scheduler.idle or broken:
                 try:
                     for comp in eng.step():
                         self._finish(comp)

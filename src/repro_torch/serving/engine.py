@@ -28,7 +28,7 @@ Observability: ``set_tracer`` claims the engine's trace track (the
 ``repro_torch.obs.audit.ShadowAuditor`` whose counters ``step`` and
 ``audit_tick`` mirror into ``metrics``, and ``profiler`` (a
 ``repro_torch.obs.profiler.BlockProfiler``) is ticked with the blocks
-each ``step`` decoded.
+each ``step`` decoded (a prefill-only engine's: the rows it primed).
 
 Fleets (``repro_torch.server.EngineRouter``): ``steal_waiting`` /
 ``steal_paused`` / ``adopt_paused`` move work between sibling engines at
@@ -400,6 +400,7 @@ class ContinuousEngine:
         self.metrics.gang_merges = self.scheduler.merges
         self.metrics.prefill_busy_s = self.scheduler.prefill_wall_s
         self.metrics.decode_busy_s = self.scheduler.decode_wall_s
+        self.metrics.handoff_hit_tokens = self.scheduler.handoff_hit_tokens
         watch = self.scheduler.compile_watch
         self.metrics.compile_misses = watch.misses
         self.metrics.compile_hits = watch.hits
@@ -411,7 +412,10 @@ class ContinuousEngine:
             self.metrics.prefix_cache_evictions = st["evictions"]
             self.metrics.prefix_cache_nodes = st["nodes"]
         if self.profiler is not None:
-            blocks = self.telemetry.blocks
+            # a prefill-only engine decodes no block: its window counts
+            # the rows it primed
+            blocks = (self.scheduler.primed_rows if self.prefill_only
+                      else self.telemetry.blocks)
             self.profiler.tick(blocks - self._prof_blocks_seen)
             self._prof_blocks_seen = blocks
         self._mirror_audit()

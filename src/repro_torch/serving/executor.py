@@ -252,6 +252,10 @@ class DecodeExecutor:
         """Count ``decoder``'s block programs in ``graph_cache_size``."""
         self._decoders.append(decoder)
 
+    def detach(self, decoder) -> None:
+        """Stop counting ``decoder``'s block programs here."""
+        self._decoders.remove(decoder)
+
     def graph_cache_size(self) -> int:
         """Block programs (on the card, captured CUDA graphs) built by the
         decoders that drive this executor: where the JAX executor counts

@@ -82,6 +82,10 @@ class ServeMetrics:
     handoffs_out: int = 0              # rows this engine primed and gave up
     handoffs_in: int = 0               # rows adopted from the prefill pool
     handoff_wait_s: float = 0.0        # extraction -> decode-pool adoption
+    handoff_bytes: int = 0             # chunk KV a handoff carried between
+                                       # processes (placed engines)
+    handoff_hit_tokens: int = 0        # prompt tokens adopted rows found in
+                                       # this engine's store at admission
     # capture ledger (repro_torch.obs.CompileWatch, mirrored each
     # engine step; the JAX package's names kept): block graphs captured
     # vs calls served by captured graphs, wall attributed to capturing
@@ -226,6 +230,8 @@ class ServeMetrics:
             "handoffs_out": self.handoffs_out,
             "handoffs_in": self.handoffs_in,
             "handoff_wait_s": self.handoff_wait_s,
+            "handoff_bytes": self.handoff_bytes,
+            "handoff_hit_tokens": self.handoff_hit_tokens,
             "queue_wait_s": sum(r.queue_s for r in requests),
             "steals_out": self.steals_out,
             "steals_in": self.steals_in,

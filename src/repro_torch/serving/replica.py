@@ -42,6 +42,31 @@ adds what changed on the leader's engine since the last one. A
 collective that fails (a rank of the engine died) breaks the proxy: it
 reports the requests it knew were waiting so the loop re-routes them,
 fails the rest, and stops its loop (``broken``, ``on_break``).
+
+Observability rides the same log:
+
+* the shadow auditor: ``attach_auditor`` is one op carrying the
+  ``AuditConfig``, and every rank of the submesh builds its own
+  ``ShadowAuditor`` (the audit lanes run the engine's collectives, and
+  sampling is a stride over completions, so the ranks audit alike);
+  ``audit_tick`` is an op while the last result says an audit is
+  pending. The proxy's ``auditor`` is an ``AuditorView`` of the
+  leader's stats; a divergence the leader found travels in the result,
+  and rank 0 dumps its ``FlightRecorder`` as the auditor would;
+* spans: a leader other than rank 0 records into a tracer of its own
+  (the ``set_tracer`` op) and each result carries what it recorded
+  since the last one (``obs.trace.TraceCursor``); the proxy re-records
+  it on the engine's track of rank 0's tracer, moved onto rank 0's
+  clock by the offset it measured at its first query;
+* the block profiler lives on each rank's engine (``torch.profiler`` is
+  per process); the ``stop`` op closes a window still open.
+
+Disaggregated pools: ``take_handoffs`` is an op whose result carries,
+for each primed request, its cached chunk chain as each model
+coordinate of the prefill mesh holds it (gathered to the leader over
+the control group); ``adopt_handoff`` carries them to the decode
+engine's ranks, each of which inserts its coordinate's chain into its
+own store before adopting the request (``handoff_bytes`` counts them).
 """
 from __future__ import annotations
 
@@ -49,6 +74,7 @@ import collections
 import dataclasses
 import datetime
 import threading
+import time
 import zlib
 from typing import Callable, Dict, List, Optional
 
@@ -64,7 +90,14 @@ log = get_logger(__name__)
 # ops that change an engine (replayed by every rank of its submesh)
 OPS = ("submit", "cancel", "preempt", "step", "audit_tick", "prewarm",
        "steal_waiting", "steal_paused", "adopt_paused", "return_waiting",
-       "return_paused", "stop")
+       "return_paused", "take_handoffs", "adopt_handoff", "attach_auditor",
+       "set_tracer", "stop")
+# ops the Replica runs itself around the engine (``Replica._<name>``)
+_OWN = ("take_handoffs", "adopt_handoff", "attach_auditor", "set_tracer",
+        "stop")
+# ops in which every member of the control group sends its part to the
+# leader (rank 0 outside the submesh sends nothing)
+GATHERED = ("take_handoffs",)
 # read-only queries: answered by the leader, replayed by no rank
 QUERIES = ("state", "expected_prefix_hit")
 CONTROL_TIMEOUT = datetime.timedelta(days=365)
@@ -110,6 +143,15 @@ class ControlGroup:
         dist.broadcast_object_list(box, src=src, group=self.group)
         return box[0]
 
+    def gather(self, obj, dst: int):
+        """Every rank's ``obj`` in rank order on ``dst``; None elsewhere."""
+        if self.group is None:
+            return [obj]
+        import torch.distributed as dist
+        out = [None] * len(self.ranks) if self.rank == dst else None
+        dist.gather_object(obj, out, dst=dst, group=self.group)
+        return out
+
 
 def make_control_groups(meshes) -> List[Optional[ControlGroup]]:
     """One ``ControlGroup`` an engine's mesh, over rank 0 and the mesh's
@@ -151,7 +193,9 @@ def op_key(name: str, out, err):
         return None if out is None else out[0].uid
     if name == "prewarm":
         return out["graphs"]
-    if name in ("submit", "adopt_paused", "audit_tick"):
+    if name == "take_handoffs":
+        return tuple(r.uid for r in out)
+    if name in ("submit", "adopt_paused", "adopt_handoff", "audit_tick"):
         return out
     return None
 
@@ -224,17 +268,24 @@ class Replica:
         engine.on_chunk(None, self._chunks.append)
         self._deltas = _Deltas(engine)
         self.history = collections.deque(maxlen=1024)
+        self._cursor = None          # this rank's own tracer's (set_tracer)
+        self._audit_mark = None      # the newest audit result sent
 
-    def execute(self, op):
-        """Run one op here: ``(out, err, chunks)``."""
+    def execute(self, op, ctl: Optional[ControlGroup] = None):
+        """Run one op here: ``(out, err, chunks)``. ``ctl``: the engine's
+        control group (the ops that gather or know the leader use it)."""
         seq, name, args = op
         if name not in OPS and name not in QUERIES:
             raise ReplicaDivergence(f"op {seq}: no op {name!r}")
         self.history.append((seq, name))
         eng = self.engine
         try:
-            out = None if name in ("state", "stop") \
-                else getattr(eng, name)(*args)
+            if name == "state":
+                out = None
+            elif name in _OWN:
+                out = getattr(self, "_" + name)(ctl, *args)
+            else:
+                out = getattr(eng, name)(*args)
             err = None
         except Exception as e:          # re-raised on rank 0 (as the
             out, err = None, e          # engine's own call would raise)
@@ -242,15 +293,89 @@ class Replica:
         self._chunks.clear()
         return out, err, chunks
 
-    def run(self, op) -> dict:
+    def run(self, op, ctl: Optional[ControlGroup] = None) -> dict:
         """Execute ``op`` and build the result the leader broadcasts."""
-        out, err, chunks = self.execute(op)
+        out, err, chunks = self.execute(op, ctl)
         return {"out": out, "err": err, "key": op_key(op[1], out, err),
                 "chunks": chunks, "state": self.state()}
+
+    # ------------------------------------------------------ own ops
+
+    def _coords(self):
+        """(model index, whether this rank is the first of its data
+        line) on the engine's mesh."""
+        ex = self.engine.scheduler.executor
+        if ex is None:
+            return 0, True
+        return ex.mesh.coords.get("model", 0), ex.data.index == 0
+
+    def _take_handoffs(self, ctl):
+        # every rank of a data line holds the same rows (a prefill
+        # publishes the gathered gang), so the first of each line sends
+        # its model shard of each request's chain
+        reqs = self.engine.take_handoffs()
+        m, first = self._coords()
+        store = self.engine.prefix_cache
+        mine = ((m, [store.chain_kv(r.prompt_tokens) for r in reqs])
+                if first and store is not None else None)
+        parts = ctl.gather(mine, ctl.leader) if ctl is not None else [mine]
+        if parts is not None:           # the leader: one chain a model
+            by_m = dict(p for p in parts if p is not None)   # coordinate
+            for i, r in enumerate(reqs):
+                r.handoff_kv = [by_m[k][i] for k in sorted(by_m)] \
+                    if by_m else None
+        return reqs
+
+    def _adopt_handoff(self, ctl, req, wait_s, kv):
+        eng = self.engine
+        if kv:
+            from repro_torch.cache.slicing import slice_nbytes
+            m, _ = self._coords()
+            if eng.prefix_cache is not None and kv[m]:
+                eng.prefix_cache.insert(req.prompt_tokens, 0, kv[m])
+            eng.metrics.handoff_bytes += slice_nbytes(kv)
+        return eng.adopt_handoff(req, wait_s)
+
+    def _attach_auditor(self, ctl, config):
+        from repro_torch.obs.audit import ShadowAuditor
+        self.engine.attach_auditor(ShadowAuditor(self.engine, config))
+
+    def _set_tracer(self, ctl, label: str):
+        # rank 0 records its own engine's spans; a leader elsewhere
+        # records into a tracer of its own, which each result drains
+        if ctl is not None and ctl.rank == ctl.leader != 0:
+            from repro_torch.obs.trace import TraceCursor, Tracer
+            tracer = Tracer()
+            self.engine.set_tracer(tracer, label)
+            self._cursor = TraceCursor(tracer)
+
+    def _stop(self, ctl):
+        if self.engine.profiler is not None:
+            self.engine.profiler.close()
+
+    # ------------------------------------------------------ the result
+
+    def _new_audits(self) -> list:
+        """The audit results since the last call, oldest first."""
+        a = self.engine.auditor
+        if a is None:
+            return []
+        new = []
+        for r in reversed(a.results):
+            if r is self._audit_mark:
+                break
+            new.append(r)
+        if new:
+            self._audit_mark = new[0]
+        return new[::-1]
 
     def state(self) -> dict:
         eng = self.engine
         sched = eng.scheduler
+        trace = None
+        if self._cursor is not None:
+            trace = {"t0": self._cursor.tracer.t0_ns,
+                     "events": self._cursor.take()}
         return {"idle": sched.idle,
                 "waiting": [r.uid for r in sched.waiting],
                 "paused": [item[0].uid for item in sched.paused],
@@ -259,9 +384,15 @@ class Replica:
                 "slots_used": sched.slots_used,
                 "live_rows": sched.live_rows,
                 "audit_pending": eng.audit_pending,
+                "handoff_ready": len(sched.handoff_ready),
                 "graphs": eng.graph_cache_size(),
                 "debug": sched.debug_state(),
                 "telemetry": eng.telemetry.totals(),
+                "audit": (eng.auditor.stats() if eng.auditor is not None
+                          else None),
+                "audits": self._new_audits(),
+                "trace": trace,
+                "clock": time.perf_counter_ns(),
                 "deltas": self._deltas.take()}
 
 
@@ -279,11 +410,11 @@ def follow(replica: Replica, ctl: ControlGroup) -> int:
                                     f"after op {n}")
         n = seq
         if leader:
-            ctl.share(replica.run(op), src=ctl.leader)
+            ctl.share(replica.run(op, ctl), src=ctl.leader)
         elif name in QUERIES:
             ctl.share(None, src=ctl.leader)
         else:
-            out, err, _ = replica.execute(op)
+            out, err, _ = replica.execute(op, ctl)
             mine = op_key(name, out, err)
             theirs = ctl.share(None, src=ctl.leader)["key"]
             if mine != theirs:
@@ -327,11 +458,42 @@ class TelemetryView:
         return dict(self._totals)
 
 
-@dataclasses.dataclass
+class AuditorView:
+    """The engine's ``ShadowAuditor`` as of its last op: the leader's
+    ``stats()`` and ``pending``, its results since the proxy attached
+    it (``results``), and rank 0's ``FlightRecorder`` (``flight``)."""
+
+    def __init__(self, config, flight=None):
+        self.config = config
+        self.flight = flight
+        self.pending = False
+        self.results: collections.deque = collections.deque(
+            maxlen=config.max_results)
+        self._stats: dict = {}
+
+    def stats(self) -> dict:
+        return dict(self._stats)
+
+
 class RemoteStore:
-    """Stands for a prefix store that lives on the engine's ranks (the
-    router reads only whether there is one)."""
-    chunk_tokens: int
+    """Stands for a prefix store that lives on the engine's ranks: the
+    router reads its chunk size and probes ``match_len``, which asks the
+    engine (``EngineProxy.expected_prefix_hit``)."""
+
+    def __init__(self, chunk_tokens: int, probe: Callable):
+        self.chunk_tokens = chunk_tokens
+        self.match_len = probe
+
+
+def clock_offset(t_send: int, t_remote: int, t_recv: int) -> int:
+    """Another process's ``perf_counter_ns`` less this one's, from one
+    round trip (sent at ``t_send``, answered at ``t_remote``, back at
+    ``t_recv``): 0 when the answer lies inside the round trip, as on one
+    host, whose processes share the monotonic clock; else the midpoint
+    estimate."""
+    if t_send <= t_remote <= t_recv:
+        return 0
+    return t_remote - (t_send + t_recv) // 2
 
 
 @dataclasses.dataclass
@@ -345,40 +507,55 @@ class EngineProxy:
     and ``HttpFrontend`` use, each call that changes the engine one op
     on ``ctl`` (see the module docstring). ``replica``: this process's
     own ``Replica`` when rank 0 is the submesh's leader (engine 0), else
-    None. ``ops`` counts the ops sent, by name."""
+    None. ``prefill_only``: the engine's pool role. ``ops`` counts the
+    ops sent, by name, and ``op_s`` their wall seconds."""
 
     def __init__(self, ctl: ControlGroup, *, cfg, dcfg, tokenizer,
                  replica: Optional[Replica] = None,
-                 prefix_cache: Optional[int] = None, host_budget=None):
+                 prefix_cache: Optional[int] = None, host_budget=None,
+                 prefill_only: bool = False):
         self.ctl = ctl
         self.replica = replica
         self.cfg = cfg
         self.dcfg = dcfg
         self.tok = tokenizer
-        self.prefill_only = False
+        self.prefill_only = prefill_only
         self.host_budget = host_budget
-        self.prefix_cache = (RemoteStore(prefix_cache)
+        self.prefix_cache = (RemoteStore(prefix_cache,
+                                         self.expected_prefix_hit)
                              if prefix_cache else None)
         self.metrics = ServeMetrics()
         self.stats = collections.defaultdict(float)
         self.scheduler = SchedulerView()
         self.telemetry = TelemetryView()
         self.router = StreamRouter()
-        self.auditor = None
-        self.profiler = None
+        self.auditor: Optional[AuditorView] = None
         self.tracer = None
         self.obs_pid = 0
         self.cuda_stream = None
         self.ops: Dict[str, int] = collections.Counter()
+        self.op_s: Dict[str, float] = collections.defaultdict(float)
         self.broken: Optional[BaseException] = None
         self.on_break: Optional[Callable] = None
+        # the leader's clock less rank 0's (``clock_offset``), measured
+        # at the first query
+        self.clock_offset_ns: Optional[int] = None
         self._audit_pending = False
+        self._handoff_ready = 0
+        self._tids: set = set()
         self._lock = threading.Lock()
         self._seq = 0
         self._call("state")
 
     def __repr__(self):
         return f"EngineProxy({self.ctl})"
+
+    @property
+    def profiler(self):
+        """Engine 0's block profiler on rank 0 (the loop closes it at
+        drain); the other ranks' close at ``stop``."""
+        return (self.replica.engine.profiler if self.replica is not None
+                else None)
 
     # ------------------------------------------------------ the op log
 
@@ -390,26 +567,38 @@ class EngineProxy:
                 raise EngineBroken(f"{self.ctl}: {self.broken}")
             self._seq += 1
             op = (self._seq, name, args)
+            t_send = time.perf_counter_ns()
             try:
                 self.ctl.share(op, src=0)
                 if self.replica is not None:
-                    res = self.ctl.share(self.replica.run(op),
+                    res = self.ctl.share(self.replica.run(op, self.ctl),
                                          src=self.ctl.leader)
                 else:
+                    if name in GATHERED:
+                        self.ctl.gather(None, self.ctl.leader)
                     res = self.ctl.share(None, src=self.ctl.leader)
             except Exception as e:
                 self._break(e)
                 raise EngineBroken(f"{self.ctl}: {e}") from e
+            t_recv = time.perf_counter_ns()
             self.ops[name] += 1
-            self._apply(res["state"])
+            self.op_s[name] += (t_recv - t_send) / 1e9
+            if self.clock_offset_ns is None:
+                self.clock_offset_ns = clock_offset(
+                    t_send, res["state"]["clock"], t_recv)
+            dumps = self._apply(res["state"])
         finally:
             self._lock.release()
         self.router.publish(res["chunks"])
+        for reason in dumps:
+            self.auditor.flight.dump(reason)
         if res["err"] is not None:
             raise res["err"]
         return res["out"]
 
-    def _apply(self, st: dict) -> None:
+    def _apply(self, st: dict) -> list:
+        """Take the leader's snapshot; returns the flight dumps its new
+        audit divergences call for."""
         s = self.scheduler
         s.waiting, s.paused = st["waiting"], st["paused"]
         s.max_slots, s.max_waiting = st["max_slots"], st["max_waiting"]
@@ -417,8 +606,34 @@ class EngineProxy:
         s._debug, s._graphs = st["debug"], st["graphs"]
         s.idle = st["idle"]
         self._audit_pending = st["audit_pending"]
+        self._handoff_ready = st["handoff_ready"]
         self.telemetry._totals = st["telemetry"]
         apply_deltas(self.metrics, self.stats, st["deltas"])
+        if st["trace"] is not None and self.tracer is not None:
+            self._ingest(st["trace"])
+        dumps = []
+        a = self.auditor
+        if a is not None and st["audit"] is not None:
+            a._stats, a.pending = st["audit"], st["audit_pending"]
+            for r in st["audits"]:
+                a.results.append(r)
+                # what the auditor does in one process (the
+                # audit_divergence instant came with the spans)
+                if not r.matched and r.source != "dkv-structural" \
+                        and a.flight is not None:
+                    dumps.append(f"audit-{r.source}")
+        return dumps
+
+    def _ingest(self, trace: dict) -> None:
+        """Re-record the leader's spans on this engine's track."""
+        events = trace["events"]
+        for tid in {e["tid"] for e in events} - self._tids:
+            self._tids.add(tid)
+            self.tracer.name_thread(f"rank {self.ctl.leader}",
+                                    pid=self.obs_pid, tid=tid)
+        shift_us = (trace["t0"] - self.clock_offset_ns
+                    - self.tracer.t0_ns) / 1e3
+        self.tracer.ingest(events, self.obs_pid, shift_us)
 
     def _break(self, err: BaseException) -> None:
         log.error("engine control group %s failed: %s", self.ctl, err)
@@ -426,6 +641,8 @@ class EngineProxy:
         self.scheduler.idle = True
         self.scheduler.live_rows = self.scheduler.slots_used = 0
         self.scheduler.paused = []
+        self._audit_pending = False
+        self._handoff_ready = 0
         if self.on_break is not None:
             self.on_break(self)
 
@@ -450,10 +667,25 @@ class EngineProxy:
     def step(self) -> List[Completion]:
         return self._call("step")
 
+    def attach_auditor(self, auditor) -> None:
+        """Every rank of the engine builds its own ``ShadowAuditor`` of
+        ``auditor``'s config; rank 0 keeps an ``AuditorView`` of the
+        leader's, with ``auditor``'s flight recorder."""
+        self.auditor = AuditorView(auditor.config, flight=auditor.flight)
+        self._call("attach_auditor", auditor.config)
+
     def audit_tick(self) -> bool:
-        # an engine on a mesh carries no auditor (ROADMAP A11.2): the
-        # op would be a no-op on every rank, so none is sent
-        return False
+        # the auditor's own gate (ShadowAuditor.tick), read from the
+        # snapshot: no op while nothing is pending or traffic owns the
+        # engine, so an idle loop sends none
+        s = self.scheduler
+        if not self._audit_pending or s.waiting \
+                or s.slots_used >= s.max_slots:
+            return False
+        try:
+            return bool(self._call("audit_tick"))
+        except EngineBroken:
+            return False            # the loop's next step reports it
 
     @property
     def audit_pending(self) -> bool:
@@ -486,7 +718,15 @@ class EngineProxy:
         self._call("return_paused", req, state)
 
     def take_handoffs(self) -> list:
-        return []                   # no prefill pool on a mesh (A11.2)
+        """The rows the last step primed, each with its chunk KV
+        (``handoff_kv``); no op while the snapshot shows none."""
+        if self.broken is not None or not self._handoff_ready:
+            return []               # (a broken engine's KV died with it)
+        return self._call("take_handoffs")
+
+    def adopt_handoff(self, req, wait_s: Optional[float] = None) -> int:
+        kv, req.handoff_kv = req.handoff_kv, None
+        return self._call("adopt_handoff", req, wait_s, kv)
 
     def expected_prefix_hit(self, prompt) -> int:
         if self.prefix_cache is None or self.broken is not None:
@@ -507,14 +747,16 @@ class EngineProxy:
         self.router.subscribe(uid, fn)
 
     def set_tracer(self, tracer, label: str) -> None:
-        """Rank 0's tracer: engine 0's own spans when rank 0 decodes it
-        (the engines on other ranks record none: ROADMAP A11.2)."""
+        """Rank 0's tracer: engine 0's own spans when rank 0 decodes it;
+        an engine led from another rank records into the leader's tracer
+        (the ``set_tracer`` op), re-recorded here as results come."""
         self.tracer = tracer
         if self.replica is not None:
             self.replica.engine.set_tracer(tracer, label)
             self.obs_pid = self.replica.engine.obs_pid
         else:
             self.obs_pid = tracer.process(label)
+            self._call("set_tracer", label)
 
     def graph_cache_size(self) -> int:
         return self.scheduler.graph_cache_size()

@@ -164,6 +164,8 @@ class BlockScheduler:
         # (``take_handoffs`` / ``adopt_handoff``).
         self.prefill_only = prefill_only
         self.handoff_ready: List[ServeRequest] = []
+        self.primed_rows = 0           # rows a prefill-only tick primed
+        self.handoff_hit_tokens = 0    # adopted rows' hits at admission
         # busy-seconds split by phase (prefill = prefill passes, decode =
         # decode_block walls)
         self.prefill_wall_s = 0.0
@@ -599,6 +601,7 @@ class BlockScheduler:
                 req.logit_syncs += dlogit
                 self._trace_handoff(req)
                 self.handoff_ready.append(req)
+                self.primed_rows += 1
             self._release(gang.decoder, st)
         self.gangs = []
 
@@ -908,6 +911,9 @@ class BlockScheduler:
                 # by construction; keep the prefill engine's number, the
                 # one that measures reuse across requests
                 r.cache_hit_tokens = int(state.prefix_hit_tokens[i])
+            elif state.prefix_hit_tokens is not None:
+                # ... and count that hit apart: the handoff's own check
+                self.handoff_hit_tokens += int(state.prefix_hit_tokens[i])
             self._trace_admit(r)
         rows: List[Optional[ServeRequest]] = \
             list(batch_reqs) + [None] * (padded - n)

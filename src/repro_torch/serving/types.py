@@ -43,6 +43,10 @@ class ServeRequest:
                                        # per harvested block: (K,) float32
                                        # commit-time confidences for this
                                        # row (repro.obs.audit calibration)
+    handoff_kv: Optional[list] = None  # a handoff between processes
+                                       # (serving.replica): the primed
+                                       # chunk KV, one chain per model
+                                       # coordinate of the prefill mesh
 
     @property
     def bucket(self):

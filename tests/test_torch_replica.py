@@ -12,9 +12,18 @@ both ranks in the same order:
   1, whose proxy rank 0 holds and drives beside a plain engine given the
   same calls; a waiting request and a parked row stolen from engine 1
   and adopted by engine 0 (the row's host state pickled across ranks);
+* (D) one engine on mesh (1, 2) with a ``ShadowAuditor`` attached
+  through the proxy (rate 1, the host lane): every rank audits on the
+  engine's mesh; then the leader's auditor flips one served token
+  (``inject``) and rank 0's ``FlightRecorder`` dumps;
+* (E) a pool across ranks: engine 0 (rank 0) decodes, engine 1 (rank 1)
+  only prefills; rank 0 takes engine 1's handoffs (the chunk KV gathered
+  to its leader over the control group, rank 0 sending none) and adopts
+  them on engine 0, whose store then holds each prompt's chain;
 * (C) mesh (2, 1) again, rank 1's engine one uid ahead (a request
   submitted to it alone): its first replayed ``submit`` raises
-  ``ReplicaDivergence`` and the rank leaves; rank 0's proxy breaks.
+  ``ReplicaDivergence`` and the rank leaves; rank 0's proxy breaks, and
+  a crash dump of it still writes.
 
 Held: the follower's ops are the leader's, in order; after every op the
 proxy's reads (scheduler, metrics, stats, histograms, telemetry, graph
@@ -22,6 +31,7 @@ count) equal the engine's it stands for; every completion equals its
 prompt's decode alone on one rank (tiny, float32, bit for bit); a
 broken proxy hands back the requests it knew were waiting and fails the
 rest."""
+import dataclasses
 import json
 import os
 import subprocess
@@ -134,6 +144,57 @@ def test_broken_proxy_reroutes_waiting_and_fails_the_rest():
     assert c["probe"] == 0
 
 
+def test_audit_lanes_decode_on_the_engines_mesh():
+    """Both ranks audit the three clean requests alike, each lane decoder
+    on the engine's executor (a lane without it decodes one rank's
+    shard of the weights alone)."""
+    lead, fol = _reports()
+    for d in (lead["D"], fol["D"]):
+        assert d["lane_executor_is_engines"] and d["lanes"] >= 1
+    clean = lead["D"]["clean"]
+    assert clean["completed"] == 3 and clean["errors"] == 0
+    assert sum(clean["divergences"].values()) == 0
+    assert lead["D"]["leader_clean"] == clean
+    # the follower audited the fourth request too, and found it clean
+    assert fol["D"]["stats"]["completed"] == 4
+    assert sum(fol["D"]["stats"]["divergences"].values()) == 0
+    assert lead["D"]["tokens"] == {p: lead["alone"][p]
+                                   for p in PROMPTS[:4]}
+
+
+def test_injected_divergence_reaches_rank0_flight_recorder():
+    lead, _ = _reports()
+    d = lead["D"]
+    assert d["flipped"] == ["host"]
+    assert d["stats"]["completed"] == 4
+    assert d["stats"]["divergences"]["fused-vs-host"] == 1
+    assert d["metrics_divergences"] == 1
+    assert d["diverged"] == [{"lane": "host", "matched": False,
+                              "source": "fused-vs-host", "position": 0}]
+    assert d["dumps"] == ["flight-000-audit-fused-vs-host"]
+    assert {"metrics.json", "state.json"} <= set(d["dump_files"])
+
+
+def test_crash_dump_of_a_broken_proxy_writes():
+    lead, _ = _reports()
+    c = lead["C"]
+    assert {"metrics.json", "state.json"} <= set(c["crash_dump"])
+    assert c["crash_dump_schedulers"] == 1
+
+
+def test_handoff_carries_chunk_kv_across_ranks():
+    lead, fol = _reports()
+    e = lead["E"]
+    assert e["before"] == [] and e["handed"] == 2
+    # one chain (one model coordinate) of the prompt's 3 chunks each
+    assert e["chains"] == [[3], [3]]
+    assert e["probe_before"] == [0, 0] and e["probe_after"] == [12, 12]
+    assert e["hit_tokens"] == 24 and e["bytes"] > 0
+    assert e["prefill_ops"]["take_handoffs"] == 1
+    assert e["tokens"] == e["alone"]
+    assert "take_handoffs" in fol["E"]
+
+
 def test_mirror_keeps_the_loops_own_counters():
     """The mirror adds what changed on the leader's engine to what rank
     0's loop wrote itself (admission rejects, front-end cancels)."""
@@ -194,6 +255,7 @@ def _rank_main():
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
     rank = dist.get_rank()
+    from repro_torch.cache import PrefixKVCache
     from repro_torch.core.decoder import DecodeConfig
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.launch.mesh import make_submeshes
@@ -202,6 +264,10 @@ def _rank_main():
     from repro_torch.serving import (ContinuousEngine, DecodeExecutor,
                                      EngineProxy, Replica, ReplicaDivergence,
                                      follow, make_control_groups)
+    from repro_torch.obs.audit import (AuditConfig, FlightRecorder,
+                                       ShadowAuditor)
+    from repro_torch.server.http import _flight_state
+    from repro_torch.server.loop import EngineLoop
     from repro_torch.serving.replica import EngineBroken
 
     cfg = get_config("tiny", dtype="float32", param_dtype="float32")
@@ -339,6 +405,113 @@ def _rank_main():
         out["B"] = [list(h) for h in rep.history]
     del rep
 
+    # (D) one engine on (1, 2), audited through the proxy on the host
+    # lane; then the leader's auditor flips the first served token
+    meshes = make_submeshes(1, 1, 2)
+    ctl = make_control_groups(meshes)[0]
+    rep = Replica(engine(meshes[0]))
+
+    def lanes_on_mesh(a):
+        ex = rep.engine.scheduler.executor
+        return {"lanes": len(a._lane_decoders),
+                "lane_executor_is_engines": ex is not None and all(
+                    d.executor is ex for d in a._lane_decoders.values())}
+    if rank == 0:
+        flight_dir = tempfile.mkdtemp()
+        p = proxy(ctl, rep)
+        p.attach_auditor(ShadowAuditor(
+            p, AuditConfig(sample_rate=1.0, oracle="host"),
+            flight=FlightRecorder(flight_dir)))
+        done = {}
+
+        def serve(prompts):
+            uids = {p.submit(pr, GEN): pr for pr in prompts}
+            while not p.scheduler.idle or p.audit_pending:
+                for c in (p.step() if not p.scheduler.idle else []):
+                    done[uids[c.uid]] = c.tokens.tolist()
+                p.audit_tick()
+        serve(PROMPTS[:3])
+        clean, leader_clean = p.auditor.stats(), rep.engine.auditor.stats()
+        flipped = []
+
+        def flip(toks, lane):
+            if not flipped:
+                flipped.append(lane)
+                toks[0] += 1
+            return toks
+        rep.engine.auditor.inject = flip
+        serve(PROMPTS[3:4])
+        p.stop()
+        dumps = sorted(os.listdir(flight_dir))
+        out["D"] = {
+            "clean": clean, "leader_clean": leader_clean,
+            "stats": p.auditor.stats(), "flipped": flipped,
+            "metrics_divergences": p.metrics.audit_divergences,
+            "diverged": [{"lane": r.lane, "matched": r.matched,
+                          "source": r.source, "position": r.position}
+                         for r in p.auditor.results if not r.matched],
+            "dumps": dumps,
+            "dump_files": sorted(os.listdir(os.path.join(
+                flight_dir, dumps[0]))) if dumps else [],
+            "tokens": done, **lanes_on_mesh(rep.engine.auditor)}
+    else:
+        follow(rep, ctl)
+        out["D"] = {"stats": rep.engine.auditor.stats(),
+                    **lanes_on_mesh(rep.engine.auditor)}
+    del rep
+
+    # (E) engine 1 (rank 1) primes, engine 0 (rank 0) decodes
+    pdcfg = dataclasses.replace(dcfg, prefix_cache=True, cache_chunk=4)
+
+    def pool_engine(ex=None, prefill_only=False):
+        store = PrefixKVCache(chunk_tokens=4, shared=True,
+                              placement=ex.shape_key) if ex else None
+        return ContinuousEngine(cfg, params, pdcfg, tokenizer=tok,
+                                device="cpu", executor=ex, max_slots=4,
+                                prefix_cache=store,
+                                prefill_only=prefill_only)
+    meshes = make_submeshes(2, 1, 1)
+    ctls = make_control_groups(meshes)
+    rep = Replica(pool_engine(DecodeExecutor(cfg, params, meshes[rank],
+                                             device="cpu"), rank == 1))
+    if rank == 0:
+        p0 = EngineProxy(ctls[0], cfg=cfg, dcfg=pdcfg, tokenizer=tok,
+                         replica=rep, prefix_cache=4)
+        p1 = EngineProxy(ctls[1], cfg=cfg, dcfg=pdcfg, tokenizer=tok,
+                         prefix_cache=4, prefill_only=True)
+        for pr in PROMPTS[:2]:
+            p1.submit(pr, GEN)
+        e = {"before": p1.take_handoffs()}        # none primed: no op
+        p1.step()
+        reqs = p1.take_handoffs()
+        e.update(handed=len(reqs),
+                 chains=[[len(c) for c in r.handoff_kv] for r in reqs])
+        e["probe_before"] = [p0.prefix_cache.match_len(tok.encode(pr))
+                             for pr in PROMPTS[:2]]
+        prompt_of = {p0.adopt_handoff(r): tok.decode(r.prompt_tokens)
+                     for r in reqs}
+        done = {}
+        while not p0.scheduler.idle:
+            for c in p0.step():
+                done[prompt_of[c.uid]] = c.tokens.tolist()
+        e.update(tokens=done, hit_tokens=p0.metrics.handoff_hit_tokens,
+                 bytes=p0.metrics.handoff_bytes, prefill_ops=dict(p1.ops),
+                 probe_after=[p0.prefix_cache.match_len(tok.encode(pr))
+                              for pr in PROMPTS[:2]])
+        p0.stop()
+        p1.stop()
+        alone = {}
+        for pr in PROMPTS[:2]:
+            eng = pool_engine()
+            eng.submit(pr, GEN)
+            alone[pr] = eng.run_to_completion()[0].tokens.tolist()
+        e["alone"] = alone
+        out["E"] = e
+    else:
+        follow(rep, ctls[1])
+        out["E"] = [h[1] for h in rep.history]
+    del rep
+
     # (C) rank 1's engine is one uid ahead: it diverges at the first
     # submit and leaves; rank 0's proxy breaks
     meshes = make_submeshes(1, 2, 1)
@@ -373,6 +546,14 @@ def _rank_main():
                            "n_tokens": int(comp.n_tokens)} if comp else None,
                 "idle": p.scheduler.idle, "steal_paused": p.steal_paused(),
                 "probe": p.expected_prefix_hit(PROMPTS[0])}
+    # the loop's crash dump reads the proxy's last state, with no op
+    flight = FlightRecorder(tempfile.mkdtemp())
+    lp = EngineLoop(p)
+    flight.state_provider = lambda: _flight_state([lp])
+    path = flight.dump("crash")
+    out["C"]["crash_dump"] = sorted(os.listdir(path)) if path else []
+    with open(os.path.join(path, "state.json")) as f:
+        out["C"]["crash_dump_schedulers"] = len(json.load(f)["schedulers"])
     print(json.dumps(out), flush=True)
     os._exit(0)
 

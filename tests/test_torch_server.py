@@ -563,22 +563,34 @@ def test_cli_fleet_flags_are_validated(argv, err):
 
 def test_cli_mesh_flags_name_a11():
     """The mesh flags (ROADMAP A11, ported) are validated before any
-    weights are made: the rank count is engines x data x model, and the
-    layers that do not run on a mesh yet name ROADMAP A11.2;
-    ``tests/test_torch_sharded_decode.py`` and
-    ``tests/test_torch_mesh_http.py`` serve through them on CPU ranks."""
+    weights are made: the rank count is engines x data x model (a pool's
+    engines counted), ``--pool`` needs ``--http`` and ``--prefix-cache``
+    on a mesh too, and the serving layers of A11.2 pass with ``--mesh``;
+    ``tests/test_torch_sharded_decode.py``,
+    ``tests/test_torch_mesh_http.py`` and ``tests/test_torch_mesh_obs.py``
+    serve through them on CPU ranks."""
     from repro_torch.launch import serve
     for argv, err in ((["--force-host-devices", "4"], "pass --mesh"),
                       (["--mesh", "2"], "data,model"),
                       (["--mesh", "2,1", "--engines", "2",
                         "--force-host-devices", "2"], "needs 4 ranks"),
                       (["--mesh", "1,1", "--pool", "prefill:1,decode:1",
-                        "--http", "1", "--prefix-cache"], "A11.2"),
-                      (["--mesh", "1,1", "--audit-rate", "0.5", "--http",
-                        "1"], "A11.2"),
+                        "--http", "1", "--prefix-cache"], "needs 2 ranks"),
+                      (["--mesh", "1,1", "--pool", "prefill:1,decode:1",
+                        "--prefix-cache"], "needs --http"),
+                      (["--mesh", "1,1", "--pool", "prefill:1,decode:1",
+                        "--http", "1"], "needs --prefix-cache"),
                       (["--mesh", "2,1", "--force-host-devices", "1"],
                        "needs 2 ranks"),
                       (["--mesh", "2,1", "--mode", "batch"],
                        "continuous engine")):
         with pytest.raises(SystemExit, match=err):
             serve.main(["--device", "cpu", *argv])
+    passing = [serve.parse_args(["--device", "cpu", *argv]) for argv in (
+        ["--mesh", "1,1", "--pool", "prefill:1,decode:1", "--http", "1",
+         "--prefix-cache", "--force-host-devices", "2"],
+        ["--mesh", "1,1", "--audit-rate", "0.5", "--http", "1",
+         "--flight-dir", "d", "--profile-blocks", "2"])]
+    for args in passing:
+        serve.check_args(args)
+    assert [a.engines for a in passing] == [2, 1]
